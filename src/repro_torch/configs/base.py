@@ -1,0 +1,329 @@
+"""Config system: model architecture configs + input shapes + registry.
+
+Every assigned architecture gets a module ``src/repro/configs/<id>.py``
+exposing ``CONFIG``. The registry resolves ``--arch <id>`` strings.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Architecture config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    rank: int = 16
+    alpha: float = 32.0
+    # which projections carry adapters (paper: "within each transformer layer")
+    targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    dtype: str = "float32"  # adapters train in fp32; backbone stays bf16
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. ``family`` picks the layer type:
+
+    dense  - GQA transformer decoder (RoPE / SwiGLU)
+    moe    - GQA attention + top-k mixture-of-experts MLP
+    ssm    - Mamba2 (SSD) attention-free blocks
+    hybrid - parallel attention + Mamba heads per layer (Hymba)
+    audio  - dense decoder over precomputed codec-frame embeddings (stub frontend)
+    vlm    - dense decoder over precomputed patch embeddings (stub frontend)
+    """
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int            # query heads (0 for pure SSM)
+    n_kv_heads: int
+    d_ff: int               # dense MLP width; for moe: per-expert width
+    vocab_size: int
+    head_dim: int = 0       # 0 => d_model // n_heads
+    # attention options
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0          # 0 => full causal; >0 => SWA width
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # SSM (mamba2 / hybrid)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    # frontend stub: 'tokens' (embedding lookup) or 'embeds' (precomputed)
+    input_mode: str = "tokens"
+    # serving: 'model' (=cfg.dtype) or 'int8' (paper's phi-compression idea
+    # applied to the resident KV cache: halves decode HBM at rest)
+    kv_cache_dtype: str = "model"
+    # norm/misc
+    rms_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    lora: LoRAConfig = field(default_factory=LoRAConfig)
+    source: str = ""        # citation for the assigned config
+
+    # ---- derived ---------------------------------------------------------
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding/head param rows padded to a 256 multiple so the vocab
+        dim shards cleanly (odd vocabs like 92553 otherwise force GSPMD to
+        shard d_model and all-reduce full partial logits — §Perf-2)."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.n_heads:
+            return self.d_model // self.n_heads
+        return 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.family == "moe"
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model if self.has_ssm else 0
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim if self.has_ssm else 0
+
+    # ---- parameter counts (analytic; used by the cost model & roofline) ---
+    def attn_params_per_layer(self) -> int:
+        if self.is_attention_free:
+            return 0
+        d, q, kv = self.d_model, self.q_dim, self.kv_dim
+        p = d * q + 2 * d * kv + q * d
+        if self.qkv_bias:
+            p += q + 2 * kv
+        if self.qk_norm:
+            p += 2 * self.resolved_head_dim
+        return p
+
+    def mlp_params_per_layer(self) -> int:
+        d = self.d_model
+        if self.is_moe:
+            per_expert = 3 * d * self.d_ff
+            total = (self.n_experts + self.n_shared_experts) * per_expert
+            total += d * self.n_experts  # router
+            return total
+        if self.family == "ssm":
+            di, ns = self.ssm_d_inner, self.ssm_state
+            nh = self.ssm_n_heads
+            # in_proj -> (z, x, B, C, dt), conv, dt/A/D, out_proj
+            in_proj = d * (2 * di + 2 * ns + nh)
+            conv = self.ssm_conv_width * (di + 2 * ns)
+            extra = 2 * nh + nh  # A_log, D, dt_bias
+            out_proj = di * d
+            return in_proj + conv + extra + out_proj + di  # + gate norm
+        return 3 * d * self.d_ff
+
+    def ssm_params_per_layer(self) -> int:
+        if self.family != "hybrid":
+            return 0
+        di, ns, nh = self.ssm_d_inner, self.ssm_state, self.ssm_n_heads
+        in_proj = self.d_model * (2 * di + 2 * ns + nh)
+        conv = self.ssm_conv_width * (di + 2 * ns)
+        return in_proj + conv + 3 * nh + di * self.d_model + di
+
+    def params_per_layer(self) -> int:
+        norms = 2 * self.d_model
+        return (self.attn_params_per_layer() + self.mlp_params_per_layer()
+                + self.ssm_params_per_layer() + norms)
+
+    def embed_params(self) -> int:
+        p = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            p += self.vocab_size * self.d_model  # lm head
+        p += self.d_model  # final norm
+        return p
+
+    def total_params(self) -> int:
+        return self.n_layers * self.params_per_layer() + self.embed_params()
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.is_moe:
+            return self.total_params()
+        per_expert = 3 * self.d_model * self.d_ff
+        inactive = (self.n_experts - self.top_k) * per_expert
+        return self.total_params() - self.n_layers * inactive
+
+    def lora_params_per_layer(self) -> int:
+        r, d = self.lora.rank, self.d_model
+        hd = self.resolved_head_dim
+        total = 0
+        t = self.lora.targets
+        if not self.is_attention_free:
+            if "wq" in t:
+                total += r * (d + self.q_dim)
+            if "wk" in t:
+                total += r * (d + self.kv_dim)
+            if "wv" in t:
+                total += r * (d + self.kv_dim)
+            if "wo" in t:
+                total += r * (self.q_dim + d)
+        if self.is_moe:
+            # adapters on shared dims only (router stays frozen): per-expert
+            # adapters would defeat PEFT; we adapt the expert-merged output via
+            # a single (d,d) adapter pair per layer.
+            total += 2 * r * d
+        elif self.family == "ssm":
+            di = self.ssm_d_inner
+            total += r * (d + di) + r * (di + d)  # in/out proj adapters
+        else:
+            if "w_gate" in t:
+                total += r * (d + self.d_ff)
+            if "w_up" in t:
+                total += r * (d + self.d_ff)
+            if "w_down" in t:
+                total += r * (self.d_ff + d)
+        if self.family == "hybrid":
+            di = self.ssm_d_inner
+            total += r * (d + di) + r * (di + d)
+        del hd
+        return total
+
+    # ---- reduced variant for CPU smoke tests ------------------------------
+    def reduced(self) -> "ModelConfig":
+        """Same family, tiny: <=2 layers, d_model<=512, <=4 experts."""
+        d = min(self.d_model, 256)
+        hd = 32
+        n_heads = max(1, min(self.n_heads, 4)) if self.n_heads else 0
+        n_kv = max(1, min(self.n_kv_heads, 2)) if self.n_kv_heads else 0
+        if n_heads and n_kv:
+            n_heads = (n_heads // n_kv) * n_kv or n_kv
+        return replace(
+            self,
+            n_layers=2,
+            d_model=d,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=hd if n_heads else 0,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            # cf = E/k makes the reduced MoE dropless: worst-case per-expert
+            # load is T (every token picks it), and cap = T*k/E * (E/k) = T.
+            # Keeps teacher-forced forward == step-by-step decode in tests.
+            capacity_factor=(min(self.n_experts, 4) / min(self.top_k, 2)
+                             if self.n_experts else self.capacity_factor),
+            n_shared_experts=min(self.n_shared_experts, 1),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.has_ssm else self.ssm_head_dim,
+            ssm_chunk=32 if self.has_ssm else self.ssm_chunk,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            dtype="float32",
+            lora=replace(self.lora, rank=4, alpha=8.0),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding window used for the long-context decode variant of attention archs.
+LONG_CONTEXT_WINDOW = 8_192
+
+
+def long_context_variant(cfg: ModelConfig) -> Optional[ModelConfig]:
+    """Config variant used for long_500k, or None if the arch cannot run it.
+
+    SSM archs run natively (constant state). Attention archs require the
+    sliding-window variant (full attention at 524k is out of scope per spec);
+    we return the SWA variant for them, which is a *different* (sub-quadratic)
+    attention than their default.
+    """
+    if cfg.family == "ssm":
+        return cfg
+    window = cfg.sliding_window or LONG_CONTEXT_WINDOW
+    return replace(cfg, sliding_window=min(window, LONG_CONTEXT_WINDOW))
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+ARCH_IDS = (
+    "phi3-medium-14b",
+    "qwen3-0.6b",
+    "granite-moe-3b-a800m",
+    "kimi-k2-1t-a32b",
+    "mamba2-370m",
+    "musicgen-large",
+    "qwen3-4b",
+    "hymba-1.5b",
+    "internvl2-26b",
+    "qwen2-7b",
+    "llama32-1b",  # the paper's own simulation model (Sec. V)
+)
+
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULE_FOR:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_FOR)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
+    cfg = mod.CONFIG
+    assert cfg.name == arch, (cfg.name, arch)
+    return cfg
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+def asdict(cfg: ModelConfig) -> dict:
+    return dataclasses.asdict(cfg)
