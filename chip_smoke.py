@@ -9,8 +9,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   device   the card's name and power limit, torch and CUDA versions
   build    nvcc builds ``src/repro_torch/csrc/*.cu`` from the checkout
   kernels  every hand-written kernel against its plain PyTorch version on
-           the card (main-path shapes and ragged ones, bf16 and f32), then
-           timed with CUDA events beside the plain version, one PyTorch
+           the card (main-path shapes and ragged ones, bf16 and f32; every
+           call of the calibrate path's probe ladder and kernel benches on
+           its own inputs), then timed with CUDA events beside the plain version, one PyTorch
            library call for the same function, and the card's bound
   serve    full-width llama32-1b (32 layers, random weights from a seed),
            four non-zero LoRA adapters, ``ServingEngine`` with the fused
@@ -18,6 +19,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
            against the port's own plain LoRA path
   prefill  ``make_prefill_step(impl="flash")`` on (4, 1024) tokens against
            ``impl="naive"``
+  calibrate  ``launch/calibrate``: the full probe ladder through the Hopper
+           kernels (CUDA-event timings), the roofline fit, one latency
+           table per architecture, the four kernel benches; then
+           ``batched_card`` on the card with analytic and measured tables
+           for four full configs x three channel states over a 100-device
+           fleet, and the batched decisions held to the scalar float64
+           ``card`` on every (round, device) of one state
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line; the line before the last holds the card's name and
@@ -30,6 +38,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,12 +49,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# published peaks of one H100 SXM (dense): bytes/s of HBM3, FLOP/s by type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
 LORA_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}   # x max|want|
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # absolute
+# flash_decode as attention; ssd_intra_chunk (f32 only) at the reference
+# tests' 1e-4, absolute on y, the states and the decay vectors
+DECODE_TOL = ATTN_TOL
+SSD_TOL = 1e-4
 KN_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 
 
@@ -60,31 +69,14 @@ def gpu_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(calls, warmup: int = 3, iters: int = 20) -> float:
-    """Mean device milliseconds per call. ``calls`` is a list of thunks over
-    distinct weight buffers, so that weights come from device memory and not
-    from the L2 cache, as they do on the main path. One round of the calls is
-    captured into a CUDA graph and the graph is replayed between two events:
-    several of these kernels are shorter than the host takes to launch them,
-    and an eager loop would time the host."""
-    for _ in range(warmup):
-        for c in calls:
-            c()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for c in calls:
-            c()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (iters * len(calls))
+def time_ms(calls, reps: int = 10) -> float:
+    """Device milliseconds per call, best of ``reps`` replays of a CUDA
+    graph (``measured_cost.time_cuda``, the calibrate path's timer).
+    ``calls`` is a list of thunks over distinct weight buffers, so that
+    weights come from device memory and not from the L2 cache, as they do on
+    the main path."""
+    from repro_torch.core.measured_cost import time_cuda
+    return time_cuda(calls, reps) * 1e3
 
 
 def randn(rng, shape, dtype, scale=1.0):
@@ -175,10 +167,10 @@ def check_flash(rng, b, sq, skv, hq, hkv, d, dtype, causal=True, window=0):
 
 
 def bound(bytes_moved: float, flops: float, dtype):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """(least ms an H100 could take, "bytes" | "operations")."""
+    from repro_torch.launch.calibrate import h100_bound_s
+    seconds, by = h100_bound_s(bytes_moved, flops, dtype)
+    return seconds * 1e3, by
 
 
 def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
@@ -192,7 +184,7 @@ def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
     err, tol = check_lora_matmul(rng, m, k, n, r, dtype, scale)
     ms = time_ms([lambda w=w: lm.lora_matmul(x, w, a, b, scale) for w in ws])
     plain = time_ms([lambda w=w: lm.lora_matmul_ref(x, w, a, b, scale)
-                     for w in ws], iters=5)
+                     for w in ws], reps=5)
     lib = time_ms([lambda w=w: torch.addmm(x @ w, x @ a, b, alpha=scale)
                    for w in ws])
     bytes_moved = es * (m * k + k * n + k * r + r * n + m * n)
@@ -231,7 +223,7 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
                         for w in offs])
     plain = time_ms([lambda w=w: lm.lora_matmul_grouped_ref(x, w, a, b, ids,
                                                             scale)
-                     for w in ws], iters=5)
+                     for w in ws], reps=5)
     lib = time_ms([lambda w=w: torch.baddbmm(
         (x[:, 0] @ w)[:, None], torch.bmm(x, a[idl]), b[idl], alpha=scale)
         for w in ws])
@@ -255,12 +247,12 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
     v = randn(rng, (b, s, hkv, d), dtype)
     err, tol = check_flash(rng, b, s, s, hq, hkv, d, dtype)
     ms = time_ms([lambda: ops.flash_attention(q, k, v, causal=True)],
-                 iters=10)
+                 reps=10)
     qp, kp, vp = (t.permute(0, 2, 1, 3) for t in (q, k, v))
     plain = time_ms([lambda: fa.flash_attention_ref(qp, kp, vp, causal=True)],
-                    iters=5)
+                    reps=5)
     lib = time_ms([lambda: F.scaled_dot_product_attention(
-        qp, kp, vp, is_causal=True, enable_gqa=True)], iters=10)
+        qp, kp, vp, is_causal=True, enable_gqa=True)], reps=10)
     pairs = s * (s + 1) // 2                      # unmasked (query, key) pairs
     bytes_moved = es * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     flops = 4.0 * d * pairs * b * hq
@@ -272,8 +264,185 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
             "bound_by": by}
 
 
+def check_ssd(rng, b, nc, cl, nh, hp, ns):
+    from repro_torch.kernels import ssd_scan as ss
+    xt, a, B, C = ssd_inputs(rng, b, nc, cl, nh, hp, ns)
+    got = ss.ssd_intra_chunk(xt, a, B, C)
+    torch.cuda.synchronize()
+    want = ss.ssd_intra_chunk_ref(xt, a, B, C)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not (math.isfinite(err) and err <= SSD_TOL):
+        raise AssertionError(f"ssd_intra_chunk {(b, nc, cl, nh, hp, ns)}: "
+                             f"max err {err} > tol {SSD_TOL}")
+    return err, SSD_TOL
+
+
+def ssd_inputs(rng, b, nc, cl, nh, hp, ns):
+    f32 = torch.float32
+    return (randn(rng, (b, nc, cl, nh, hp), f32, 0.2),
+            -randn(rng, (b, nc, cl, nh), f32).abs() * 0.1,
+            randn(rng, (b, nc, cl, ns), f32, 0.3),
+            randn(rng, (b, nc, cl, ns), f32, 0.3))
+
+
+def check_ssd_scan(rng, b, length, nh, hp, ns, chunk):
+    """The kernel inside ``ops.ssd_scan`` against ``ssd_chunked``, at a
+    length that is not a multiple of the chunk."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.mamba import ssd_chunked
+    xt, a, B, C = (x[:, 0] for x in ssd_inputs(rng, b, 1, length, nh, hp, ns))
+    y, h = ops.ssd_scan(xt, a, B, C, chunk)
+    torch.cuda.synchronize()
+    y2, h2 = ssd_chunked(xt, a, B, C, chunk)
+    err = max((y - y2).abs().max().item(), (h - h2).abs().max().item())
+    if not (math.isfinite(err) and err <= SSD_TOL):
+        raise AssertionError(f"ssd_scan {(b, length, nh, hp, ns, chunk)}: "
+                             f"max err {err} > tol {SSD_TOL}")
+    return err, SSD_TOL
+
+
+def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0):
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    q = randn(rng, (b, 1, hq, d), dtype)
+    k = randn(rng, (b, s, hkv, d), dtype)
+    v = randn(rng, (b, s, hkv, d), dtype)
+    got = ops.flash_decode(q, k, v, t, window=window).float()
+    torch.cuda.synchronize()
+    want = fd.flash_decode_ref(
+        q[:, 0].reshape(b, hkv, hq // hkv, d), k.permute(0, 2, 1, 3),
+        v.permute(0, 2, 1, 3), t, window=window).float().reshape(b, 1, hq, d)
+    err = (got - want).abs().max().item()
+    tol = DECODE_TOL[dtype]
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(
+            f"flash_decode {(b, s, hq, hkv, d)} t={t} window={window} "
+            f"{dtype}: max err {err} > tol {tol}")
+    return err, tol
+
+
+def time_decode(rng, b, s, hq, hkv, d, t, dtype, window=0):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    es = torch.finfo(dtype).bits // 8
+    copies = n_copies(2 * b * s * hkv * d * es)
+    q = randn(rng, (b, 1, hq, d), dtype)
+    kvs = [(randn(rng, (b, s, hkv, d), dtype), randn(rng, (b, s, hkv, d), dtype))
+           for _ in range(copies)]
+    err, tol = check_decode(rng, b, s, hq, hkv, d, t, dtype, window)
+    ms = time_ms([lambda k=k, v=v: ops.flash_decode(q, k, v, t, window=window)
+                  for k, v in kvs])
+    qf = q[:, 0].reshape(b, hkv, hq // hkv, d)
+    plain = time_ms([lambda k=k, v=v: fd.flash_decode_ref(
+        qf, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), t, window=window)
+        for k, v in kvs], reps=5)
+    valid = fd.valid_slots(t, s, window, "cuda")
+    qh = q.permute(0, 2, 1, 3)                       # (B, Hq, 1, D)
+    lib = time_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+        qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+        attn_mask=valid[None, :], enable_gqa=True) for k, v in kvs])
+    n_valid = int(valid.sum().item())                # what this t reads
+    bytes_moved = es * (2 * b * hq * d + 2 * b * n_valid * hkv * d)
+    flops = 4.0 * d * n_valid * b * hq
+    b_ms, by = bound(bytes_moved, flops, dtype)
+    return {"shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "t": t,
+                      "window": window, "valid_slots": n_valid},
+            "dtype": str(dtype), "max_abs_err": err, "tol": tol, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": by}
+
+
+def ssd_library(xt, a, B, C):
+    """The same function as one composition of PyTorch calls (matmul,
+    masked exp, einsum), for the library column: C.B^T once per chunk and
+    shared by the heads. Used nowhere in the port."""
+    cl = xt.shape[2]
+    cum = torch.cumsum(a, dim=2).permute(0, 1, 3, 2)          # (b,c,h,cl)
+    causal = torch.ones((cl, cl), dtype=torch.bool, device=xt.device).tril()
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~causal,
+                                                              -math.inf)
+    scores = torch.matmul(C, B.transpose(-1, -2))              # (b,c,i,j)
+    y = torch.einsum("bchij,bcjhp->bcihp", scores[:, :, None] * seg.exp(), xt)
+    dec_end = torch.exp(cum[..., -1:] - cum)                   # (b,c,h,cl)
+    st = torch.einsum("bcjn,bchj,bcjhp->bchnp", B, dec_end, xt)
+    dec = torch.stack([cum.exp(), cum[..., -1:].exp().expand_as(cum)],
+                      dim=-1).permute(0, 1, 3, 2, 4)
+    return y, st, dec
+
+
+def time_ssd(rng, b, nc, cl, nh, hp, ns):
+    from repro_torch.kernels import ssd_scan as ss
+    f32 = torch.float32
+    err, tol = check_ssd(rng, b, nc, cl, nh, hp, ns)
+    copies = n_copies(4 * b * nc * cl * nh * hp)
+    ins = [ssd_inputs(rng, b, nc, cl, nh, hp, ns) for _ in range(copies)]
+    ms = time_ms([lambda x=x: ss.ssd_intra_chunk(*x) for x in ins])
+    plain = time_ms([lambda x=x: ss.ssd_intra_chunk_ref(*x) for x in ins],
+                    reps=5)
+    lib_out = ssd_library(*ins[0])
+    lib_err = max((g - w).abs().max().item() for g, w in
+                  zip(lib_out, ss.ssd_intra_chunk_ref(*ins[0])))
+    assert lib_err <= SSD_TOL, lib_err           # it computes the same function
+    lib = time_ms([lambda x=x: ssd_library(*x) for x in ins], reps=5)
+    pairs = cl * (cl + 1) // 2                   # causal (i, j) pairs a chunk
+    # in: xt, a, B, C; out: y, states, dec; every element read/written once
+    elems = (2 * b * nc * cl * nh * hp + b * nc * cl * nh + 2 * b * nc * cl * ns
+             + b * nc * nh * ns * hp + 2 * b * nc * cl * nh)
+    # C.B^T once per chunk; per head the score scaled by its decay (one
+    # multiply a pair), the product with xt, B weighted by the decay to the
+    # chunk's end, and the state
+    flops = b * nc * (2.0 * pairs * ns
+                      + nh * (2.0 * pairs * hp + pairs + cl * ns
+                              + 2.0 * cl * ns * hp))
+    b_ms, by = bound(4 * elems, flops, f32)
+    return {"shape": {"b": b, "nc": nc, "cl": cl, "nh": nh, "hp": hp,
+                      "ns": ns}, "dtype": str(f32), "max_abs_err": err,
+            "tol": tol, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by}
+
+
+def check_ladder(rng):
+    """The calibrate path's calls against their plain versions, f32: every
+    probe of the full ladder on its own inputs (the probe builders draw the
+    kernel's and the plain version's inputs from one seed; the kernel
+    benches' shapes and inputs are among them), and ``ssd_intra_chunk`` at
+    each shape that ``ops.ssd_scan`` hands it there."""
+    from repro_torch.core import measured_cost as mc
+    from repro_torch.launch.calibrate import BENCH_SHAPES
+    dev = torch.device("cuda")
+    ladder = [(kernel, args) for kernel, _, args in mc._FULL_SHAPES]
+    for kernel in ("lora_matmul", "flash_attention", "ssd_scan"):
+        assert (kernel, BENCH_SHAPES[kernel]) in ladder, kernel
+    for kernel, args in ladder:
+        with torch.no_grad():
+            got = mc._BUILDERS[kernel](*args, "cuda", dev)[0]()
+            want = mc._BUILDERS[kernel](*args, "plain", dev)[0]()
+        torch.cuda.synchronize()
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if kernel == "lora_matmul":
+            name = kernel
+            tol = LORA_TOL[torch.float32] * want[0].abs().max().item()
+        elif kernel == "flash_attention":
+            name, tol = kernel, ATTN_TOL[torch.float32]
+        else:
+            name, tol = "ssd_intra_chunk", SSD_TOL
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"calibrate probe {kernel} {args}: max err "
+                                 f"{err} > tol {tol}")
+        yield name, (err, tol)
+        if kernel == "ssd_scan":
+            b, length, nh, hp, ns, chunk = args
+            yield name, check_ssd(rng, b, length // chunk, chunk, nh, hp, ns)
+
+
 def phase_kernels(seed: int):
+    from repro_torch.launch.calibrate import BENCH_SHAPES
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full f32
+    # the calibrate path's flash_decode bench: (B, S, Hq, Hkv, D), t = S - 1
+    decode_bench = BENCH_SHAPES["flash_decode"]
     rng = np.random.default_rng(seed)
     f32, bf16 = torch.float32, torch.bfloat16
     worst = {}
@@ -322,16 +491,45 @@ def phase_kernels(seed: int):
                          ((1, 1024, 1024, 32, 8, 64), {})):
             note("flash_attention", dtype,
                  check_flash(rng, *args, dtype, **kw))
+        # the llama32-1b serving cache, the reference bench's shape, a
+        # ragged cache, a window over a linear cache and two ring buffers
+        for args in ((8, 512, 32, 8, 64, 0), (8, 512, 32, 8, 64, 200),
+                     (8, 512, 32, 8, 64, 511),
+                     (*decode_bench, decode_bench[1] - 1),
+                     (3, 77, 25, 5, 128, 50), (2, 100, 8, 4, 32, 60, 32),
+                     (2, 64, 4, 4, 16, 150, 64),
+                     (8, 512, 32, 8, 64, 1500, 512)):
+            note("flash_decode", dtype, check_decode(rng, *args[:6], dtype,
+                                                     *args[6:]))
+    # mamba2-370m at full width (d_inner 2048 = 32 heads of 64, state 128,
+    # chunk 256; batch 4, length 512) and ragged shapes; f32 only
+    for args in ((4, 2, 256, 32, 64, 128), (2, 3, 16, 2, 8, 12),
+                 (1, 2, 100, 3, 16, 24), (2, 2, 130, 2, 128, 70)):
+        note("ssd_intra_chunk", f32, check_ssd(rng, *args))
+    for args in ((4, 300, 32, 64, 128, 256), (2, 100, 3, 16, 24, 32)):
+        note("ssd_intra_chunk", f32, check_ssd_scan(rng, *args))
+    for name, res in check_ladder(rng):
+        note(name, f32, res)
     emit({"phase": "kernels", "checked": {
         k: {"max_abs_err": e, "tol": t} for k, (e, t) in worst.items()}})
 
     # timing at the shapes the main path gives the kernels (bf16)
-    rows = {"lora_matmul": [], "lora_matmul_grouped": [], "flash_attention": []}
+    rows = {"lora_matmul": [], "lora_matmul_grouped": [], "flash_attention": [],
+            "flash_decode": [], "ssd_intra_chunk": []}
     for k, n in KN_SHAPES:
         rows["lora_matmul"].append(time_lora_matmul(rng, 64, k, n, 16, bf16))
         rows["lora_matmul_grouped"].append(
             time_grouped(rng, 8, k, n, 16, 4, bf16))
     rows["flash_attention"].append(time_flash(rng, 4, 1024, 32, 8, 64, bf16))
+    # flash_decode at the llama32-1b serving cache (bf16 and f32) and at the
+    # reference bench's shape; ssd_intra_chunk at mamba2-370m's full width
+    for dtype in (bf16, f32):
+        for t in (511, 200, 0):
+            rows["flash_decode"].append(
+                time_decode(rng, 8, 512, 32, 8, 64, t, dtype))
+    rows["flash_decode"].append(
+        time_decode(rng, *decode_bench, decode_bench[1] - 1, f32))
+    rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 2, 256, 32, 64, 128))
     emit({"phase": "kernel_times", "by_shape": rows})
     return rows
 
@@ -409,6 +607,7 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     torch.cuda.synchronize()
     prefill_s = time.time() - t1
     counts = kernels.launch_counts()
+    runs = kernels.runs_on_card()
     # ----------------------------------------------------------------------
 
     n_proj = len(cfg.lora.targets) * cfg.n_layers          # 7 x 32
@@ -506,7 +705,7 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     assert pre["f32_flash_vs_naive"] <= f32_tol, pre
     assert pre["bf16_flash_vs_naive"] <= bf16_tol, pre
     assert pre["bf16_flash_vs_f32"] <= 2.0 * pre["bf16_naive_vs_f32"] + 0.05, pre
-    return counts
+    return counts, runs
 
 
 def step_breakdown(cfg, frozen, bank, toks, profile: bool):
@@ -572,6 +771,74 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# calibrate phase
+# ---------------------------------------------------------------------------
+
+CARD_ARCHS = ("llama32-1b", "qwen3-4b", "granite-moe-3b-a800m", "mamba2-370m")
+
+
+def phase_calibrate(seed: int):
+    """The measured-cost path: probes through the Hopper kernels, the fit,
+    the tables, the kernel benches; then CARD on the card with the
+    analytic and the measured tables, held to the scalar oracle."""
+    from repro_torch import kernels
+    from repro_torch.launch import calibrate
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    payload = calibrate.run(smoke=False, reps=3)       # device=None: the card
+    counts = kernels.launch_counts()
+    runs = kernels.runs_on_card()
+    # ----------------------------------------------------------------------
+    fit = payload["roofline_fit"]
+    emit({"phase": "calibrate", "gpu": gpu_line(), "device": payload["device"],
+          "seconds": payload["seconds"], "probes": payload["probes"],
+          "fit": fit, "kernel_benches": payload["kernels"],
+          "inflation": {r["arch"]: r["inflation"]
+                        for r in payload["measured"]["rows"]},
+          "launches": counts, "runs_on_card": runs})
+    assert len(payload["probes"]) == 12, payload["probes"]
+    assert all(p["backend"] == "cuda" and p["seconds"] > 0
+               and math.isfinite(p["seconds"]) for p in payload["probes"])
+    assert all(math.isfinite(fit[k]) for k in
+               ("overhead_s", "inv_compute_s_per_flop",
+                "inv_bandwidth_s_per_byte", "rel_residual")), fit
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.core.measured_cost import LatencyTable
+    tables = {a: LatencyTable.from_dict(t)
+              for a, t in payload["latency_tables"].items()}
+    assert set(tables) == set(ARCH_IDS)
+    for arch, table in tables.items():
+        assert table.n_layers == get_config(arch).n_layers
+        assert table.source == "measured:cuda"
+        assert all(math.isfinite(x) and x > 0
+                   for x in (table.embed_s, table.head_s, *table.layer_s))
+    for name in ("lora_matmul", "flash_attention", "ssd_intra_chunk",
+                 "flash_decode"):
+        assert 0 < counts[name] <= runs[name], (name, counts, runs)
+
+    t0 = time.time()
+    div = calibrate.decision_divergence(tables, archs=CARD_ARCHS, seed=seed)
+    torch.cuda.synchronize()
+    emit({"phase": "card_divergence", "seconds": time.time() - t0, **div})
+    for cell in div["cells"]:
+        assert 0.0 <= cell["mean_cut_analytic"] <= get_config(
+            cell["arch"]).n_layers, cell
+        assert math.isfinite(cell["mean_delay_ratio"]), cell
+
+    t0 = time.time()
+    agree = [calibrate.scalar_agreement(arch, tables[arch], seed=seed)
+             for arch in CARD_ARCHS]
+    agree.append(calibrate.scalar_agreement("llama32-1b", None, seed=seed))
+    emit({"phase": "card_vs_scalar", "seconds": time.time() - t0,
+          "near_tie_rel": calibrate.NEAR_TIE_REL, "cells": agree})
+    for cell in agree:
+        assert cell["disagree_beyond_near_ties"] == 0, cell
+        assert cell["worst_freq_rel_diff"] <= 1e-5, cell
+    return counts, runs
+
+
+# ---------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -581,9 +848,19 @@ SOURCES = {
                             "src/repro/kernels/lora_matmul.py:170"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:107"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:109"),
+    "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan.py:80"),
 }
 # the shape whose numbers head each kernel's entry (all shapes: "by_shape")
-HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0}
+HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
+            "flash_decode": 0, "ssd_intra_chunk": 0}
+# the path whose launch count each kernel's entry reports: the serving
+# slice's kernels from the serve and prefill run, the others from calibrate
+PATH_OF = {"lora_matmul": "serve", "lora_matmul_grouped": "serve",
+           "flash_attention": "serve", "flash_decode": "calibrate",
+           "ssd_intra_chunk": "calibrate"}
 
 
 def main() -> int:
@@ -613,8 +890,11 @@ def main() -> int:
     seconds = _build.build_all(force=True)
     for name in _build.SOURCES:
         _build.load(name)
-    usage = {name: [ln for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    # distinct register counts, and any line that reports a spill
+    spill = re.compile(r"\b[1-9]\d* bytes spill")
+    usage = {name: sorted({ln.split(":", 1)[-1].strip()
+                           for ln in log.splitlines()
+                           if "registers" in ln or spill.search(ln)})
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES),
           "ptxas": usage})
@@ -625,14 +905,25 @@ def main() -> int:
               "seconds": time.time() - t_start})
         return 0
 
-    counts = phase_serve_and_prefill(args.seed, args.requests, args.profile)
+    by_path = {"serve": phase_serve_and_prefill(args.seed, args.requests,
+                                                args.profile),
+               "calibrate": phase_calibrate(args.seed)}
 
     kernels_line = []
     for name, by_shape in rows.items():
         head = by_shape[HEADLINE[name]]
+        launches = by_path[PATH_OF[name]][0][name]
+        assert launches > 0, (name, by_path)
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": counts[name],
+            "replaces": SOURCES[name][1], "launches": launches,
+            "path": PATH_OF[name],
+            "launches_by_path": {p: c[name] for p, (c, _) in by_path.items()},
+            # the card's runs: a launch captured into a CUDA graph (the
+            # calibrate path's timer) counts once per replay here
+            "runs_on_card": by_path[PATH_OF[name]][1][name],
+            "runs_on_card_by_path": {p: r[name]
+                                     for p, (_, r) in by_path.items()},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-``lora_matmul`` and ``flash_attention`` each hold a wrapper (checks its
-arguments, launches the CUDA kernel on a CUDA tensor, uses the plain version
-only for a CPU tensor, counts its launches) and the plain version beside it;
+``lora_matmul``, ``flash_attention``, ``flash_decode`` and ``ssd_scan`` each
+hold a wrapper (checks its arguments, launches the CUDA kernel on a CUDA
+tensor, uses the plain version only for a CPU tensor, counts its launches)
+and the plain version beside it;
 ``ops`` adapts them to the model's layouts; ``_build`` compiles and binds
 ``csrc/*.cu``. Nothing is built or loaded at import time.
 """
@@ -13,17 +14,44 @@ from typing import Dict
 
 def _wrappers():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ssd_scan as ssd
     return {"lora_matmul": lm.lora_matmul,
             "lora_matmul_grouped": lm.lora_matmul_grouped,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "flash_decode": fd.flash_decode,
+            "ssd_intra_chunk": ssd.ssd_intra_chunk}
+
+
+# launches captured into CUDA graphs, and the runs their replays made
+_captured: Dict[str, int] = {}
+_replayed: Dict[str, int] = {}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches made by each wrapper since the last reset."""
+    """Kernel launches made by each wrapper since the last reset. A launch
+    captured into a CUDA graph counts once, at capture."""
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def note_graph_replays(captured: Dict[str, int], replays: int) -> None:
+    """A CUDA graph holding ``captured[name]`` launches of each kernel was
+    replayed ``replays`` times (the wrappers saw the capture only)."""
+    for name, n in captured.items():
+        _captured[name] = _captured.get(name, 0) + n
+        _replayed[name] = _replayed.get(name, 0) + n * replays
+
+
+def runs_on_card() -> Dict[str, int]:
+    """Kernel runs the card made since the last reset: each wrapper's
+    launches, with those captured into a graph replaced by its replays."""
+    return {name: n - _captured.get(name, 0) + _replayed.get(name, 0)
+            for name, n in launch_counts().items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _captured.clear()
+    _replayed.clear()

@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lora_matmul", "flash_attention")
+SOURCES = ("lora_matmul", "flash_attention", "flash_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,16 @@ _SIGNATURES = {
         # causal, window, is_bf16, stream
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
                                   + [_L] * 12 + [_I, _I, _I, _P],
+    },
+    "flash_decode": {
+        # q, k, v, o, part, B, Hkv, G, S, D, 9 strides (q,k,v x b,h,row),
+        # t, window, nsplit, is_bf16, stream
+        "flash_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                               + [_L] * 9 + [_I, _I, _I, _I, _P],
+    },
+    "ssd_scan": {
+        # xt, a, B, C, y, st, dec, b, nc, cl, nh, hp, ns, stream
+        "ssd_intra_chunk_launch": [_P] * 7 + [_I] * 6 + [_P],
     },
 }
 

@@ -1,0 +1,136 @@
+"""Flash decode: one query token per kv-head group attends over a KV cache,
+with online softmax and the cache masked by a scalar position ``t``.
+
+Replaces: the Pallas TPU kernel ``flash_decode`` of
+``src/repro/kernels/flash_decode.py``. CUDA source: ``csrc/flash_decode.cu``
+(built and bound by ``_build``).
+
+Bound on this card: bytes. Each valid K and V row is read once and serves
+the ``G`` queries of its group; the KV axis is split over blocks (one block
+per (batch, kv head) would leave half of the SMs idle at the serving cache),
+and the splits are merged by their log-sum-exp in a second small kernel.
+Masked slots are not read, so the bytes follow ``t``.
+
+Masking is the TPU kernel's: a ring buffer iff ``0 < window <= slots``
+(slot ``j`` holds position ``t - ((t - j) mod slots)``, valid iff ``>= 0`` and
+``> t - window``), else a linear cache (``j <= t``, and ``j > t - window``
+when ``window > 0``); masked scores are ``-1e30`` and the denominator is
+clamped at ``1e-20``. A query that sees no valid slot at all (``t`` beyond a
+linear cache and its window) is outside the contract: the kernel gives zeros
+there, the plain version the mean of ``v``.
+
+The wrapper launches the kernel for a CUDA tensor, or raises; it uses the
+plain version only for a CPU tensor. ``flash_decode.launches`` counts.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 8
+NEG_INF = -1e30
+
+
+def valid_slots(t: int, slots: int, window: int, device) -> torch.Tensor:
+    """Bool ``(slots,)``: which cache slots position ``t`` attends to."""
+    j = torch.arange(slots, device=device)
+    if 0 < window <= slots:                        # ring buffer
+        abs_pos = t - torch.remainder(t - j, slots)
+        return (abs_pos >= 0) & (abs_pos <= t) & (abs_pos > t - window)
+    valid = j <= t                                 # linear cache
+    if window:
+        valid = valid & (j > t - window)
+    return valid
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     t: int, *, window: int = 0) -> torch.Tensor:
+    """Plain version. q: (..., G, D); k, v: (..., S, D), the leading dims
+    alike; ``t`` the query token's position. Masked softmax over the
+    cache in f32; the result is cast to q.dtype."""
+    f32 = torch.float32
+    d = q.shape[-1]
+    s = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) / math.sqrt(d)
+    valid = valid_slots(t, k.shape[-2], int(window), q.device)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.to(f32)).to(q.dtype)
+
+
+def _n_splits(bh: int, slots: int, sms: int) -> int:
+    """Pieces of the KV axis per (batch, kv head): about two blocks per SM
+    of the ``sms`` the card has, and no piece shorter than 64 slots."""
+    want = -(-2 * sms // bh)
+    return max(1, min(want, -(-slots // 64)))
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 t: int, *, window: int = 0) -> torch.Tensor:
+    """q: (B, Hkv, G, D) or (BH, G, D); k, v: (B, Hkv, S, D) or (BH, S, D);
+    ``t`` the query token's position, a Python int. Returns q's shape.
+
+    The first dims may be strided views (e.g. a (B, S, Hkv, D) cache
+    permuted); the last dim must be contiguous. float32 or bfloat16; head
+    dim 16, 32, 64 or 128; at most 8 queries per group.
+    """
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
+        raise ValueError("flash_decode takes 3-D or 4-D q, k, v alike")
+    squeeze = q.ndim == 3
+    if squeeze:
+        q, k, v = q[None], k[None], v[None]
+    bsz, hkv, g, d = q.shape
+    s = k.shape[2]
+    if k.shape != (bsz, hkv, s, d) or v.shape != k.shape:
+        raise ValueError(
+            f"shapes do not agree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_decode takes q, k, v all float32 or all "
+                        f"bfloat16, not {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must lie on one device")
+    window = int(window)
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    if isinstance(t, torch.Tensor):
+        raise ValueError("t is one position, a Python int, not a tensor of "
+                         f"shape {tuple(t.shape)}")
+    t = int(t)
+
+    if q.device.type == "cpu":
+        out = flash_decode_ref(q, k, v, t, window=window)
+        return out[0] if squeeze else out
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_decode has no kernel for {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"{g} queries per group; the kernel takes 1 to "
+                         f"{MAX_GROUP}")
+    if 0 in (bsz, hkv, s):
+        raise ValueError("flash_decode takes no empty q, k or v")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = _n_splits(bsz * hkv, s, sms)
+    part = torch.empty(bsz * hkv * nsplit * g * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((bsz, hkv, g, d), dtype=q.dtype, device=q.device)
+    strides = [st for x in (q, k, v) for st in x.stride()[:3]]
+    lib = _build.load("flash_decode")
+    with torch.cuda.device(q.device):
+        code = lib.flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            part.data_ptr(), bsz, hkv, g, s, d, *strides, t,
+            window, nsplit, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "flash_decode")
+    flash_decode.launches += 1
+    return out[0] if squeeze else out
+
+
+flash_decode.launches = 0

@@ -271,5 +271,25 @@ def test_cpu_tensors_never_count_as_launches():
                              torch.zeros(3, dtype=torch.int32))
     q = torch.zeros(1, 5, 2, 16)
     tops.flash_attention(q, q, q)
+    tops.flash_decode(q[:, :1], q, q, 3)
+    tops.ssd_scan(torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2),
+                  torch.zeros(1, 8, 3), torch.zeros(1, 8, 3), 4)
     assert launch_counts() == {"lora_matmul": 0, "lora_matmul_grouped": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "flash_decode": 0,
+                               "ssd_intra_chunk": 0}
+
+
+def test_graph_replays_count_as_runs_on_the_card():
+    """A launch captured into a CUDA graph counts once, at capture, in
+    ``launch_counts``; ``runs_on_card`` replaces it by the graph's replays."""
+    from repro_torch.kernels import flash_decode as t_fd
+    from repro_torch.kernels import note_graph_replays, runs_on_card
+    reset_launch_counts()
+    t_fd.flash_decode.launches = 5                  # 2 eager, 3 captured
+    note_graph_replays({"flash_decode": 3, "ssd_intra_chunk": 0}, 4)
+    runs = runs_on_card()
+    assert runs["flash_decode"] == 2 + 3 * 4
+    assert runs["ssd_intra_chunk"] == 0
+    assert launch_counts()["flash_decode"] == 5
+    reset_launch_counts()
+    assert runs_on_card() == launch_counts() == dict.fromkeys(runs, 0)

@@ -64,12 +64,24 @@ def test_sources_name_neither_jax_nor_reference_package():
 
 
 def test_csrc_holds_the_three_kernels():
+    """The serving slice's three kernels, and since the calibration slice
+    the other two: all five TPU kernels of the reference."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
-            for n in ("lora_matmul.cu", "flash_attention.cu", "common.cuh")}
+            for n in ("lora_matmul.cu", "flash_attention.cu",
+                      "flash_decode.cu", "ssd_scan.cu", "common.cuh")}
     assert "lora_matmul_kernel" in text["lora_matmul.cu"]
     assert "lora_matmul_grouped_kernel" in text["lora_matmul.cu"]
     assert "flash_attention_kernel" in text["flash_attention.cu"]
+    assert "flash_decode_split_kernel" in text["flash_decode.cu"]
+    assert "flash_decode_merge_kernel" in text["flash_decode.cu"]
+    assert "ssd_intra_chunk_kernel" in text["ssd_scan.cu"]
+    from repro_torch.kernels import _build, launch_counts
+    assert set(_build.SOURCES) == {"lora_matmul", "flash_attention",
+                                   "flash_decode", "ssd_scan"}
+    assert set(launch_counts()) == {"lora_matmul", "lora_matmul_grouped",
+                                    "flash_attention", "flash_decode",
+                                    "ssd_intra_chunk"}
     for name, src in text.items():      # hand-written: no library products
         for banned in ("cublas", "cudnn", "cutlass", "torch/extension"):
             assert banned not in src.lower(), (name, banned)
@@ -83,13 +95,24 @@ def no_gpu():
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "generate",
                                    "ServingEngine", "make_serve_step",
-                                   "make_prefill_step"])
+                                   "make_prefill_step", "probe_kernels",
+                                   "BatchedRoundContext.build",
+                                   "calibrate.run"])
 def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
     from repro_torch.configs.base import get_config
-    from repro_torch.launch import serve
+    from repro_torch.core import channel, cost_model, hardware, measured_cost
+    from repro_torch.launch import calibrate, serve
     from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine
     cfg = get_config("llama32-1b").reduced()
+
+    def build_context():
+        w = cost_model.Workload(get_config("llama32-1b"), 4, 512)
+        chans = channel.draw_channel_matrix("normal", 1, 2, seed=0)
+        return cost_model.BatchedRoundContext.build(
+            w, hardware.EDGE_FLEET[:2], hardware.SERVER_RTX4060TI, chans,
+            hardware.DEFAULT_SIM)
+
     calls = {
         "init_params": lambda: M.init_params(0, cfg),
         "init_cache": lambda: M.init_cache(cfg, 1, 8),
@@ -99,6 +122,9 @@ def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
         "ServingEngine": lambda: ServingEngine(cfg, {}, None),
         "make_serve_step": lambda: serve.make_serve_step(cfg),
         "make_prefill_step": lambda: serve.make_prefill_step(cfg),
+        "probe_kernels": lambda: measured_cost.probe_kernels(),
+        "BatchedRoundContext.build": build_context,
+        "calibrate.run": lambda: calibrate.run(smoke=True),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -209,10 +235,73 @@ def test_gpu_flash_attention_kernel(cuda, dtype, atol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_gpu_flash_decode_kernel(cuda, dtype, atol):
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    for b, s, hq, hkv, d, t, window in ((2, 100, 8, 4, 32, 0, 0),
+                                        (2, 100, 8, 4, 32, 60, 32),
+                                        (2, 64, 4, 4, 16, 150, 64),
+                                        (3, 77, 25, 5, 128, 50, 0)):
+        q = _rand(rng, (b, 1, hq, d), dtype, cuda)
+        k = _rand(rng, (b, s, hkv, d), dtype, cuda)
+        v = _rand(rng, (b, s, hkv, d), dtype, cuda)
+        before = fd.flash_decode.launches
+        got = ops.flash_decode(q, k, v, t, window=window).float()
+        torch.cuda.synchronize()
+        assert fd.flash_decode.launches == before + 1
+        want = fd.flash_decode_ref(
+            q[:, 0].reshape(b, hkv, hq // hkv, d), k.permute(0, 2, 1, 3),
+            v.permute(0, 2, 1, 3), t, window=window).float()
+        assert (got.reshape(want.shape) - want).abs().max() <= atol
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_intra_chunk_kernel(cuda):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.mamba import ssd_chunked
+    rng = np.random.default_rng(4)
+    for b, nc, cl, nh, hp, ns in ((2, 3, 16, 2, 8, 12), (1, 2, 100, 3, 16, 24),
+                                  (1, 1, 256, 2, 64, 128)):
+        xt = _rand(rng, (b, nc, cl, nh, hp), torch.float32, cuda) * 0.2
+        a = -_rand(rng, (b, nc, cl, nh), torch.float32, cuda).abs() * 0.1
+        B = _rand(rng, (b, nc, cl, ns), torch.float32, cuda) * 0.3
+        C = _rand(rng, (b, nc, cl, ns), torch.float32, cuda) * 0.3
+        before = ss.ssd_intra_chunk.launches
+        got = ss.ssd_intra_chunk(xt, a, B, C)
+        torch.cuda.synchronize()
+        assert ss.ssd_intra_chunk.launches == before + 1
+        for g, w in zip(got, ss.ssd_intra_chunk_ref(xt, a, B, C)):
+            assert (g - w).abs().max() <= 1e-4
+    y, h = ops.ssd_scan(xt[:, 0], a[:, 0], B[:, 0], C[:, 0], 64)
+    y2, h2 = ssd_chunked(xt[:, 0], a[:, 0], B[:, 0], C[:, 0], 64)
+    assert (y - y2).abs().max() <= 1e-4 and (h - h2).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     """A CUDA tensor the kernel does not take raises; it is never handed to
     the plain version."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_scan as ss
     q = torch.zeros(1, 2, 8, 24, device=cuda)       # head dim 24: no kernel
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        fd.flash_decode(q[:, :, :1], q, q, 3)
+    with pytest.raises(ValueError, match="queries per group"):
+        fd.flash_decode(torch.zeros(1, 1, 9, 16, device=cuda),
+                        torch.zeros(1, 1, 8, 16, device=cuda),
+                        torch.zeros(1, 1, 8, 16, device=cuda), 3)
+    x = torch.zeros(1, 1, 8, 2, 4, device=cuda, dtype=torch.bfloat16)
+    a = torch.zeros(1, 1, 8, 2, device=cuda, dtype=torch.bfloat16)
+    bc = torch.zeros(1, 1, 8, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 only"):
+        ss.ssd_intra_chunk(x, a, bc, bc)
+    from repro_torch.core import measured_cost
+    with pytest.raises(ValueError, match="unknown probe backend"):
+        measured_cost.probe_kernels(backend="jnp", device=cuda)
