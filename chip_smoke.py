@@ -7,11 +7,15 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
   device   the card's name and power limit, torch and CUDA versions
-  build    nvcc builds ``src/repro_torch/csrc/*.cu`` from the checkout
+  build    nvcc builds ``src/repro_torch/csrc/*.cu`` from the checkout; the
+           count of tensor-core instructions (HGMMA, HMMA) in each
+           library's SASS (``cuobjdump -sass``)
   kernels  every hand-written kernel against its plain PyTorch version on
-           the card (main-path shapes and ragged ones, bf16 and f32; every
-           call of the calibrate path's probe ladder and kernel benches on
-           its own inputs), then timed with CUDA events beside the plain version, one PyTorch
+           the card (main-path shapes and ragged ones, bf16 and f32; both
+           versions of ``lora_matmul`` and ``flash_attention``, the
+           tensor-core one and the SIMT one; every call of the calibrate
+           path's probe ladder and kernel benches on its own inputs), then
+           timed with CUDA events beside the plain version, one PyTorch
            library call for the same function, and the card's bound
   serve    full-width llama32-1b (32 layers, random weights from a seed),
            four non-zero LoRA adapters, ``ServingEngine`` with the fused
@@ -39,6 +43,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +84,19 @@ def time_ms(calls, reps: int = 10) -> float:
     return time_cuda(calls, reps) * 1e3
 
 
+def host_us(call, n: int = 50) -> float:
+    """Host microseconds to enqueue one call (the wrapper's checks, its
+    workspace, the launch; no synchronise inside), mean of ``n``."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def randn(rng, shape, dtype, scale=1.0):
     return torch.from_numpy(
         (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -90,26 +108,68 @@ def n_copies(weight_bytes: int) -> int:
     return max(1, min(16, math.ceil(128e6 / max(weight_bytes, 1))))
 
 
+def misaligned(t):
+    """A copy of ``t`` one element past a 16-byte boundary: the wrappers of
+    ``lora_matmul`` and ``flash_attention`` take their SIMT kernel for it
+    (the tensor-core kernels read with 16-byte copies)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+def run_version(fn, call):
+    """``call()`` and the version of ``fn`` (a wrapper with ``by_version``)
+    that it launched."""
+    before = dict(fn.by_version)
+    out = call()
+    ran = [v for v, n in fn.by_version.items() if n != before[v]]
+    assert len(ran) == 1, (fn.__name__, before, fn.by_version)
+    return out, ran[0]
+
+
+def tensor_core_sass():
+    """Per source: the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
+    SASS of its built library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, check=True).stdout
+        out[name] = {op: len(re.findall(rf"\b{op}\.", sass))
+                     for op in ("HGMMA", "HMMA")}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernels phase
 # ---------------------------------------------------------------------------
 
 
-def check_lora_matmul(rng, m, k, n, r, dtype, scale=0.5):
+def check_lora_matmul(rng, m, k, n, r, dtype, scale=0.5, simt=False):
+    """Kernel against plain version; ``simt=True`` hands the kernel a
+    misaligned copy of W, so that the SIMT version runs. Returns (err, tol,
+    version)."""
     from repro_torch.kernels import lora_matmul as lm
     x = randn(rng, (m, k), dtype)
     w = randn(rng, (k, n), dtype)
     a = randn(rng, (k, r), dtype)
     b = randn(rng, (r, n), dtype)
-    got = lm.lora_matmul(x, w, a, b, scale)
+    w_in = misaligned(w) if simt else w
+    got, version = run_version(lm.lora_matmul,
+                               lambda: lm.lora_matmul(x, w_in, a, b, scale))
     torch.cuda.synchronize()
     want = lm.lora_matmul_ref(x, w, a, b, scale).float()
     err = (got.float() - want).abs().max().item()
     tol = LORA_TOL[dtype] * want.abs().max().item()
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(
-            f"lora_matmul {(m, k, n, r)} {dtype}: max err {err} > tol {tol}")
-    return err, tol
+            f"lora_matmul {(m, k, n, r)} {dtype} ({version}): max err {err} "
+            f"> tol {tol}")
+    return err, tol, version
 
 
 def check_grouped(rng, g, m, k, n, r, e, dtype, ids=None, scale=0.5,
@@ -138,21 +198,28 @@ def check_grouped(rng, g, m, k, n, r, e, dtype, ids=None, scale=0.5,
     return err, tol
 
 
-def check_flash(rng, b, sq, skv, hq, hkv, d, dtype, causal=True, window=0):
+def check_flash(rng, b, sq, skv, hq, hkv, d, dtype, causal=True, window=0,
+                simt=False):
+    """Kernel against plain version; ``simt=True`` hands the kernel
+    misaligned copies of q, k, v, so that the SIMT version runs. Returns
+    (err, tol, version)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     q = randn(rng, (b, sq, hq, d), dtype)
     k = randn(rng, (b, skv, hkv, d), dtype)
     v = randn(rng, (b, skv, hkv, d), dtype)
+    qi, ki, vi = (misaligned(t) for t in (q, k, v)) if simt else (q, k, v)
     if causal:
-        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        call = lambda: ops.flash_attention(qi, ki, vi, causal=True,  # noqa: E731
+                                           window=window)
     else:           # the (BH, S, D) form of the kernel's own wrapper
-        got = fa.flash_attention(
-            q.permute(0, 2, 1, 3).reshape(b * hq, sq, d),
-            k.permute(0, 2, 1, 3).reshape(b * hkv, skv, d),
-            v.permute(0, 2, 1, 3).reshape(b * hkv, skv, d),
+        call = lambda: fa.flash_attention(  # noqa: E731
+            qi.permute(0, 2, 1, 3).reshape(b * hq, sq, d),
+            ki.permute(0, 2, 1, 3).reshape(b * hkv, skv, d),
+            vi.permute(0, 2, 1, 3).reshape(b * hkv, skv, d),
             causal=False, window=window
         ).reshape(b, hq, sq, d).permute(0, 2, 1, 3)
+    got, version = run_version(fa.flash_attention, call)
     torch.cuda.synchronize()
     want = fa.flash_attention_ref(
         q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
@@ -162,8 +229,8 @@ def check_flash(rng, b, sq, skv, hq, hkv, d, dtype, causal=True, window=0):
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(
             f"flash_attention {(b, sq, skv, hq, hkv, d)} window={window} "
-            f"causal={causal} {dtype}: max err {err} > tol {tol}")
-    return err, tol
+            f"causal={causal} {dtype} ({version}): max err {err} > tol {tol}")
+    return err, tol, version
 
 
 def bound(bytes_moved: float, flops: float, dtype):
@@ -181,8 +248,20 @@ def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
     ws = [randn(rng, (k, n), dtype) for _ in range(copies)]
     a = randn(rng, (k, r), dtype, 0.25)
     b = randn(rng, (r, n), dtype, 0.02)
-    err, tol = check_lora_matmul(rng, m, k, n, r, dtype, scale)
+    err, tol, _ = check_lora_matmul(rng, m, k, n, r, dtype, scale)
+    _, timed = run_version(lm.lora_matmul,
+                           lambda: lm.lora_matmul(x, ws[0], a, b, scale))
     ms = time_ms([lambda w=w: lm.lora_matmul(x, w, a, b, scale) for w in ws])
+    # the same call through the SIMT kernel: W one element off alignment
+    offs = [misaligned(w) for w in ws]
+    _, simt = run_version(lm.lora_matmul,
+                          lambda: lm.lora_matmul(x, offs[0], a, b, scale))
+    assert simt == "simt", simt
+    simt_ms = time_ms([lambda w=w: lm.lora_matmul(x, w, a, b, scale)
+                       for w in offs])
+    hosts = {v: host_us(lambda w=w: lm.lora_matmul(x, w, a, b, scale))
+             for v, w in ((timed, ws[0]), ("simt", offs[0]))}
+    del offs
     plain = time_ms([lambda w=w: lm.lora_matmul_ref(x, w, a, b, scale)
                      for w in ws], reps=5)
     lib = time_ms([lambda w=w: torch.addmm(x @ w, x @ a, b, alpha=scale)
@@ -191,8 +270,10 @@ def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
     flops = 2.0 * m * k * n + 2.0 * m * k * r + 2.0 * m * r * n
     b_ms, by = bound(bytes_moved, flops, dtype)
     return {"shape": {"M": m, "K": k, "N": n, "r": r}, "dtype": str(dtype),
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+            "version": timed, "max_abs_err": err, "tol": tol, "ms": ms,
+            "simt_ms": simt_ms, "host_us": hosts[timed], "simt_host_us": hosts["simt"],
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": by}
 
 
 def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
@@ -245,9 +326,18 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
     q = randn(rng, (b, s, hq, d), dtype)
     k = randn(rng, (b, s, hkv, d), dtype)
     v = randn(rng, (b, s, hkv, d), dtype)
-    err, tol = check_flash(rng, b, s, s, hq, hkv, d, dtype)
+    err, tol, _ = check_flash(rng, b, s, s, hq, hkv, d, dtype)
+    _, timed = run_version(fa.flash_attention,
+                           lambda: ops.flash_attention(q, k, v, causal=True))
     ms = time_ms([lambda: ops.flash_attention(q, k, v, causal=True)],
                  reps=10)
+    # the same call through the SIMT kernel: q, k, v one element off
+    qm, km, vm = (misaligned(t) for t in (q, k, v))
+    _, simt = run_version(fa.flash_attention,
+                          lambda: ops.flash_attention(qm, km, vm, causal=True))
+    assert simt == "simt", simt
+    simt_ms = time_ms([lambda: ops.flash_attention(qm, km, vm, causal=True)],
+                      reps=10)
     qp, kp, vp = (t.permute(0, 2, 1, 3) for t in (q, k, v))
     plain = time_ms([lambda: fa.flash_attention_ref(qp, kp, vp, causal=True)],
                     reps=5)
@@ -259,7 +349,7 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
     b_ms, by = bound(bytes_moved, flops, dtype)
     return {"shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
                       "causal": True, "window": 0},
-            "dtype": str(dtype), "max_abs_err": err, "tol": tol, "ms": ms,
+            "dtype": str(dtype), "version": timed, "max_abs_err": err, "tol": tol, "ms": ms, "simt_ms": simt_ms,
             "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
             "bound_by": by}
 
@@ -448,19 +538,28 @@ def phase_kernels(seed: int):
     worst = {}
 
     def note(name, dtype, res):
-        key = f"{name}/{str(dtype).split('.')[-1]}"
-        err, tol = res
+        """Keep the worst check of each kernel, dtype and version."""
+        key = "/".join([name, str(dtype).split('.')[-1], *res[2:]])
+        err, tol = res[:2]
         if key not in worst or err / tol > worst[key][0] / worst[key][1]:
             worst[key] = (err, tol)
 
     for dtype in (f32, bf16):
-        for mkn in ((37, 53, 41, 3), (33, 70, 65, 2), (100, 96, 72, 8),
-                    (256, 128, 512, 16), (64, 64, 64, 4), (70, 130, 90, 20),
-                    (65, 257, 129, 40), (1, 2048, 2048, 16)):
-            note("lora_matmul", dtype, check_lora_matmul(rng, *mkn, dtype))
-        for k, n in KN_SHAPES:
-            note("lora_matmul", dtype,
-                 check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0))
+        # bf16: each shape through the version the wrapper picks for it (the
+        # tensor-core one where the shape allows) and through the SIMT one
+        simts = (False, True) if dtype == bf16 else (False,)
+        for simt in simts:
+            for mkn in ((37, 53, 41, 3), (33, 70, 65, 2), (100, 96, 72, 8),
+                        (256, 128, 512, 16), (64, 64, 64, 4),
+                        (70, 130, 90, 20), (65, 257, 129, 40),
+                        (1, 2048, 2048, 16), (37, 136, 72, 8),
+                        (200, 520, 264, 64)):
+                note("lora_matmul", dtype,
+                     check_lora_matmul(rng, *mkn, dtype, simt=simt))
+            for k, n in KN_SHAPES:
+                note("lora_matmul", dtype,
+                     check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
+                                       simt=simt))
         for gmknre in ((3, 1, 64, 48, 4, 2), (4, 8, 128, 128, 8, 4),
                        (2, 5, 100, 72, 4, 5), (6, 1, 256, 96, 16, 3),
                        (5, 3, 1100, 70, 16, 3), (9, 2, 53, 41, 3, 4),
@@ -489,8 +588,9 @@ def phase_kernels(seed: int):
                          ((1, 150, 150, 2, 1, 128), {}),
                          ((2, 70, 150, 4, 2, 32), {"causal": False}),
                          ((1, 1024, 1024, 32, 8, 64), {})):
-            note("flash_attention", dtype,
-                 check_flash(rng, *args, dtype, **kw))
+            for simt in simts:
+                note("flash_attention", dtype,
+                     check_flash(rng, *args, dtype, simt=simt, **kw))
         # the llama32-1b serving cache, the reference bench's shape, a
         # ragged cache, a window over a linear cache and two ring buffers
         for args in ((8, 512, 32, 8, 64, 0), (8, 512, 32, 8, 64, 200),
@@ -559,6 +659,8 @@ def make_adapter(cfg, seed: int, device):
 def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
     from repro_torch.launch.serve import make_prefill_step
     from repro_torch.models import model as M
     from repro_torch.serving import AdapterBank, Request, ServingEngine
@@ -608,6 +710,8 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     prefill_s = time.time() - t1
     counts = kernels.launch_counts()
     runs = kernels.runs_on_card()
+    versions = {"lora_matmul": dict(lm.lora_matmul.by_version),
+                "flash_attention": dict(fa.flash_attention.by_version)}
     # ----------------------------------------------------------------------
 
     n_proj = len(cfg.lora.targets) * cfg.n_layers          # 7 x 32
@@ -619,13 +723,15 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     assert counts["lora_matmul_grouped"] == n_proj * stats["ticks"], counts
     assert counts["lora_matmul"] == n_proj * stats["prefills"], counts
     assert counts["flash_attention"] == cfg.n_layers, counts
+    for name, by in versions.items():      # bf16 main path: tensor cores
+        assert by["wgmma"] == counts[name] and by["simt"] == 0, versions
     emit({"phase": "serve", "gpu": gpu_line(), "requests": n_requests,
           "slots": 8, "max_len": 512, "prefill_chunk": 64, "max_new": 32,
           "prompt_lens": [int(n) for n in lens],
           **{k: stats[k] for k in ("completed", "ticks", "prefills", "tokens",
                                    "tokens_per_sec", "requests_per_s",
                                    "mean_ttft_s", "wall_s", "drained")},
-          "launches": counts})
+          "launches": counts, "launches_by_version": versions})
 
     step_breakdown(cfg, frozen, bank, toks, profile)
 
@@ -841,18 +947,22 @@ def phase_calibrate(seed: int):
 # ---------------------------------------------------------------------------
 
 
+# the source of the version the main path runs; the redesigned kernels keep
+# their SIMT version for f32 and unaligned shapes (SIMT_SOURCES)
 SOURCES = {
-    "lora_matmul": ("src/repro_torch/csrc/lora_matmul.cu",
+    "lora_matmul": ("src/repro_torch/csrc/lora_matmul_tc.cu",
                     "src/repro/kernels/lora_matmul.py:73"),
     "lora_matmul_grouped": ("src/repro_torch/csrc/lora_matmul.cu",
                             "src/repro/kernels/lora_matmul.py:170"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:107"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:109"),
     "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:80"),
 }
+SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
+                "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 # the shape whose numbers head each kernel's entry (all shapes: "by_shape")
 HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
             "flash_decode": 0, "ssd_intra_chunk": 0}
@@ -896,8 +1006,11 @@ def main() -> int:
                            for ln in log.splitlines()
                            if "registers" in ln or spill.search(ln)})
              for name, log in _build.build_logs.items()}
+    sass = tensor_core_sass()
     emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES),
-          "ptxas": usage})
+          "ptxas": usage, "sass_tensor_core_instructions": sass})
+    for name in ("lora_matmul_tc", "flash_attention_tc"):
+        assert sass[name]["HGMMA"] > 0, (name, sass)
 
     rows = phase_kernels(args.seed)
     if args.only == "kernels":
@@ -927,6 +1040,9 @@ def main() -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            **{k: head[k] for k in ("version", "simt_ms") if k in head},
+            **({"simt_source": SIMT_SOURCES[name]}
+               if name in SIMT_SOURCES else {}),
             "shape": head["shape"], "dtype": head["dtype"],
             "tol": head["tol"], "kernel_ms": head["ms"],
             "max_err": head["max_abs_err"], "by_shape": by_shape})

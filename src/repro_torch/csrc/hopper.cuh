@@ -1,0 +1,207 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
+// 16-byte asynchronous copies into shared memory, the 128-byte swizzle,
+// wgmma matrix descriptors, and the warpgroup products themselves.
+//
+// Shared-memory tiles all have one shape here: rows of 128 bytes (64 bf16),
+// eight rows to a 1024-byte swizzle atom, the 16-byte chunk c of row r
+// stored at chunk c ^ (r % 8). A wider operand is a row of such panels.
+// Tile bases are 1024-byte aligned, so the swizzle the copies write is the
+// one the tensor cores read back from the address bits.
+//
+//   K-major operand (the reduction dim contiguous: X of X@W, Q, K):
+//     rows are the M or N index, 64 reduction elements per panel; a k16
+//     step advances the start address by 32 bytes inside a panel; SBO is
+//     the 1024 bytes between groups of eight rows.
+//   MN-major operand (the output dim contiguous: W and A of X@W, V):
+//     rows are the reduction index, 64 output elements per panel; a k16
+//     step advances by 16 rows (2048 bytes); SBO is the 1024 bytes between
+//     groups of eight rows, LBO the stride between 64-wide panels; the
+//     instruction's transpose bit says MN-major, so nothing is transposed
+//     in memory.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro {
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy from global to shared memory; with ok == false nothing is
+// read and the 16 bytes are written as zeros (the ragged edges).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Writes through the generic proxy (cp.async, st.shared) made visible to
+// the tensor cores, which read shared memory through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a panel of
+// 128-byte rows, 128-byte swizzle.
+__device__ __forceinline__ uint32_t swz128(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 in bits
+// 62-63; base offset 0 since every tile is 1024-byte aligned.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous product (call after wgmma_wait).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator layout of m64nNk16 (f32): thread t of the warpgroup holds, for
+// i < N/2, the element (row, col) with
+//   row = 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)
+//   col = 8 * (i / 4) + 2 * (t % 4) + i % 2.
+__device__ __forceinline__ int acc_row(int tid, int i) {
+  return 16 * (tid >> 5) + ((tid & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int tid, int i) {
+  return 8 * (i >> 2) + 2 * (tid & 3) + (i & 1);
+}
+
+#define REPRO_F8(i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REPRO_F32 REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24)
+#define REPRO_F64 \
+  REPRO_F32, REPRO_F8(32), REPRO_F8(40), REPRO_F8(48), REPRO_F8(56)
+
+#define REPRO_R32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31}"
+#define REPRO_R64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D (64 x N, f32) += A (64 x 16, shared, K-major) * B (16 x N, shared);
+// TB = 0: B is K-major, TB = 1: B is MN-major. N = 64 or 128.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : REPRO_F32
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D (64 x 64, f32) = A * B, the same product without reading D first.
+#define REPRO_W8(i)                                                  \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),        \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_set(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : REPRO_W8(0), REPRO_W8(8), REPRO_W8(16), REPRO_W8(24)
+      : "l"(da), "l"(db), "r"(0), "n"(TB));
+}
+#undef REPRO_W8
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_R64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : REPRO_F64
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D (64 x N, f32) += A (64 x 16, bf16 in registers, the mma fragment
+// layout) * B (16 x N, shared, MN-major). N = 64 or 128.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef REPRO_F8
+#undef REPRO_F32
+#undef REPRO_F64
+#undef REPRO_R32
+#undef REPRO_R64
+
+// Dynamic shared memory rounded up to the next 1024-byte boundary (the
+// launch asks for 1 KB more than the tiles need).
+__device__ __forceinline__ uint32_t smem_base_1k(const void* raw) {
+  return (smem_u32(raw) + 1023u) & ~1023u;
+}
+
+}  // namespace sm90
+}  // namespace repro

@@ -53,5 +53,7 @@ def runs_on_card() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        for version in getattr(fn, "by_version", {}):
+            fn.by_version[version] = 0
     _captured.clear()
     _replayed.clear()

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds): ``nvcc`` for ``sm_90a``,
 one process per source, all started together on the first request. The
 libraries land in ``csrc/build/`` (override with ``REPRO_TORCH_BUILD_DIR``),
-named by a hash of the source, the shared header and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+named by a hash of the source, every shared header (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.
 
 Nothing here runs at import time: the first kernel launch builds and loads.
 A failed build raises; there is no other path for a CUDA tensor.
@@ -22,7 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lora_matmul", "flash_attention", "flash_decode", "ssd_scan")
+SOURCES = ("lora_matmul", "lora_matmul_tc", "flash_attention",
+           "flash_attention_tc", "flash_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,11 +43,22 @@ _SIGNATURES = {
         "lora_matmul_grouped_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _L, _L, _F, _I, _P],
     },
+    "lora_matmul_tc": {
+        # x, w, a, b, y, ws_y, ws_xa, M, K, N, r, scale, bn, splits,
+        # iters_per_split, stream
+        "lora_matmul_tc_launch": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    },
     "flash_attention": {
         # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides (q,k,v,o x b,h,s),
         # causal, window, is_bf16, stream
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
                                   + [_L] * 12 + [_I, _I, _I, _P],
+    },
+    "flash_attention_tc": {
+        # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides, causal, window,
+        # stream
+        "flash_attention_tc_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
+                                     + [_I, _I, _P],
     },
     "flash_decode": {
         # q, k, v, o, part, B, Hkv, G, S, D, 9 strides (q,k,v x b,h,row),
@@ -80,8 +93,10 @@ def find_nvcc() -> str:
 
 
 def _digest(name: str) -> str:
+    """Hash of the source, every header of ``csrc/`` and the flags."""
     h = hashlib.sha256()
-    for path in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for path in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]

@@ -2,8 +2,12 @@
 masks, grouped-query heads.
 
 Replaces: the Pallas TPU kernel ``flash_attention`` of
-``src/repro/kernels/flash_attention.py``. CUDA source:
-``csrc/flash_attention.cu`` (built and bound by ``_build``).
+``src/repro/kernels/flash_attention.py``. CUDA sources (built and bound by
+``_build``): ``csrc/flash_attention_tc.cu`` (bf16 on the tensor cores,
+``wgmma``) and ``csrc/flash_attention.cu`` (the SIMT kernel: f32, and the
+bf16 calls whose pointers or strides do not allow 16-byte copies).
+``flash_attention_version`` names the one a call takes, by dtype, head dim
+and alignment alone (never by failure).
 
 Bound on this card: at the prefill shape (sequence 1024, head dim 64) the
 work is bound by operations; the (Sq, Skv) score matrix never reaches device
@@ -15,7 +19,8 @@ Positions are ``0..S-1`` on both sides, masked scores are ``-1e30``, and the
 softmax denominator is clamped at ``1e-20``, as in the TPU kernel.
 
 The wrapper launches the kernel for a CUDA tensor, or raises; it uses the
-plain version only for a CPU tensor. ``flash_attention.launches`` counts.
+plain version only for a CPU tensor. ``flash_attention.launches`` counts,
+``flash_attention.by_version`` splits the count by version.
 """
 from __future__ import annotations
 
@@ -52,6 +57,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, vf).to(q.dtype)
+
+
+def flash_attention_version(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (the tensor-core kernel)
+    for bf16 with a head dim of 16, 32, 64 or 128 when every pointer is
+    16-byte aligned and every stride a multiple of 8 elements; otherwise
+    ``"simt"``."""
+    if dtype == torch.bfloat16 and d in HEAD_DIMS and aligned:
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -95,16 +110,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)          # keeps q's strides when q is dense
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    lib = _build.load("flash_attention")
+    version = flash_attention_version(
+        q.dtype, d, all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+        and all(s % 8 == 0 for s in strides))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)), window,
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "flash_attention")
+        stream = torch.cuda.current_stream().cuda_stream
+        if version == "wgmma":
+            code = _build.load("flash_attention_tc").flash_attention_tc_launch(
+                *ptrs, bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)),
+                window, stream)
+        else:
+            code = _build.load("flash_attention").flash_attention_launch(
+                *ptrs, bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)),
+                window, int(q.dtype == torch.bfloat16), stream)
+    _build.check(code, f"flash_attention ({version})")
     flash_attention.launches += 1
+    flash_attention.by_version[version] += 1
     return out[0] if squeeze else out
 
 
 flash_attention.launches = 0
+flash_attention.by_version = {"wgmma": 0, "simt": 0}

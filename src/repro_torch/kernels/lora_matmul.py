@@ -3,8 +3,11 @@
 (``lora_matmul_grouped``).
 
 Replaces: the Pallas TPU kernels ``lora_matmul`` and ``lora_matmul_grouped``
-of ``src/repro/kernels/lora_matmul.py``. CUDA source:
-``csrc/lora_matmul.cu`` (built and bound by ``_build``).
+of ``src/repro/kernels/lora_matmul.py``. CUDA sources (built and bound by
+``_build``): ``csrc/lora_matmul_tc.cu`` (``lora_matmul`` on the tensor
+cores, bf16) and ``csrc/lora_matmul.cu`` (the SIMT kernels: ``lora_matmul``
+for f32 and the shapes the tensor-core kernel does not take, and
+``lora_matmul_grouped``).
 
 Bound on this card: at the serving shapes (64 rows of a prefill chunk, one
 row per request in a decode tick) both are bound by bytes, those of ``W``.
@@ -14,7 +17,11 @@ the grouped kernel reads each request's adapter through ``ids`` from the bank
 where it lies, so no gathered copy is made for it. The grouped kernel has two
 versions in the CUDA source: the first takes any shape with 2-byte loads; the
 launcher picks the wide one (16-byte loads) where N and r are whole 16-byte
-vectors and W and the bank are 16-byte aligned.
+vectors and W and the bank are 16-byte aligned. ``lora_matmul`` has two
+versions too: ``lora_matmul_version`` names the one a call takes, by dtype,
+shape and alignment alone (never by failure): ``"wgmma"`` (bf16; K, N, r
+multiples of 8, r <= 64; 16-byte aligned pointers) splits K over blocks by
+``tc_plan`` so that every SM streams W, or ``"simt"``.
 
 Rounding order (kernel and plain version alike; it follows the reference's
 ``kernels/ref.py``): ``W``, ``A``, ``B`` are cast to the activation dtype
@@ -23,9 +30,14 @@ accumulates in f32; ``X @ A`` is rounded to the activation dtype before it
 meets ``B``; ``X @ W + s * correction`` is rounded once at the end.
 
 The wrappers launch the kernel for a CUDA tensor, or raise; they use the
-plain version only for a CPU tensor. ``<wrapper>.launches`` counts launches.
+plain version only for a CPU tensor. ``<wrapper>.launches`` counts launches
+(one per call, however many CUDA kernels the call enqueues), and
+``lora_matmul.by_version`` splits them by version.
 """
 from __future__ import annotations
+
+import functools
+from typing import Tuple
 
 import torch
 
@@ -33,6 +45,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_RANK = 64
+TC_BK = 64                  # K depth of one step of the tensor-core kernel
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +91,41 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError(f"{name} has dtype {t.dtype}, x has {like.dtype}")
 
 
+def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
+                        aligned: bool) -> str:
+    """The kernel a CUDA call of ``lora_matmul`` takes: ``"wgmma"`` (the
+    tensor-core kernel) for bf16 with K, N and r multiples of 8 (whole
+    16-byte copies), r <= 64 and every pointer 16-byte aligned; otherwise
+    ``"simt"``."""
+    if (dtype == torch.bfloat16 and aligned and k % 8 == 0 and n % 8 == 0
+            and r % 8 == 0 and r <= MAX_RANK):
+        return "wgmma"
+    return "simt"
+
+
+@functools.lru_cache(maxsize=256)
+def tc_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
+    """Grid of the tensor-core kernel: ``(bn, splits, iters_per_split)``.
+
+    Output tiles are 64 rows by ``bn`` (128, or 64 where 128 would leave
+    SMs idle or N is small) columns; K is cut into ``ceil(k / 64)`` steps,
+    dealt to ``splits`` blocks per tile, ``iters_per_split`` consecutive
+    steps each, the last split taking the rest (none is empty). The splits
+    are as few as give at least ``sms`` blocks, where K is deep enough."""
+    n_iters = -(-k // TC_BK)
+    m_tiles = -(-m // 64)
+    plan = (64, 1, n_iters)
+    for bn in ((128, 64) if n > 64 else (64,)):
+        tiles = -(-n // bn) * m_tiles
+        want = -(-sms // tiles)
+        ips = max(1, n_iters // want)
+        splits = -(-n_iters // ips)
+        plan = (bn, splits, ips)
+        if tiles * splits >= sms:
+            break
+    return plan
+
+
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """x: (M, K); w: (K, N); a: (K, r); b: (r, N) -> (M, N) in x.dtype.
@@ -109,19 +157,34 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return x.new_empty((0, n))
     x, w, a, b = (t.contiguous() for t in (x, w, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib = _build.load("lora_matmul")
+    version = lora_matmul_version(
+        x.dtype, k, n, r, all(t.data_ptr() % 16 == 0 for t in (x, w, a, b)))
     with torch.cuda.device(x.device):
-        code = lib.lora_matmul_launch(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            y.data_ptr(), m, k, n, r, float(scale),
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "lora_matmul")
+        stream = torch.cuda.current_stream().cuda_stream
+        if version == "wgmma":
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            bn, splits, ips = tc_plan(m, k, n, sms)
+            # f32 split-K partials: X@W (splits, m, n), then X@A (splits, m, r)
+            ws = torch.empty(splits * m * (n + r), dtype=torch.float32,
+                             device=x.device)
+            code = _build.load("lora_matmul_tc").lora_matmul_tc_launch(
+                x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                y.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * splits * m * n,
+                m, k, n, r, float(scale), bn, splits, ips, stream)
+        else:
+            code = _build.load("lora_matmul").lora_matmul_launch(
+                x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m, k, n, r, float(scale),
+                int(x.dtype == torch.bfloat16), stream)
+    _build.check(code, f"lora_matmul ({version})")
     lora_matmul.launches += 1
+    lora_matmul.by_version[version] += 1
     return y
 
 
 lora_matmul.launches = 0
+lora_matmul.by_version = {"wgmma": 0, "simt": 0}
 
 
 def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -65,19 +65,26 @@ def test_sources_name_neither_jax_nor_reference_package():
 
 def test_csrc_holds_the_three_kernels():
     """The serving slice's three kernels, and since the calibration slice
-    the other two: all five TPU kernels of the reference."""
+    the other two: all five TPU kernels of the reference; ``lora_matmul`` and
+    ``flash_attention`` also on the tensor cores (``wgmma``)."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
-            for n in ("lora_matmul.cu", "flash_attention.cu",
-                      "flash_decode.cu", "ssd_scan.cu", "common.cuh")}
+            for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
+                      "flash_attention.cu", "flash_attention_tc.cu",
+                      "flash_decode.cu", "ssd_scan.cu", "common.cuh",
+                      "hopper.cuh")}
     assert "lora_matmul_kernel" in text["lora_matmul.cu"]
+    assert "lora_matmul_tc_split_kernel" in text["lora_matmul_tc.cu"]
+    assert "flash_attention_tc_kernel" in text["flash_attention_tc.cu"]
+    assert "wgmma.mma_async" in text["hopper.cuh"]
     assert "lora_matmul_grouped_kernel" in text["lora_matmul.cu"]
     assert "flash_attention_kernel" in text["flash_attention.cu"]
     assert "flash_decode_split_kernel" in text["flash_decode.cu"]
     assert "flash_decode_merge_kernel" in text["flash_decode.cu"]
     assert "ssd_intra_chunk_kernel" in text["ssd_scan.cu"]
     from repro_torch.kernels import _build, launch_counts
-    assert set(_build.SOURCES) == {"lora_matmul", "flash_attention",
+    assert set(_build.SOURCES) == {"lora_matmul", "lora_matmul_tc",
+                                   "flash_attention", "flash_attention_tc",
                                    "flash_decode", "ssd_scan"}
     assert set(launch_counts()) == {"lora_matmul", "lora_matmul_grouped",
                                     "flash_attention", "flash_decode",
@@ -232,6 +239,48 @@ def test_gpu_flash_attention_kernel(cuda, dtype, atol):
             v.permute(0, 2, 1, 3), causal=True, window=window
         ).permute(0, 2, 1, 3).float()
         assert (got - want).abs().max() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,r", [(64, 2048, 2048, 16), (64, 2048, 512, 16),
+                                     (64, 2048, 8192, 16), (64, 8192, 2048, 16),
+                                     (37, 136, 72, 8), (200, 520, 264, 64)])
+def test_gpu_lora_matmul_tensor_core_kernel(cuda, m, k, n, r):
+    """bf16 at the four serving shapes and ragged M: the wgmma version."""
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(5)
+    x, w = _rand(rng, (m, k), torch.bfloat16, cuda), \
+        _rand(rng, (k, n), torch.bfloat16, cuda)
+    a, b = _rand(rng, (k, r), torch.bfloat16, cuda), \
+        _rand(rng, (r, n), torch.bfloat16, cuda)
+    before = lm.lora_matmul.by_version["wgmma"]
+    got = lm.lora_matmul(x, w, a, b, 2.0).float()
+    torch.cuda.synchronize()
+    assert lm.lora_matmul.by_version["wgmma"] == before + 1
+    want = lm.lora_matmul_ref(x, w, a, b, 2.0).float()
+    assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
+    (2, 130, 130, 4, 4, 16, True, 0), (1, 200, 200, 8, 2, 64, True, 0),
+    (1, 150, 150, 4, 1, 128, True, 0), (2, 200, 200, 4, 2, 64, True, 64),
+    (2, 96, 96, 25, 5, 16, True, 64), (2, 70, 150, 4, 2, 32, False, 0)])
+def test_gpu_flash_attention_tensor_core_kernel(cuda, b, sq, skv, hq, hkv, d,
+                                                causal, window):
+    """bf16 head dims 16/32/64/128, windows, GQA groups 1-5 and non-causal
+    Sq != Skv: the wgmma version, at the bf16 tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(6)
+    q = _rand(rng, (b, hq, sq, d), torch.bfloat16, cuda)
+    k = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
+    v = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
+    before = fa.flash_attention.by_version["wgmma"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_version["wgmma"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert (got - want.float()).abs().max() <= 2e-2
 
 
 @pytest.mark.gpu

@@ -1,0 +1,125 @@
+"""The pure-Python choices around the tensor-core kernels of the port, on
+the CPU: which version of ``lora_matmul`` / ``flash_attention`` a CUDA call
+takes (by dtype, shape and alignment), the split-K plan of the tensor-core
+``lora_matmul``, and the build's content hash over every shared header.
+"""
+import shutil
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build, reset_launch_counts
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import lora_matmul as t_lm
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (K, N) of the seven LoRA projections of llama32-1b, M = 64 (a prefill chunk)
+SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+
+
+@pytest.mark.parametrize("dtype,k,n,r,aligned,want", [
+    (BF16, 2048, 2048, 16, True, "wgmma"),
+    (BF16, 8192, 2048, 16, True, "wgmma"),
+    (BF16, 136, 72, 8, True, "wgmma"),
+    (BF16, 520, 264, 64, True, "wgmma"),
+    (BF16, 2048, 2048, 16, False, "simt"),   # a pointer off 16 bytes
+    (F32, 2048, 2048, 16, True, "simt"),     # f32 stays on the SIMT kernel
+    (BF16, 53, 48, 16, True, "simt"),        # K not whole 16-byte chunks
+    (BF16, 64, 41, 16, True, "simt"),        # N ragged
+    (BF16, 64, 64, 4, True, "simt"),         # r not a multiple of 8
+    (BF16, 64, 64, 20, True, "simt"),
+])
+def test_lora_matmul_version(dtype, k, n, r, aligned, want):
+    assert t_lm.lora_matmul_version(dtype, k, n, r, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (BF16, 16, True, "wgmma"), (BF16, 32, True, "wgmma"),
+    (BF16, 64, True, "wgmma"), (BF16, 128, True, "wgmma"),
+    (BF16, 64, False, "simt"), (F32, 64, True, "simt"),
+    (F32, 128, False, "simt"),
+])
+def test_flash_attention_version(dtype, d, aligned, want):
+    assert t_fa.flash_attention_version(dtype, d, aligned) == want
+
+
+def _covered(k, splits, ips):
+    """The 64-deep K steps each split block walks (the kernel's ranges)."""
+    n_iters = -(-k // t_lm.TC_BK)
+    return [list(range(s * ips, min((s + 1) * ips, n_iters)))
+            for s in range(splits)]
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (64, 2048, 2048), (64, 2048, 512), (64, 2048, 8192), (64, 8192, 2048),
+    (1, 2048, 2048), (37, 136, 72), (200, 520, 264), (64, 64, 64),
+    (4096, 2048, 2048), (64, 8, 8), (130, 1000, 4104),
+])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_tc_plan_covers_every_k_step_once(m, k, n, sms):
+    bn, splits, ips = t_lm.tc_plan(m, k, n, sms)
+    assert bn in (64, 128) and splits >= 1 and ips >= 1
+    ranges = _covered(k, splits, ips)
+    assert all(ranges), "no split may be empty"
+    steps = [i for rg in ranges for i in rg]
+    assert steps == list(range(-(-k // t_lm.TC_BK)))
+    if n <= 64:
+        assert bn == 64
+
+
+@pytest.mark.parametrize("k,n", SERVING_KN)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_tc_plan_fills_the_card_at_the_serving_shapes(k, n, sms):
+    """At least one block per SM (the H100 SXM has 132, the PCIe part 114)
+    at every projection of a llama32-1b prefill chunk."""
+    bn, splits, _ = t_lm.tc_plan(64, k, n, sms)
+    assert -(-n // bn) * splits >= sms
+
+
+def test_by_version_counts_reset_with_the_launch_counts():
+    t_lm.lora_matmul.by_version["wgmma"] = 3
+    t_fa.flash_attention.by_version["simt"] = 2
+    reset_launch_counts()
+    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "simt": 0}
+    assert t_fa.flash_attention.by_version == {"wgmma": 0, "simt": 0}
+
+
+def test_cpu_calls_take_the_plain_version_and_count_no_version():
+    reset_launch_counts()
+    x = torch.randn(64, 128, dtype=BF16)
+    t_lm.lora_matmul(x, torch.randn(128, 64, dtype=BF16),
+                     torch.randn(128, 16, dtype=BF16),
+                     torch.randn(16, 64, dtype=BF16))
+    q = torch.randn(1, 2, 70, 64, dtype=BF16)
+    t_fa.flash_attention(q, q, q)
+    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "simt": 0}
+    assert t_fa.flash_attention.by_version == {"wgmma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+def test_editing_any_header_renames_every_library(tmp_path, monkeypatch,
+                                                  header):
+    """A library is named by a hash of its source and of every header in
+    ``csrc/``: editing one header must rebuild every source, including one
+    that does not include it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc,
+                    ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = {name: _build._target(name) for name in _build.SOURCES}
+    with open(csrc / header, "a") as fh:
+        fh.write("\n// edited\n")
+    after = {name: _build._target(name) for name in _build.SOURCES}
+    assert all(before[name] != after[name] for name in _build.SOURCES)
+    assert all(p.parent == tmp_path / "build" for p in after.values())
+
+
+def test_a_new_header_renames_every_library(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc,
+                    ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {name: _build._target(name) for name in _build.SOURCES}
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(_build._target(name) != before[name] for name in _build.SOURCES)
