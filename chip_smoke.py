@@ -12,11 +12,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
            library's SASS (``cuobjdump -sass``)
   kernels  every hand-written kernel against its plain PyTorch version on
            the card (main-path shapes and ragged ones, bf16 and f32; both
-           versions of ``lora_matmul`` and ``flash_attention``, the
-           tensor-core one and the SIMT one; every call of the calibrate
+           versions of ``lora_matmul``, ``lora_matmul_grouped`` and
+           ``flash_attention``, the tensor-core one and the SIMT one;
+           ``flash_decode`` at runs of one piece and of the most pieces,
+           linear and ring; every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
            timed with CUDA events beside the plain version, one PyTorch
-           library call for the same function, and the card's bound
+           library call for the same function, and the card's bound; the
+           library calls for the calibrate path's f32 kernel benches
   serve    full-width llama32-1b (32 layers, random weights from a seed),
            four non-zero LoRA adapters, ``ServingEngine`` with the fused
            kernels answering 16 requests; launch counts, tokens, logits
@@ -110,8 +113,9 @@ def n_copies(weight_bytes: int) -> int:
 
 def misaligned(t):
     """A copy of ``t`` one element past a 16-byte boundary: the wrappers of
-    ``lora_matmul`` and ``flash_attention`` take their SIMT kernel for it
-    (the tensor-core kernels read with 16-byte copies)."""
+    ``lora_matmul``, ``lora_matmul_grouped`` and ``flash_attention`` take
+    their SIMT kernel for it (the tensor-core kernels read with 16-byte
+    copies)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
@@ -173,7 +177,12 @@ def check_lora_matmul(rng, m, k, n, r, dtype, scale=0.5, simt=False):
 
 
 def check_grouped(rng, g, m, k, n, r, e, dtype, ids=None, scale=0.5,
-                  strided=False):
+                  strided=False, simt=None):
+    """Kernel against plain version; ``simt="w"`` hands the kernel a
+    misaligned copy of W (the SIMT kernel's 2-byte-load variant runs),
+    ``simt="x"`` one of x (its 16-byte-load variant, where the shape allows
+    it: the tensor-core version's predecessor on the main path). Returns
+    (err, tol, version)."""
     from repro_torch.kernels import lora_matmul as lm
     x = randn(rng, (g, m, k), dtype)
     w = randn(rng, (k, n), dtype)
@@ -186,16 +195,21 @@ def check_grouped(rng, g, m, k, n, r, e, dtype, ids=None, scale=0.5,
     if ids is None:
         ids = rng.integers(0, e, g)
     ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device="cuda")
-    got = lm.lora_matmul_grouped(x, w, a, b, ids, scale)
+    x_in = misaligned(x) if simt == "x" else x
+    w_in = misaligned(w) if simt == "w" else w
+    got, version = run_version(
+        lm.lora_matmul_grouped,
+        lambda: lm.lora_matmul_grouped(x_in, w_in, a, b, ids, scale))
+    assert simt is None or version == "simt", (simt, version)
     torch.cuda.synchronize()
     want = lm.lora_matmul_grouped_ref(x, w, a, b, ids, scale).float()
     err = (got.float() - want).abs().max().item()
     tol = LORA_TOL[dtype] * want.abs().max().item()
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(
-            f"lora_matmul_grouped {(g, m, k, n, r, e)} {dtype}: "
-            f"max err {err} > tol {tol}")
-    return err, tol
+            f"lora_matmul_grouped {(g, m, k, n, r, e)} strided={strided} "
+            f"{dtype} ({version}): max err {err} > tol {tol}")
+    return err, tol, version
 
 
 def check_flash(rng, b, sq, skv, hq, hkv, d, dtype, causal=True, window=0,
@@ -287,21 +301,30 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
     ids_np = np.arange(g) % e
     ids = torch.as_tensor(ids_np, dtype=torch.int32, device="cuda")
     idl = ids.long()
-    err, tol = check_grouped(rng, g, 1, k, n, r, e, dtype, ids=ids_np,
-                             scale=scale)
+    err, tol, _ = check_grouped(rng, g, 1, k, n, r, e, dtype, ids=ids_np,
+                                scale=scale)
+    _, timed = run_version(lm.lora_matmul_grouped,
+                           lambda: lm.lora_matmul_grouped(x, ws[0], a, b, ids,
+                                                          scale))
     calls = [lambda w=w: lm.lora_matmul_grouped(x, w, a, b, ids, scale)
              for w in ws]
     ms = time_ms(calls)
-    # The same work through the kernel's first version: the launcher takes it
-    # for a W that is not 16-byte aligned, so W is laid one element off.
-    offs = [torch.empty(k * n + 1, dtype=dtype, device="cuda")[1:].view(k, n)
-            for _ in ws]
-    for off, w in zip(offs, ws):
-        off.copy_(w)
-    assert all(off.data_ptr() % 16 for off in offs)
+    # The same work through the SIMT kernel: with x one element off 16-byte
+    # alignment its 16-byte-load variant (the main path's kernel before the
+    # tensor-core version), with W one element off its first variant.
+    xm = misaligned(x)
+    _, simt = run_version(lm.lora_matmul_grouped,
+                          lambda: lm.lora_matmul_grouped(xm, ws[0], a, b, ids,
+                                                         scale))
+    assert simt == "simt", simt
+    simt_ms = time_ms([lambda w=w: lm.lora_matmul_grouped(xm, w, a, b, ids,
+                                                          scale)
+                       for w in ws])
+    offs = [misaligned(w) for w in ws]
     first_ms = time_ms([lambda w=w: lm.lora_matmul_grouped(x, w, a, b, ids,
                                                            scale)
                         for w in offs])
+    del offs
     plain = time_ms([lambda w=w: lm.lora_matmul_grouped_ref(x, w, a, b, ids,
                                                             scale)
                      for w in ws], reps=5)
@@ -313,7 +336,8 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
     flops = g * (2.0 * k * n + 2.0 * k * r + 2.0 * r * n)
     b_ms, by = bound(bytes_moved, flops, dtype)
     return {"shape": {"G": g, "M": 1, "K": k, "N": n, "r": r, "E": e},
-            "dtype": str(dtype), "max_abs_err": err, "tol": tol, "ms": ms,
+            "dtype": str(dtype), "version": timed, "max_abs_err": err,
+            "tol": tol, "ms": ms, "simt_ms": simt_ms,
             "first_version_ms": first_ms, "plain_ms": plain,
             "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
 
@@ -391,13 +415,17 @@ def check_ssd_scan(rng, b, length, nh, hp, ns, chunk):
     return err, SSD_TOL
 
 
-def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0):
+def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0, offset=False):
+    """Kernel against plain version; ``offset=True`` hands the wrapper
+    caches one element off 16-byte alignment (it copies them before the
+    launch: the kernel's copies are 16 bytes)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     q = randn(rng, (b, 1, hq, d), dtype)
     k = randn(rng, (b, s, hkv, d), dtype)
     v = randn(rng, (b, s, hkv, d), dtype)
-    got = ops.flash_decode(q, k, v, t, window=window).float()
+    k_in, v_in = (misaligned(k), misaligned(v)) if offset else (k, v)
+    got = ops.flash_decode(q, k_in, v_in, t, window=window).float()
     torch.cuda.synchronize()
     want = fd.flash_decode_ref(
         q[:, 0].reshape(b, hkv, hq // hkv, d), k.permute(0, 2, 1, 3),
@@ -492,6 +520,83 @@ def time_ssd(rng, b, nc, cl, nh, hp, ns):
             "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by}
 
 
+def ssd_scan_library(xt, a, B, C, chunk):
+    """``ops.ssd_scan`` with its intra-chunk kernel replaced by
+    ``ssd_library``: the library column of the calibrate path's
+    ``ssd_scan_512`` bench. Used nowhere in the port."""
+    b, length, nh, hp = xt.shape
+    ns = B.shape[-1]
+    nc = length // chunk
+    C_c = C.reshape(b, nc, chunk, ns)
+    y_diag, states, dec = ssd_library(
+        xt.reshape(b, nc, chunk, nh, hp), a.reshape(b, nc, chunk, nh),
+        B.reshape(b, nc, chunk, ns), C_c)
+    states = states.transpose(3, 4)
+    a_tot = dec[:, :, -1, :, 1]
+    h = torch.zeros((b, nh, hp, ns), dtype=xt.dtype, device=xt.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * a_tot[:, c, :, None, None] + states[:, c]
+    y_off = (torch.einsum("bcin,bchpn->bcihp", C_c, torch.stack(h_prevs, 1))
+             * dec[..., 0][..., None])
+    return (y_diag + y_off).reshape(b, length, nh, hp), h
+
+
+def time_benches(rng):
+    """The calibrate path's f32 kernel benches at their shapes
+    (``calibrate.BENCH_SHAPES``): the kernel as the bench calls it and one
+    PyTorch library call for the same function, by graph replay; the
+    library's result is held to the kernel's plain version first."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.calibrate import BENCH_SHAPES
+    from repro_torch.models.mamba import ssd_chunked
+    f32 = torch.float32
+    out = []
+
+    def row(name, shape, kernel, plain, library, tol):
+        want, lib = plain(), library()
+        if torch.is_tensor(want):
+            want, lib = (want,), (lib,)
+        err = max((x - y).abs().max().item() for x, y in zip(lib, want))
+        assert err <= tol, (name, err, tol)       # the same function
+        out.append({"name": name, "shape": shape, "dtype": str(f32),
+                    "ms": time_ms([kernel]), "library_ms": time_ms([library]),
+                    "library_max_abs_err": err})
+
+    m, k, n, r = BENCH_SHAPES["lora_matmul"]
+    x, w, a, b = (randn(rng, sh, f32) for sh in ((m, k), (k, n), (k, r),
+                                                 (r, n)))
+    want_max = lm.lora_matmul_ref(x, w, a, b, 2.0).abs().max().item()
+    row("lora_matmul_512", {"M": m, "K": k, "N": n, "r": r},
+        lambda: ops.lora_matmul(x, w, a, b, 2.0),
+        lambda: lm.lora_matmul_ref(x, w, a, b, 2.0),
+        lambda: torch.addmm(x @ w, x @ a, b, alpha=2.0),
+        LORA_TOL[f32] * want_max)
+    bsz, s, hq, hkv, d = BENCH_SHAPES["flash_attention"]
+    q, kk, v = (randn(rng, (bsz, s, h, d), f32) for h in (hq, hkv, hkv))
+    qp, kp, vp = (t.permute(0, 2, 1, 3) for t in (q, kk, v))
+    from repro_torch.kernels import flash_attention as fa
+    row("flash_attention_512", {"B": bsz, "S": s, "Hq": hq, "Hkv": hkv,
+                                "D": d, "causal": True},
+        lambda: ops.flash_attention(q, kk, v),
+        lambda: fa.flash_attention_ref(qp, kp, vp, causal=True),
+        lambda: F.scaled_dot_product_attention(qp, kp, vp, is_causal=True,
+                                               enable_gqa=True),
+        ATTN_TOL[f32])
+    bsz, length, nh, hp, ns, chunk = BENCH_SHAPES["ssd_scan"]
+    xt, sa, sb, sc = (t[:, 0] for t in ssd_inputs(rng, bsz, 1, length, nh,
+                                                  hp, ns))
+    row("ssd_scan_512", {"b": bsz, "L": length, "nh": nh, "hp": hp,
+                         "ns": ns, "chunk": chunk},
+        lambda: ops.ssd_scan(xt, sa, sb, sc, chunk),
+        lambda: ssd_chunked(xt, sa, sb, sc, chunk),
+        lambda: ssd_scan_library(xt, sa, sb, sc, chunk), SSD_TOL)
+    return out
+
+
 def check_ladder(rng):
     """The calibrate path's calls against their plain versions, f32: every
     probe of the full ladder on its own inputs (the probe builders draw the
@@ -529,8 +634,11 @@ def check_ladder(rng):
 
 
 def phase_kernels(seed: int):
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.launch.calibrate import BENCH_SHAPES
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full f32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    decode_splits = []
     # the calibrate path's flash_decode bench: (B, S, Hq, Hkv, D), t = S - 1
     decode_bench = BENCH_SHAPES["flash_decode"]
     rng = np.random.default_rng(seed)
@@ -560,21 +668,31 @@ def phase_kernels(seed: int):
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
                                        simt=simt))
-        for gmknre in ((3, 1, 64, 48, 4, 2), (4, 8, 128, 128, 8, 4),
-                       (2, 5, 100, 72, 4, 5), (6, 1, 256, 96, 16, 3),
-                       (5, 3, 1100, 70, 16, 3), (9, 2, 53, 41, 3, 4),
-                       # whole 16-byte vectors: the wide version's shapes
-                       (5, 3, 1100, 72, 16, 3), (9, 2, 530, 40, 8, 4),
-                       (3, 1, 300, 96, 32, 2), (4, 2, 130, 64, 64, 3)):
+        # bf16: the version the wrapper picks (tensor cores where K, N, r
+        # allow), and the SIMT kernel's two variants (x or W misaligned)
+        g_simts = (None, "x", "w") if dtype == bf16 else (None,)
+        for simt in g_simts:
+            for gmknre in ((3, 1, 64, 48, 4, 2), (4, 8, 128, 128, 8, 4),
+                           (2, 5, 100, 72, 4, 5), (6, 1, 256, 96, 16, 3),
+                           (5, 3, 1100, 70, 16, 3), (9, 2, 53, 41, 3, 4),
+                           # whole 16-byte vectors: the wide variant's shapes
+                           (5, 3, 1100, 72, 16, 3), (9, 2, 530, 40, 8, 4),
+                           (3, 1, 300, 96, 32, 2), (4, 2, 130, 64, 64, 3),
+                           # K, N, r multiples of 8: the tensor-core shapes,
+                           # 2 to 8 rows of x@A a block, 70 rows in 2 tiles
+                           (5, 3, 1096, 72, 16, 3), (4, 2, 136, 64, 64, 3),
+                           (7, 10, 520, 264, 24, 5), (32, 1, 256, 64, 8, 4)):
+                note("lora_matmul_grouped", dtype,
+                     check_grouped(rng, *gmknre, dtype, simt=simt))
             note("lora_matmul_grouped", dtype,
-                 check_grouped(rng, *gmknre, dtype))
-        note("lora_matmul_grouped", dtype,
-             check_grouped(rng, 8, 1, 2048, 512, 16, 4, dtype,
-                           ids=[3, 3, 0, 2, 2, 2, 1, 0], strided=True))
-        for k, n in KN_SHAPES:
-            note("lora_matmul_grouped", dtype,
-                 check_grouped(rng, 8, 1, k, n, 16, 4, dtype,
-                               ids=[0, 1, 2, 3, 0, 1, 2, 3], scale=2.0))
+                 check_grouped(rng, 8, 1, 2048, 512, 16, 4, dtype,
+                               ids=[3, 3, 0, 2, 2, 2, 1, 0], strided=True,
+                               simt=simt))
+            for k, n in KN_SHAPES:
+                note("lora_matmul_grouped", dtype,
+                     check_grouped(rng, 8, 1, k, n, 16, 4, dtype,
+                                   ids=[0, 1, 2, 3, 0, 1, 2, 3], scale=2.0,
+                                   simt=simt))
         for args, kw in (((2, 65, 65, 4, 4, 16), {}),
                          ((2, 63, 63, 4, 4, 16), {}),
                          ((2, 130, 130, 4, 4, 16), {"window": 64}),
@@ -592,15 +710,29 @@ def phase_kernels(seed: int):
                 note("flash_attention", dtype,
                      check_flash(rng, *args, dtype, simt=simt, **kw))
         # the llama32-1b serving cache, the reference bench's shape, a
-        # ragged cache, a window over a linear cache and two ring buffers
+        # ragged cache, a window over a linear cache and ring buffers; runs
+        # of one piece (one launch) and of the most pieces, linear and ring
         for args in ((8, 512, 32, 8, 64, 0), (8, 512, 32, 8, 64, 200),
                      (8, 512, 32, 8, 64, 511),
                      (*decode_bench, decode_bench[1] - 1),
                      (3, 77, 25, 5, 128, 50), (2, 100, 8, 4, 32, 60, 32),
                      (2, 64, 4, 4, 16, 150, 64),
-                     (8, 512, 32, 8, 64, 1500, 512)):
+                     (8, 512, 32, 8, 64, 1500, 512),
+                     (2, 512, 8, 4, 64, 1100, 600), (1, 4096, 8, 1, 64, 4095),
+                     (1, 4096, 8, 1, 64, 5000, 4096),
+                     (1, 300, 16, 2, 128, 299), (2, 200, 6, 2, 16, 130)):
             note("flash_decode", dtype, check_decode(rng, *args[:6], dtype,
                                                      *args[6:]))
+            if args == (8, 512, 32, 8, 64, 200):
+                note("flash_decode", dtype,
+                     check_decode(rng, *args, dtype, offset=True))
+            if dtype == bf16:
+                b, s, hq, hkv, d, t, *w = args
+                decode_splits.append(
+                    {"B": b, "S": s, "Hkv": hkv, "G": hq // hkv, "D": d,
+                     "t": t, "window": sum(w), "splits": fd.n_splits(
+                         b * hkv, fd.valid_run(t, s, sum(w)), sms,
+                         fd.block_slots(d, 2, hq // hkv))})
     # mamba2-370m at full width (d_inner 2048 = 32 heads of 64, state 128,
     # chunk 256; batch 4, length 512) and ragged shapes; f32 only
     for args in ((4, 2, 256, 32, 64, 128), (2, 3, 16, 2, 8, 12),
@@ -611,7 +743,8 @@ def phase_kernels(seed: int):
     for name, res in check_ladder(rng):
         note(name, f32, res)
     emit({"phase": "kernels", "checked": {
-        k: {"max_abs_err": e, "tol": t} for k, (e, t) in worst.items()}})
+        k: {"max_abs_err": e, "tol": t} for k, (e, t) in worst.items()},
+        "flash_decode_splits": decode_splits})
 
     # timing at the shapes the main path gives the kernels (bf16)
     rows = {"lora_matmul": [], "lora_matmul_grouped": [], "flash_attention": [],
@@ -630,7 +763,8 @@ def phase_kernels(seed: int):
     rows["flash_decode"].append(
         time_decode(rng, *decode_bench, decode_bench[1] - 1, f32))
     rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 2, 256, 32, 64, 128))
-    emit({"phase": "kernel_times", "by_shape": rows})
+    emit({"phase": "kernel_times", "by_shape": rows,
+          "calibrate_benches": time_benches(rng)})
     return rows
 
 
@@ -711,6 +845,7 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     counts = kernels.launch_counts()
     runs = kernels.runs_on_card()
     versions = {"lora_matmul": dict(lm.lora_matmul.by_version),
+                "lora_matmul_grouped": dict(lm.lora_matmul_grouped.by_version),
                 "flash_attention": dict(fa.flash_attention.by_version)}
     # ----------------------------------------------------------------------
 
@@ -868,6 +1003,11 @@ def step_breakdown(cfg, frozen, bank, toks, profile: bool):
                 {"name": e.key[:60], "calls": e.count,
                  "device_us": getattr(e, "device_time_total", 0.0)}
                 for e in rows[:12]]
+            # the grouped LoRA kernels' device time in the tick (split and
+            # reduce kernels of either version)
+            out["tick_grouped_device_us"] = sum(
+                getattr(e, "device_time_total", 0.0) for e in rows
+                if "lora_matmul_grouped" in e.key)
     emit(out)
 
 
@@ -952,7 +1092,7 @@ def phase_calibrate(seed: int):
 SOURCES = {
     "lora_matmul": ("src/repro_torch/csrc/lora_matmul_tc.cu",
                     "src/repro/kernels/lora_matmul.py:73"),
-    "lora_matmul_grouped": ("src/repro_torch/csrc/lora_matmul.cu",
+    "lora_matmul_grouped": ("src/repro_torch/csrc/lora_matmul_grouped_tc.cu",
                             "src/repro/kernels/lora_matmul.py:170"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:107"),
@@ -962,6 +1102,7 @@ SOURCES = {
                         "src/repro/kernels/ssd_scan.py:80"),
 }
 SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
+                "lora_matmul_grouped": "src/repro_torch/csrc/lora_matmul.cu",
                 "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 # the shape whose numbers head each kernel's entry (all shapes: "by_shape")
 HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
@@ -1009,7 +1150,8 @@ def main() -> int:
     sass = tensor_core_sass()
     emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES),
           "ptxas": usage, "sass_tensor_core_instructions": sass})
-    for name in ("lora_matmul_tc", "flash_attention_tc"):
+    for name in ("lora_matmul_tc", "lora_matmul_grouped_tc",
+                 "flash_attention_tc"):
         assert sass[name]["HGMMA"] > 0, (name, sass)
 
     rows = phase_kernels(args.seed)

@@ -23,8 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lora_matmul", "lora_matmul_tc", "flash_attention",
-           "flash_attention_tc", "flash_decode", "ssd_scan")
+SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_grouped_tc",
+           "flash_attention", "flash_attention_tc", "flash_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +48,13 @@ _SIGNATURES = {
         # iters_per_split, stream
         "lora_matmul_tc_launch": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     },
+    "lora_matmul_grouped_tc": {
+        # x, w, a_bank, b_bank, ids, y, ws_y, ws_xa, rows, rows_per_group,
+        # K, N, r, a_stride, b_stride, scale, bn, splits, iters_per_split,
+        # nx, stream
+        "lora_matmul_grouped_tc_launch": [_P] * 8 + [_I] * 5 + [_L, _L, _F]
+                                         + [_I] * 4 + [_P],
+    },
     "flash_attention": {
         # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides (q,k,v,o x b,h,s),
         # causal, window, is_bf16, stream
@@ -61,9 +68,9 @@ _SIGNATURES = {
                                      + [_I, _I, _P],
     },
     "flash_decode": {
-        # q, k, v, o, part, B, Hkv, G, S, D, 9 strides (q,k,v x b,h,row),
+        # q, k, v, o, B, Hkv, G, S, D, 9 strides (q,k,v x b,h,row),
         # t, window, nsplit, is_bf16, stream
-        "flash_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+        "flash_decode_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
                                + [_L] * 9 + [_I, _I, _I, _I, _P],
     },
     "ssd_scan": {

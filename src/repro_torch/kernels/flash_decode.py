@@ -5,11 +5,17 @@ Replaces: the Pallas TPU kernel ``flash_decode`` of
 ``src/repro/kernels/flash_decode.py``. CUDA source: ``csrc/flash_decode.cu``
 (built and bound by ``_build``).
 
-Bound on this card: bytes. Each valid K and V row is read once and serves
-the ``G`` queries of its group; the KV axis is split over blocks (one block
-per (batch, kv head) would leave half of the SMs idle at the serving cache),
-and the splits are merged by their log-sum-exp in a second small kernel.
-Masked slots are not read, so the bytes follow ``t``.
+Bound on this card: bytes. Each valid K and V row is read once, with
+16-byte asynchronous copies into shared memory, and serves the ``G``
+queries of its group; a warp scores a tile of slots before it takes one
+softmax update per tile (the products on the tensor cores for bf16, on the
+CUDA cores for f32, accumulating in f32 either way). The run of
+slots that ``t`` can see (``valid_run``) is split over blocks (one block per
+(batch, kv head) would leave half of the SMs idle at the serving cache) by
+``n_splits``; the pieces of one (batch, kv head) form a thread-block
+cluster and are merged by their log-sum-exp through distributed shared
+memory, so every call is one launch with no scratch. Masked slots are not
+read, so the bytes follow ``t``.
 
 Masking is the TPU kernel's: a ring buffer iff ``0 < window <= slots``
 (slot ``j`` holds position ``t - ((t - j) mod slots)``, valid iff ``>= 0`` and
@@ -34,6 +40,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8
 NEG_INF = -1e30
+MAX_SPLITS = 8              # pieces of one (b, h): a portable cluster
+WARPS = 4                   # warps per block of the kernel
 
 
 def valid_slots(t: int, slots: int, window: int, device) -> torch.Tensor:
@@ -62,11 +70,42 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.to(f32)).to(q.dtype)
 
 
-def _n_splits(bh: int, slots: int, sms: int) -> int:
-    """Pieces of the KV axis per (batch, kv head): about two blocks per SM
-    of the ``sms`` the card has, and no piece shorter than 64 slots."""
+def valid_run(t: int, slots: int, window: int) -> int:
+    """Length of the run of slots the kernel walks for position ``t``:
+    every slot of a ring buffer (its masked slots are skipped inside the
+    run); ``[max(0, t - window + 1), min(t, slots - 1)]`` of a linear
+    cache (``0`` for ``lo`` when ``window == 0``)."""
+    if 0 < window <= slots:
+        return slots
+    lo = max(0, t - window + 1) if window else 0
+    return max(0, min(t, slots - 1) - lo + 1)
+
+
+def block_slots(d: int, elem_bytes: int, g: int) -> int:
+    """Slots one block of the kernel takes in one round: four warps, each a
+    tile of 32 slots (bf16, on the tensor cores) or of ``STEPS`` 16-byte
+    copies of ``32 / (D / VE)`` rows (f32); the kernel's constants."""
+    if elem_bytes == 2:
+        return WARPS * 32
+    lanes_per_row = d // (16 // elem_bytes)
+    steps = 8 if g <= 4 else 4
+    return WARPS * (32 // lanes_per_row) * steps
+
+
+def n_splits(bh: int, run: int, sms: int, piece: int = 64) -> int:
+    """Pieces of the valid run per (batch, kv head): about two blocks per
+    SM of the ``sms`` the card has, no piece shorter than 64 slots or than
+    ``piece`` (``block_slots``: a block whose warps all find a full tile),
+    and at most ``MAX_SPLITS``; one piece for a short run."""
     want = -(-2 * sms // bh)
-    return max(1, min(want, -(-slots // 64)))
+    return max(1, min(want, -(-run // max(64, piece)), MAX_SPLITS))
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Every row (last dim) of ``x`` starts on a 16-byte boundary."""
+    es = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(st * es % 16 == 0
+                                          for st in x.stride()[:3])
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,18 +153,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_GROUP}")
     if 0 in (bsz, hkv, s):
         raise ValueError("flash_decode takes no empty q, k or v")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q = q if q.stride(-1) == 1 else q.contiguous()
+    # the kernel reads rows of K and V with 16-byte loads: a view whose rows
+    # do not start on 16-byte boundaries is copied to a fresh tensor first
+    k, v = (x if x.stride(-1) == 1 and _rows_aligned(x)
+            else torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+            for x in (k, v))
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = _n_splits(bsz * hkv, s, sms)
-    part = torch.empty(bsz * hkv * nsplit * g * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    nsplit = n_splits(bsz * hkv, valid_run(t, s, window), sms,
+                      block_slots(d, q.element_size(), g))
     out = torch.empty((bsz, hkv, g, d), dtype=q.dtype, device=q.device)
     strides = [st for x in (q, k, v) for st in x.stride()[:3]]
     lib = _build.load("flash_decode")
     with torch.cuda.device(q.device):
         code = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            part.data_ptr(), bsz, hkv, g, s, d, *strides, t,
+            bsz, hkv, g, s, d, *strides, t,
             window, nsplit, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_decode")

@@ -5,23 +5,23 @@
 Replaces: the Pallas TPU kernels ``lora_matmul`` and ``lora_matmul_grouped``
 of ``src/repro/kernels/lora_matmul.py``. CUDA sources (built and bound by
 ``_build``): ``csrc/lora_matmul_tc.cu`` (``lora_matmul`` on the tensor
-cores, bf16) and ``csrc/lora_matmul.cu`` (the SIMT kernels: ``lora_matmul``
-for f32 and the shapes the tensor-core kernel does not take, and
-``lora_matmul_grouped``).
+cores, bf16), ``csrc/lora_matmul_grouped_tc.cu`` (``lora_matmul_grouped``
+on the tensor cores, bf16) and ``csrc/lora_matmul.cu`` (the SIMT kernels of
+both, for f32 and the shapes the tensor-core kernels do not take).
 
 Bound on this card: at the serving shapes (64 rows of a prefill chunk, one
 row per request in a decode tick) both are bound by bytes, those of ``W``.
-The kernels read ``W`` once per tile of rows, keep ``X @ A`` out of device
-memory and add the rank-r correction before the output leaves the registers;
-the grouped kernel reads each request's adapter through ``ids`` from the bank
-where it lies, so no gathered copy is made for it. The grouped kernel has two
-versions in the CUDA source: the first takes any shape with 2-byte loads; the
-launcher picks the wide one (16-byte loads) where N and r are whole 16-byte
-vectors and W and the bank are 16-byte aligned. ``lora_matmul`` has two
-versions too: ``lora_matmul_version`` names the one a call takes, by dtype,
-shape and alignment alone (never by failure): ``"wgmma"`` (bf16; K, N, r
-multiples of 8, r <= 64; 16-byte aligned pointers) splits K over blocks by
-``tc_plan`` so that every SM streams W, or ``"simt"``.
+The kernels read ``W`` once per tile of rows, keep ``X @ A`` out of the
+output's path until its one rounding and add the rank-r correction before
+the output is rounded; the grouped kernels read each request's adapter
+through ``ids`` from the bank where it lies, so no gathered copy is made for
+it. Each function has two versions, and ``lora_matmul_version`` /
+``lora_matmul_grouped_version`` name the one a call takes, by dtype, shape
+and alignment alone (never by failure): ``"wgmma"`` (bf16; K, N, r
+multiples of 8, r <= 64; 16-byte aligned pointers and bank strides) splits
+K over blocks by ``tc_plan`` / ``grouped_plan`` so that every SM streams W,
+or ``"simt"``. The SIMT grouped kernel itself has two variants (2-byte and
+16-byte loads), which its launcher picks by alignment.
 
 Rounding order (kernel and plain version alike; it follows the reference's
 ``kernels/ref.py``): ``W``, ``A``, ``B`` are cast to the activation dtype
@@ -32,7 +32,7 @@ meets ``B``; ``X @ W + s * correction`` is rounded once at the end.
 The wrappers launch the kernel for a CUDA tensor, or raise; they use the
 plain version only for a CPU tensor. ``<wrapper>.launches`` counts launches
 (one per call, however many CUDA kernels the call enqueues), and
-``lora_matmul.by_version`` splits them by version.
+``<wrapper>.by_version`` splits them by version.
 """
 from __future__ import annotations
 
@@ -124,6 +124,41 @@ def tc_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
         if tiles * splits >= sms:
             break
     return plan
+
+
+def lora_matmul_grouped_version(dtype: torch.dtype, k: int, n: int, r: int,
+                                aligned: bool) -> str:
+    """The kernel a CUDA call of ``lora_matmul_grouped`` takes: ``"wgmma"``
+    (``csrc/lora_matmul_grouped_tc.cu``) under the same rule as
+    ``lora_matmul_version``, where ``aligned`` also covers the bank strides
+    (whole 16-byte steps from one adapter to the next); otherwise
+    ``"simt"`` (``csrc/lora_matmul.cu``)."""
+    return lora_matmul_version(dtype, k, n, r, aligned)
+
+
+@functools.lru_cache(maxsize=256)
+def grouped_plan(rows: int, k: int, n: int, sms: int,
+                 r: int = 16) -> Tuple[int, int, int, int]:
+    """Grid of the tensor-core grouped kernel: ``(bn, splits,
+    iters_per_split, nx)``.
+
+    ``bn``, ``splits`` and ``iters_per_split`` are ``tc_plan``'s for the
+    ``rows`` rows (the same stream of W, cut the same way); ``nx`` is the
+    number of blocks along N: the ``ceil(n / bn)`` tiles of W, and more
+    (blocks that compute x@A only) where the rows of a row tile would give
+    a block more than ``MAX_RANK // r`` rows of x@A. Each split's x@A rows
+    are dealt round-robin over the ``nx`` blocks (``grouped_xa_rows``)."""
+    bn, splits, ips = tc_plan(rows, k, n, sms)
+    per_block = MAX_RANK // r
+    nx = max(-(-n // bn), -(-min(rows, 64) // per_block))
+    return bn, splits, ips, nx
+
+
+def grouped_xa_rows(bx: int, rows_in_tile: int, nx: int) -> range:
+    """The rows of a row tile (at most 64) whose x@A block ``bx`` of each
+    K split computes, as the kernel deals them: row ``i`` to block
+    ``i % nx``."""
+    return range(bx, rows_in_tile, nx)
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -233,18 +268,40 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if not b[0].is_contiguous():
         b = b.contiguous()
     ids = ids.to(torch.int32).contiguous()
+    a_stride = a.stride(0) if e > 1 else k * r
+    b_stride = b.stride(0) if e > 1 else r * n
+    rows = g * m
     y = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
-    lib = _build.load("lora_matmul")
+    version = lora_matmul_grouped_version(
+        x.dtype, k, n, r,
+        all(t.data_ptr() % 16 == 0 for t in (x, w, a, b))
+        and a_stride % 8 == 0 and b_stride % 8 == 0)
     with torch.cuda.device(x.device):
-        code = lib.lora_matmul_grouped_launch(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            ids.data_ptr(), y.data_ptr(), g * m, m, k, n, r,
-            a.stride(0) if e > 1 else k * r, b.stride(0) if e > 1 else r * n,
-            float(scale), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "lora_matmul_grouped")
+        stream = torch.cuda.current_stream().cuda_stream
+        if version == "wgmma":
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            bn, splits, ips, nx = grouped_plan(rows, k, n, sms, r)
+            # f32 split-K partials: x@W (splits, rows, n), x@A (splits, rows, r)
+            ws = torch.empty(splits * rows * (n + r), dtype=torch.float32,
+                             device=x.device)
+            code = _build.load(
+                "lora_matmul_grouped_tc").lora_matmul_grouped_tc_launch(
+                x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                ids.data_ptr(), y.data_ptr(), ws.data_ptr(),
+                ws.data_ptr() + 4 * splits * rows * n, rows, m, k, n, r,
+                a_stride, b_stride, float(scale), bn, splits, ips, nx, stream)
+        else:
+            code = _build.load("lora_matmul").lora_matmul_grouped_launch(
+                x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                ids.data_ptr(), y.data_ptr(), rows, m, k, n, r, a_stride,
+                b_stride, float(scale), int(x.dtype == torch.bfloat16),
+                stream)
+    _build.check(code, f"lora_matmul_grouped ({version})")
     lora_matmul_grouped.launches += 1
+    lora_matmul_grouped.by_version[version] += 1
     return y
 
 
 lora_matmul_grouped.launches = 0
+lora_matmul_grouped.by_version = {"wgmma": 0, "simt": 0}

@@ -1,0 +1,155 @@
+"""The pure-Python plans around the redesigned grouped LoRA and flash-decode
+kernels, on the CPU: which version of ``lora_matmul_grouped`` a CUDA call
+takes (by dtype, shape and alignment), the split-K plan of its tensor-core
+kernel and how that kernel deals the rows' x@A over its blocks, and how
+``flash_decode`` splits the run of valid slots.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_decode as t_fd
+from repro_torch.kernels import lora_matmul as t_lm
+from repro_torch.kernels import reset_launch_counts
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (K, N) of the seven LoRA projections of llama32-1b; a decode tick of the
+# serving engine has 8 slots, one row each
+SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+
+
+@pytest.mark.parametrize("dtype,k,n,r,aligned,want", [
+    (BF16, 2048, 2048, 16, True, "wgmma"),
+    (BF16, 2048, 512, 16, True, "wgmma"),
+    (BF16, 2048, 8192, 16, True, "wgmma"),
+    (BF16, 8192, 2048, 16, True, "wgmma"),
+    (BF16, 1096, 72, 16, True, "wgmma"),     # ragged K, whole 16-byte chunks
+    (BF16, 136, 64, 64, True, "wgmma"),      # the largest rank
+    (BF16, 2048, 2048, 16, False, "simt"),   # a pointer or stride off 16 B
+    (F32, 2048, 2048, 16, True, "simt"),     # f32 stays on the SIMT kernels
+    (BF16, 1096, 70, 16, True, "simt"),      # N not whole 16-byte chunks
+    (BF16, 1100, 72, 16, True, "simt"),      # K not whole 16-byte chunks
+    (BF16, 53, 41, 8, True, "simt"),         # K ragged by an odd count
+    (BF16, 256, 96, 4, True, "simt"),        # r not a multiple of 8
+    (BF16, 300, 96, 12, True, "simt"),
+])
+def test_lora_matmul_grouped_version(dtype, k, n, r, aligned, want):
+    assert t_lm.lora_matmul_grouped_version(dtype, k, n, r, aligned) == want
+
+
+def _k_steps(k, splits, ips):
+    """The 64-deep K steps each split walks (the kernel's ranges)."""
+    n_iters = -(-k // t_lm.TC_BK)
+    return [list(range(s * ips, min((s + 1) * ips, n_iters)))
+            for s in range(splits)]
+
+
+@pytest.mark.parametrize("rows,k,n,r", [
+    (8, 2048, 2048, 16), (8, 2048, 512, 16), (8, 2048, 8192, 16),
+    (8, 8192, 2048, 16), (15, 1100, 72, 16), (32, 128, 128, 8),
+    (4, 130, 64, 64), (70, 520, 264, 32), (1, 8, 8, 8), (200, 1000, 96, 24),
+])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_grouped_plan_covers_every_k_step_once(rows, k, n, r, sms):
+    bn, splits, ips, nx = t_lm.grouped_plan(rows, k, n, sms, r)
+    assert bn in (64, 128) and splits >= 1 and ips >= 1
+    ranges = _k_steps(k, splits, ips)
+    assert all(ranges), "no split may be empty"
+    assert [i for rg in ranges for i in rg] == list(range(-(-k // 64)))
+    assert nx >= -(-n // bn)
+
+
+@pytest.mark.parametrize("k,n", SERVING_KN)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_grouped_plan_fills_the_card_at_the_serving_shapes(k, n, sms):
+    """At least one block per SM (the H100 SXM has 132, the PCIe part 114)
+    at every projection of a llama32-1b decode tick, and no block that
+    reads more than a quarter of its share of W again in rows of A."""
+    bn, splits, _, nx = t_lm.grouped_plan(8, k, n, sms, 16)
+    assert nx * splits >= sms
+    assert -(-8 // nx) * 16 <= bn // 4
+
+
+@pytest.mark.parametrize("rows,n,r", [
+    (8, 2048, 16), (8, 512, 16), (15, 72, 16), (32, 128, 8), (4, 64, 64),
+    (64, 64, 64), (70, 264, 32), (200, 96, 24), (130, 4104, 8), (1, 8, 8),
+])
+def test_grouped_xa_rows_cover_each_row_and_split_once(rows, n, r):
+    """In every K split, every row's x@A is computed by exactly one block
+    of its row tile, and no block holds more than 64 // r of them (what
+    fits the kernel's stage of A and its registers)."""
+    bn, splits, _, nx = t_lm.grouped_plan(rows, 4096, n, 132, r)
+    for split in range(splits):
+        for m0 in range(0, rows, 64):
+            here = min(64, rows - m0)
+            owned = [list(t_lm.grouped_xa_rows(bx, here, nx))
+                     for bx in range(nx)]
+            assert sorted(i for o in owned for i in o) == list(range(here))
+            assert max(len(o) for o in owned) <= t_lm.MAX_RANK // r
+
+
+@pytest.mark.parametrize("t,slots,window,run", [
+    (0, 512, 0, 1),          # first token of a linear cache
+    (200, 512, 0, 201),
+    (511, 512, 0, 512),
+    (1500, 512, 0, 512),     # t past the end: the whole cache
+    (1100, 256, 1000, 155),  # a window over a linear cache (window > slots)
+    (0, 512, 512, 512),      # a ring buffer: its full run, whatever t
+    (1500, 512, 512, 512),
+    (60, 100, 32, 100),      # window <= slots: a ring
+    (5, 64, 100, 6),         # window > slots: a linear cache
+])
+def test_flash_decode_valid_run(t, slots, window, run):
+    assert t_fd.valid_run(t, slots, window) == run
+
+
+@pytest.mark.parametrize("bh,t,slots,window,sms,piece,want", [
+    (64, 0, 512, 0, 132, 64, 1),        # llama32-1b cache, first token: one
+    (64, 63, 512, 0, 132, 64, 1),
+    (64, 64, 512, 0, 132, 64, 2),
+    (64, 200, 512, 0, 132, 64, 4),
+    (64, 511, 512, 0, 132, 64, 5),      # two blocks per SM bound it
+    (64, 0, 512, 512, 132, 64, 5),      # a ring buffer: its full run
+    (64, 511, 512, 0, 132, 128, 4),     # bf16 D=64 G=4: 128-slot blocks
+    (64, 200, 512, 0, 132, 128, 2),
+    (64, 100, 512, 0, 132, 128, 1),
+    (8, 1023, 1024, 0, 132, 64, 8),     # the calibrate bench: 8 at most
+    (1, 4095, 4096, 0, 132, 64, 8),
+    (1, 5000, 4096, 4096, 114, 64, 8),
+    (2, 150, 64, 64, 132, 64, 1),       # a short ring
+])
+def test_flash_decode_splits_follow_the_valid_run(bh, t, slots, window, sms,
+                                                  piece, want):
+    run = t_fd.valid_run(t, slots, window)
+    got = t_fd.n_splits(bh, run, sms, piece)
+    assert got == want
+    assert 1 <= got <= max(1, -(-run // 64)) and got <= t_fd.MAX_SPLITS
+
+
+@pytest.mark.parametrize("d,elem_bytes,g,want", [
+    (64, 2, 4, 128),     # llama32-1b in bf16: 32-slot tiles, any D and G
+    (16, 2, 1, 128),
+    (128, 2, 8, 128),
+    (64, 4, 2, 64),      # the calibrate bench, f32: 16 lanes a row
+    (128, 4, 8, 16),     # one row a warp load, 4 loads a tile
+    (16, 4, 3, 256),
+])
+def test_flash_decode_block_slots(d, elem_bytes, g, want):
+    assert t_fd.block_slots(d, elem_bytes, g) == want
+
+
+def test_cpu_grouped_calls_count_no_version():
+    reset_launch_counts()
+    x = torch.randn(8, 1, 128, dtype=BF16)
+    y = t_lm.lora_matmul_grouped(x, torch.randn(128, 64, dtype=BF16),
+                                 torch.randn(4, 128, 16, dtype=BF16),
+                                 torch.randn(4, 16, 64, dtype=BF16),
+                                 torch.arange(8, dtype=torch.int32) % 4)
+    assert y.shape == (8, 1, 64)
+    assert t_lm.lora_matmul_grouped.launches == 0
+    assert t_lm.lora_matmul_grouped.by_version == {"wgmma": 0, "simt": 0}
+
+
+def test_grouped_by_version_resets_with_the_launch_counts():
+    t_lm.lora_matmul_grouped.by_version["wgmma"] = 5
+    reset_launch_counts()
+    assert t_lm.lora_matmul_grouped.by_version == {"wgmma": 0, "simt": 0}

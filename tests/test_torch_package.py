@@ -65,25 +65,29 @@ def test_sources_name_neither_jax_nor_reference_package():
 
 def test_csrc_holds_the_three_kernels():
     """The serving slice's three kernels, and since the calibration slice
-    the other two: all five TPU kernels of the reference; ``lora_matmul`` and
-    ``flash_attention`` also on the tensor cores (``wgmma``)."""
+    the other two: all five TPU kernels of the reference; ``lora_matmul``,
+    ``lora_matmul_grouped`` and ``flash_attention`` also on the tensor cores
+    (``wgmma``)."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
             for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
-                      "flash_attention.cu", "flash_attention_tc.cu",
+                      "lora_matmul_grouped_tc.cu", "flash_attention.cu", "flash_attention_tc.cu",
                       "flash_decode.cu", "ssd_scan.cu", "common.cuh",
                       "hopper.cuh")}
     assert "lora_matmul_kernel" in text["lora_matmul.cu"]
     assert "lora_matmul_tc_split_kernel" in text["lora_matmul_tc.cu"]
+    assert ("lora_matmul_grouped_tc_split_kernel"
+            in text["lora_matmul_grouped_tc.cu"])
     assert "flash_attention_tc_kernel" in text["flash_attention_tc.cu"]
     assert "wgmma.mma_async" in text["hopper.cuh"]
     assert "lora_matmul_grouped_kernel" in text["lora_matmul.cu"]
     assert "flash_attention_kernel" in text["flash_attention.cu"]
     assert "flash_decode_split_kernel" in text["flash_decode.cu"]
-    assert "flash_decode_merge_kernel" in text["flash_decode.cu"]
+    assert "cudaLaunchAttributeClusterDimension" in text["flash_decode.cu"]
     assert "ssd_intra_chunk_kernel" in text["ssd_scan.cu"]
     from repro_torch.kernels import _build, launch_counts
     assert set(_build.SOURCES) == {"lora_matmul", "lora_matmul_tc",
+                                   "lora_matmul_grouped_tc",
                                    "flash_attention", "flash_attention_tc",
                                    "flash_decode", "ssd_scan"}
     assert set(launch_counts()) == {"lora_matmul", "lora_matmul_grouped",
@@ -259,6 +263,59 @@ def test_gpu_lora_matmul_tensor_core_kernel(cuda, m, k, n, r):
     assert lm.lora_matmul.by_version["wgmma"] == before + 1
     want = lm.lora_matmul_ref(x, w, a, b, 2.0).float()
     assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,m,k,n,r,e,strided", [
+    (8, 1, 2048, 2048, 16, 4, False), (8, 1, 2048, 512, 16, 4, True),
+    (8, 1, 2048, 8192, 16, 4, False), (8, 1, 8192, 2048, 16, 4, False),
+    (5, 3, 1096, 72, 16, 3, False), (7, 10, 520, 264, 24, 5, False),
+    (32, 1, 256, 64, 8, 4, False)])
+def test_gpu_lora_matmul_grouped_tensor_core_kernel(cuda, g, m, k, n, r, e,
+                                                    strided):
+    """bf16 at the four decode shapes (one with the strided in-place bank
+    of ``AdapterBank.gather``), ragged K, two row tiles, blocks of x@A
+    only: the wgmma version."""
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(7)
+    bf16 = torch.bfloat16
+    x, w = _rand(rng, (g, m, k), bf16, cuda), _rand(rng, (k, n), bf16, cuda)
+    a, b = _rand(rng, (e, k, r), bf16, cuda), _rand(rng, (e, r, n), bf16, cuda)
+    if strided:
+        a = torch.stack([a, a], dim=1)[:, 1]
+        b = torch.stack([b, b], dim=1)[:, 0]
+    ids = torch.as_tensor(rng.integers(0, e, g), dtype=torch.int32,
+                          device=cuda)
+    before = lm.lora_matmul_grouped.by_version["wgmma"]
+    got = lm.lora_matmul_grouped(x, w, a, b, ids, 2.0).float()
+    torch.cuda.synchronize()
+    assert lm.lora_matmul_grouped.by_version["wgmma"] == before + 1
+    want = lm.lora_matmul_grouped_ref(x, w, a, b, ids, 2.0).float()
+    assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,hq,hkv,d,t,window", [
+    (8, 512, 32, 8, 64, 0, 0), (2, 512, 8, 4, 64, 1100, 600),
+    (1, 4096, 8, 1, 64, 4095, 0), (1, 4096, 8, 1, 64, 5000, 4096)])
+def test_gpu_flash_decode_one_piece_and_most_pieces(cuda, dtype, atol, b, s,
+                                                    hq, hkv, d, t, window):
+    """Runs of one piece (one launch, no merge) and of the most pieces, for
+    a linear cache and a ring buffer."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(8)
+    q = _rand(rng, (b, 1, hq, d), dtype, cuda)
+    k = _rand(rng, (b, s, hkv, d), dtype, cuda)
+    v = _rand(rng, (b, s, hkv, d), dtype, cuda)
+    got = ops.flash_decode(q, k, v, t, window=window).float()
+    torch.cuda.synchronize()
+    want = fd.flash_decode_ref(
+        q[:, 0].reshape(b, hkv, hq // hkv, d), k.permute(0, 2, 1, 3),
+        v.permute(0, 2, 1, 3), t, window=window).float()
+    assert (got.reshape(want.shape) - want).abs().max() <= atol
 
 
 @pytest.mark.gpu
