@@ -12,8 +12,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
            library's SASS (``cuobjdump -sass``)
   kernels  every hand-written kernel against its plain PyTorch version on
            the card (main-path shapes and ragged ones, bf16 and f32; both
-           versions of ``lora_matmul``, ``lora_matmul_grouped`` and
-           ``flash_attention``, the tensor-core one and the SIMT one;
+           versions of ``lora_matmul``, ``lora_matmul_grouped``,
+           ``flash_attention`` and ``ssd_intra_chunk``, the tensor-core one
+           and the SIMT one; ``ssd_intra_chunk`` also at hymba-1.5b's
+           width and under steep decay;
            ``flash_decode`` at runs of one piece and of the most pieces,
            linear and ring; every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
@@ -63,6 +65,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # absolute
 # tests' 1e-4, absolute on y, the states and the decay vectors
 DECODE_TOL = ATTN_TOL
 SSD_TOL = 1e-4
+H100_TF32_FLOPS = 495e12          # dense TF32 tensor-core rate (data sheet)
 KN_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 
 
@@ -378,23 +381,42 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
             "bound_by": by}
 
 
-def check_ssd(rng, b, nc, cl, nh, hp, ns):
+def check_ssd(rng, b, nc, cl, nh, hp, ns, simt=False, steep=False):
+    """Kernel against plain version; ``simt=True`` hands the kernel a
+    misaligned copy of xt, so that the SIMT version runs. Returns (err, tol,
+    version)."""
     from repro_torch.kernels import ssd_scan as ss
-    xt, a, B, C = ssd_inputs(rng, b, nc, cl, nh, hp, ns)
-    got = ss.ssd_intra_chunk(xt, a, B, C)
+    xt, a, B, C = ssd_inputs(rng, b, nc, cl, nh, hp, ns, steep)
+    x_in = misaligned(xt) if simt else xt
+    got, version = run_version(ss.ssd_intra_chunk,
+                               lambda: ss.ssd_intra_chunk(x_in, a, B, C))
+    want_version = "simt" if simt else ss.ssd_intra_chunk_version(cl, hp, ns,
+                                                                  True)
+    assert version == want_version, (version, want_version)
     torch.cuda.synchronize()
     want = ss.ssd_intra_chunk_ref(xt, a, B, C)
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     if not (math.isfinite(err) and err <= SSD_TOL):
-        raise AssertionError(f"ssd_intra_chunk {(b, nc, cl, nh, hp, ns)}: "
-                             f"max err {err} > tol {SSD_TOL}")
-    return err, SSD_TOL
+        raise AssertionError(f"ssd_intra_chunk {(b, nc, cl, nh, hp, ns)} "
+                             f"steep={steep} ({version}): max err {err} > "
+                             f"tol {SSD_TOL}")
+    return err, SSD_TOL, version
 
 
-def ssd_inputs(rng, b, nc, cl, nh, hp, ns):
+def check_ssd_both(rng, *shape, steep=False):
+    """``check_ssd`` through the version the wrapper picks and through the
+    SIMT one."""
+    return [check_ssd(rng, *shape, simt=simt, steep=steep)
+            for simt in (False, True)]
+
+
+def ssd_inputs(rng, b, nc, cl, nh, hp, ns, steep=False):
+    """Scaled normals, a <= 0; ``steep``: a = -|N(0, 1)| * 2, so that cum
+    falls to about -400 over a 256-row chunk and exp(cum_i) exp(-cum_j)
+    would overflow."""
     f32 = torch.float32
     return (randn(rng, (b, nc, cl, nh, hp), f32, 0.2),
-            -randn(rng, (b, nc, cl, nh), f32).abs() * 0.1,
+            -randn(rng, (b, nc, cl, nh), f32).abs() * (2.0 if steep else 0.1),
             randn(rng, (b, nc, cl, ns), f32, 0.3),
             randn(rng, (b, nc, cl, ns), f32, 0.3))
 
@@ -412,7 +434,12 @@ def check_ssd_scan(rng, b, length, nh, hp, ns, chunk):
     if not (math.isfinite(err) and err <= SSD_TOL):
         raise AssertionError(f"ssd_scan {(b, length, nh, hp, ns, chunk)}: "
                              f"max err {err} > tol {SSD_TOL}")
-    return err, SSD_TOL
+    return err, SSD_TOL, ssd_version(chunk, hp, ns)
+
+
+def ssd_version(cl, hp, ns):
+    from repro_torch.kernels import ssd_scan as ss
+    return ss.ssd_intra_chunk_version(cl, hp, ns, True)
 
 
 def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0, offset=False):
@@ -491,11 +518,22 @@ def ssd_library(xt, a, B, C):
 
 def time_ssd(rng, b, nc, cl, nh, hp, ns):
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.calibrate import H100_HBM_BYTES_PER_S
     f32 = torch.float32
-    err, tol = check_ssd(rng, b, nc, cl, nh, hp, ns)
+    err, tol, _ = check_ssd(rng, b, nc, cl, nh, hp, ns)
     copies = n_copies(4 * b * nc * cl * nh * hp)
     ins = [ssd_inputs(rng, b, nc, cl, nh, hp, ns) for _ in range(copies)]
+    _, timed = run_version(ss.ssd_intra_chunk,
+                           lambda: ss.ssd_intra_chunk(*ins[0]))
     ms = time_ms([lambda x=x: ss.ssd_intra_chunk(*x) for x in ins])
+    by_kernel = ssd_profile(ins) if timed == "tc" else {}
+    # the same call through the SIMT kernel: xt one element off alignment
+    offs = [(misaligned(x[0]),) + tuple(x[1:]) for x in ins]
+    _, simt = run_version(ss.ssd_intra_chunk,
+                          lambda: ss.ssd_intra_chunk(*offs[0]))
+    assert simt == "simt", simt
+    simt_ms = time_ms([lambda x=x: ss.ssd_intra_chunk(*x) for x in offs])
+    del offs
     plain = time_ms([lambda x=x: ss.ssd_intra_chunk_ref(*x) for x in ins],
                     reps=5)
     lib_out = ssd_library(*ins[0])
@@ -514,10 +552,38 @@ def time_ssd(rng, b, nc, cl, nh, hp, ns):
                       + nh * (2.0 * pairs * hp + pairs + cl * ns
                               + 2.0 * cl * ns * hp))
     b_ms, by = bound(4 * elems, flops, f32)
+    # at the rate of the units the tensor-core version runs on: three tf32
+    # products for each product at the dense TF32 rate, or the bytes
+    t_bytes, t_ops = 4 * elems / H100_HBM_BYTES_PER_S, 3 * flops / H100_TF32_FLOPS
     return {"shape": {"b": b, "nc": nc, "cl": cl, "nh": nh, "hp": hp,
-                      "ns": ns}, "dtype": str(f32), "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by}
+                      "ns": ns}, "dtype": str(f32), "version": timed,
+            "max_abs_err": err, "tol": tol, "ms": ms, "simt_ms": simt_ms,
+            "plain_ms": plain, "library_ms": lib,
+            "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by,
+            "bound_3xtf32_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_3xtf32_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": 4 * elems, "flops": flops,
+            "profile_device_us_by_kernel": by_kernel}
+
+
+def ssd_profile(ins, reps: int = 5):
+    """Device µs per call of each CUDA kernel the tensor-core
+    ``ssd_intra_chunk`` enqueues (its scores kernel and its heads kernel),
+    by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ssd_scan as ss
+    ss.ssd_intra_chunk(*ins[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            ss.ssd_intra_chunk(*ins[i % len(ins)])
+        torch.cuda.synchronize()
+    out = {"ssd_scores_tc_kernel": 0.0, "ssd_intra_chunk_tc_kernel": 0.0}
+    for e in prof.key_averages():
+        for name in out:
+            if name in e.key:
+                out[name] += getattr(e, "device_time_total", 0.0) / reps
+    return out
 
 
 def ssd_scan_library(xt, a, B, C, chunk):
@@ -627,10 +693,14 @@ def check_ladder(rng):
         if not (math.isfinite(err) and err <= tol):
             raise AssertionError(f"calibrate probe {kernel} {args}: max err "
                                  f"{err} > tol {tol}")
-        yield name, (err, tol)
         if kernel == "ssd_scan":
             b, length, nh, hp, ns, chunk = args
-            yield name, check_ssd(rng, b, length // chunk, chunk, nh, hp, ns)
+            yield name, (err, tol, ssd_version(chunk, hp, ns))
+            for res in check_ssd_both(rng, b, length // chunk, chunk, nh, hp,
+                                      ns):
+                yield name, res
+        else:
+            yield name, (err, tol)
 
 
 def phase_kernels(seed: int):
@@ -734,12 +804,25 @@ def phase_kernels(seed: int):
                          b * hkv, fd.valid_run(t, s, sum(w)), sms,
                          fd.block_slots(d, 2, hq // hkv))})
     # mamba2-370m at full width (d_inner 2048 = 32 heads of 64, state 128,
-    # chunk 256; batch 4, length 512) and ragged shapes; f32 only
-    for args in ((4, 2, 256, 32, 64, 128), (2, 3, 16, 2, 8, 12),
-                 (1, 2, 100, 3, 16, 24), (2, 2, 130, 2, 128, 70)):
-        note("ssd_intra_chunk", f32, check_ssd(rng, *args))
+    # chunk 256; batch 4, length 512), hymba-1.5b's (d_inner 3200 = 50 heads
+    # of 64, state 16, chunk 128; length 512) and ragged shapes; f32 only;
+    # each through the version the wrapper picks (the tensor-core one where
+    # the shape allows) and through the SIMT one; mamba's also under steep
+    # decay
+    for args in ((4, 2, 256, 32, 64, 128), (4, 4, 128, 50, 64, 16),
+                 (2, 3, 16, 2, 8, 12), (1, 2, 100, 3, 16, 24),
+                 (2, 2, 130, 2, 128, 70), (2, 2, 130, 3, 128, 72),
+                 (1, 3, 200, 9, 32, 20)):
+        for res in check_ssd_both(rng, *args):
+            note("ssd_intra_chunk", f32, res)
+    for res in check_ssd_both(rng, 4, 2, 256, 32, 64, 128, steep=True):
+        note("ssd_intra_chunk", f32, (*res[:2], res[2] + "_steep"))
     for args in ((4, 300, 32, 64, 128, 256), (2, 100, 3, 16, 24, 32)):
+        b, length, nh, hp, ns, chunk = args
         note("ssd_intra_chunk", f32, check_ssd_scan(rng, *args))
+        for res in check_ssd_both(rng, b, -(-length // chunk), chunk, nh, hp,
+                                  ns):
+            note("ssd_intra_chunk", f32, res)
     for name, res in check_ladder(rng):
         note(name, f32, res)
     emit({"phase": "kernels", "checked": {
@@ -763,6 +846,7 @@ def phase_kernels(seed: int):
     rows["flash_decode"].append(
         time_decode(rng, *decode_bench, decode_bench[1] - 1, f32))
     rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 2, 256, 32, 64, 128))
+    rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 4, 128, 50, 64, 16))
     emit({"phase": "kernel_times", "by_shape": rows,
           "calibrate_benches": time_benches(rng)})
     return rows
@@ -946,7 +1030,7 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     assert pre["f32_flash_vs_naive"] <= f32_tol, pre
     assert pre["bf16_flash_vs_naive"] <= bf16_tol, pre
     assert pre["bf16_flash_vs_f32"] <= 2.0 * pre["bf16_naive_vs_f32"] + 0.05, pre
-    return counts, runs
+    return counts, runs, versions
 
 
 def step_breakdown(cfg, frozen, bank, toks, profile: bool):
@@ -1031,10 +1115,12 @@ def phase_calibrate(seed: int):
     from repro_torch.launch import calibrate
 
     # ---- the main path: counts set to 0 just before, read just after ----
+    from repro_torch.kernels import ssd_scan as ss
     kernels.reset_launch_counts()
     payload = calibrate.run(smoke=False, reps=3)       # device=None: the card
     counts = kernels.launch_counts()
     runs = kernels.runs_on_card()
+    versions = {"ssd_intra_chunk": dict(ss.ssd_intra_chunk.by_version)}
     # ----------------------------------------------------------------------
     fit = payload["roofline_fit"]
     emit({"phase": "calibrate", "gpu": gpu_line(), "device": payload["device"],
@@ -1042,8 +1128,12 @@ def phase_calibrate(seed: int):
           "fit": fit, "kernel_benches": payload["kernels"],
           "inflation": {r["arch"]: r["inflation"]
                         for r in payload["measured"]["rows"]},
-          "launches": counts, "runs_on_card": runs})
+          "launches": counts, "runs_on_card": runs,
+          "launches_by_version": versions})
     assert len(payload["probes"]) == 12, payload["probes"]
+    # every shape of the calibrate path takes the tensor-core version
+    by = versions["ssd_intra_chunk"]
+    assert by["tc"] == counts["ssd_intra_chunk"] and by["simt"] == 0, by
     assert all(p["backend"] == "cuda" and p["seconds"] > 0
                and math.isfinite(p["seconds"]) for p in payload["probes"])
     assert all(math.isfinite(fit[k]) for k in
@@ -1062,6 +1152,7 @@ def phase_calibrate(seed: int):
     for name in ("lora_matmul", "flash_attention", "ssd_intra_chunk",
                  "flash_decode"):
         assert 0 < counts[name] <= runs[name], (name, counts, runs)
+    calibrate_result = (counts, runs, versions)
 
     t0 = time.time()
     div = calibrate.decision_divergence(tables, archs=CARD_ARCHS, seed=seed)
@@ -1081,7 +1172,7 @@ def phase_calibrate(seed: int):
     for cell in agree:
         assert cell["disagree_beyond_near_ties"] == 0, cell
         assert cell["worst_freq_rel_diff"] <= 1e-5, cell
-    return counts, runs
+    return calibrate_result
 
 
 # ---------------------------------------------------------------------------
@@ -1098,12 +1189,13 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:107"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:109"),
-    "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
+    "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_scan_tc.cu",
                         "src/repro/kernels/ssd_scan.py:80"),
 }
 SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
                 "lora_matmul_grouped": "src/repro_torch/csrc/lora_matmul.cu",
-                "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+                "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+                "ssd_intra_chunk": "src/repro_torch/csrc/ssd_scan.cu"}
 # the shape whose numbers head each kernel's entry (all shapes: "by_shape")
 HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
             "flash_decode": 0, "ssd_intra_chunk": 0}
@@ -1153,6 +1245,7 @@ def main() -> int:
     for name in ("lora_matmul_tc", "lora_matmul_grouped_tc",
                  "flash_attention_tc"):
         assert sass[name]["HGMMA"] > 0, (name, sass)
+    assert sass["ssd_scan_tc"]["HMMA"] > 0, sass     # mma.sync, tf32
 
     rows = phase_kernels(args.seed)
     if args.only == "kernels":
@@ -1173,16 +1266,19 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": launches,
             "path": PATH_OF[name],
-            "launches_by_path": {p: c[name] for p, (c, _) in by_path.items()},
+            "launches_by_path": {p: c[name] for p, (c, *_) in by_path.items()},
             # the card's runs: a launch captured into a CUDA graph (the
             # calibrate path's timer) counts once per replay here
             "runs_on_card": by_path[PATH_OF[name]][1][name],
             "runs_on_card_by_path": {p: r[name]
-                                     for p, (_, r) in by_path.items()},
+                                     for p, (_, r, _) in by_path.items()},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            **{k: head[k] for k in ("version", "simt_ms") if k in head},
+            **{k: head[k] for k in ("version", "simt_ms", "bound_3xtf32_ms",
+                                    "bound_3xtf32_by") if k in head},
+            **({"launches_by_version": by_path[PATH_OF[name]][2][name]}
+               if name in by_path[PATH_OF[name]][2] else {}),
             **({"simt_source": SIMT_SOURCES[name]}
                if name in SIMT_SOURCES else {}),
             "shape": head["shape"], "dtype": head["dtype"],

@@ -24,7 +24,8 @@ from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_grouped_tc",
-           "flash_attention", "flash_attention_tc", "flash_decode", "ssd_scan")
+           "flash_attention", "flash_attention_tc", "flash_decode", "ssd_scan",
+           "ssd_scan_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -76,6 +77,10 @@ _SIGNATURES = {
     "ssd_scan": {
         # xt, a, B, C, y, st, dec, b, nc, cl, nh, hp, ns, stream
         "ssd_intra_chunk_launch": [_P] * 7 + [_I] * 6 + [_P],
+    },
+    "ssd_scan_tc": {
+        # xt, a, B, C, y, st, dec, ws, b, nc, cl, nh, hp, ns, hg, stream
+        "ssd_intra_chunk_tc_launch": [_P] * 8 + [_I] * 7 + [_P],
     },
 }
 

@@ -67,13 +67,13 @@ def test_csrc_holds_the_three_kernels():
     """The serving slice's three kernels, and since the calibration slice
     the other two: all five TPU kernels of the reference; ``lora_matmul``,
     ``lora_matmul_grouped`` and ``flash_attention`` also on the tensor cores
-    (``wgmma``)."""
+    (``wgmma``), ``ssd_intra_chunk`` too (``mma.sync`` with tf32)."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
             for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
                       "lora_matmul_grouped_tc.cu", "flash_attention.cu", "flash_attention_tc.cu",
-                      "flash_decode.cu", "ssd_scan.cu", "common.cuh",
-                      "hopper.cuh")}
+                      "flash_decode.cu", "ssd_scan.cu", "ssd_scan_tc.cu",
+                      "common.cuh", "hopper.cuh")}
     assert "lora_matmul_kernel" in text["lora_matmul.cu"]
     assert "lora_matmul_tc_split_kernel" in text["lora_matmul_tc.cu"]
     assert ("lora_matmul_grouped_tc_split_kernel"
@@ -85,11 +85,13 @@ def test_csrc_holds_the_three_kernels():
     assert "flash_decode_split_kernel" in text["flash_decode.cu"]
     assert "cudaLaunchAttributeClusterDimension" in text["flash_decode.cu"]
     assert "ssd_intra_chunk_kernel" in text["ssd_scan.cu"]
+    assert ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+            in text["ssd_scan_tc.cu"])
     from repro_torch.kernels import _build, launch_counts
     assert set(_build.SOURCES) == {"lora_matmul", "lora_matmul_tc",
                                    "lora_matmul_grouped_tc",
                                    "flash_attention", "flash_attention_tc",
-                                   "flash_decode", "ssd_scan"}
+                                   "flash_decode", "ssd_scan", "ssd_scan_tc"}
     assert set(launch_counts()) == {"lora_matmul", "lora_matmul_grouped",
                                     "flash_attention", "flash_decode",
                                     "ssd_intra_chunk"}
@@ -385,6 +387,32 @@ def test_gpu_ssd_intra_chunk_kernel(cuda):
     y, h = ops.ssd_scan(xt[:, 0], a[:, 0], B[:, 0], C[:, 0], 64)
     y2, h2 = ssd_chunked(xt[:, 0], a[:, 0], B[:, 0], C[:, 0], 64)
     assert (y - y2).abs().max() <= 1e-4 and (h - h2).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nc,cl,nh,hp,ns", [
+    (1, 2, 256, 5, 64, 128), (2, 2, 128, 10, 64, 16), (1, 3, 100, 3, 32, 24),
+])
+def test_gpu_ssd_intra_chunk_tensor_core_and_simt(cuda, b, nc, cl, nh, hp, ns):
+    """Both versions against the plain one: the tensor-core kernel for
+    aligned inputs, the SIMT kernel for an xt one element off 16 bytes."""
+    from repro_torch.kernels import ssd_scan as ss
+    rng = np.random.default_rng(5)
+    xt = _rand(rng, (b, nc, cl, nh, hp), torch.float32, cuda) * 0.2
+    a = -_rand(rng, (b, nc, cl, nh), torch.float32, cuda).abs() * 0.1
+    B = _rand(rng, (b, nc, cl, ns), torch.float32, cuda) * 0.3
+    C = _rand(rng, (b, nc, cl, ns), torch.float32, cuda) * 0.3
+    want = ss.ssd_intra_chunk_ref(xt, a, B, C)
+    buf = torch.empty(xt.numel() + 1, device=cuda)
+    off = buf[1:].view(xt.shape)
+    off.copy_(xt)
+    for x_in, version in ((xt, "tc"), (off, "simt")):
+        before = ss.ssd_intra_chunk.by_version[version]
+        got = ss.ssd_intra_chunk(x_in, a, B, C)
+        torch.cuda.synchronize()
+        assert ss.ssd_intra_chunk.by_version[version] == before + 1
+        for g, w in zip(got, want):
+            assert (g - w).abs().max() <= 1e-4
 
 
 @pytest.mark.gpu

@@ -102,3 +102,43 @@ def test_intra_chunk_rejects_mismatched_shapes():
                                            (1, 1, 8, 5), (1, 1, 8, 5)))
     with pytest.raises(ValueError, match="shapes do not agree"):
         t_ssd.ssd_intra_chunk(xt, a, B, C)
+
+
+def _steep(arrays):
+    """a = -|N(0, 1)| * 2: over a 256-row chunk cum falls to about -400, so
+    exp(cum_i) * exp(-cum_j) would overflow where the segment form does not."""
+    arrays[1] = -np.abs(np.random.default_rng(9).standard_normal(
+        arrays[1].shape)).astype(np.float32) * 2.0
+    return arrays
+
+
+def test_intra_chunk_steep_decay_vs_pallas():
+    b, nc, cl, nh, hp, ns = 1, 2, 256, 3, 16, 32
+    arrays = _steep(_inputs(10, (b, nc, cl), nh, hp, ns))
+    got = t_ssd.ssd_intra_chunk(*(torch.from_numpy(x) for x in arrays))
+    want = j_intra(*(jnp.asarray(x) for x in arrays), interpret=True)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(t2n(g), j2n(w), atol=ATOL, rtol=0)
+
+
+def test_ssd_scan_steep_decay_vs_jax_ops():
+    l, nh, hp, ns, chunk = 300, 3, 16, 32, 256       # not a multiple of chunk
+    arrays = _steep(_inputs(11, (2, l), nh, hp, ns))
+    y, h = tops.ssd_scan(*(torch.from_numpy(x) for x in arrays), chunk)
+    yw, hw = jops.ssd_scan(*(jnp.asarray(x) for x in arrays), chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    np.testing.assert_allclose(t2n(y), j2n(yw), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(t2n(h), j2n(hw), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("nh", [10, 5])
+def test_intra_chunk_hymba_like_vs_pallas(nh):
+    """hymba-1.5b reduced: ns = 16, chunk 128, a head count that is not a
+    multiple of the tensor-core kernel's head group (8 or 4)."""
+    b, nc, cl, hp, ns = 1, 2, 128, 16, 16
+    arrays = _inputs(12, (b, nc, cl), nh, hp, ns)
+    got = t_ssd.ssd_intra_chunk(*(torch.from_numpy(x) for x in arrays))
+    want = j_intra(*(jnp.asarray(x) for x in arrays), interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(t2n(g), j2n(w), atol=ATOL, rtol=0)
