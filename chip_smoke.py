@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything (needs one CUDA device)
     python3 chip_smoke.py --only kernels   # build + kernel checks only
+    python3 chip_smoke.py --only train     # the train phase only
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -35,6 +36,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
            for four full configs x three channel states over a 100-device
            fleet, and the batched decisions held to the scalar float64
            ``card`` on every (round, device) of one state
+  train    split LoRA fine-tuning of full-width llama32-1b: split grads
+           equal unsplit grads (f32, cuts 0, 16, 32); the kernel routes
+           refuse autograd; ``SplitFineTuner`` with CARD in the loop and
+           then a static cut 16 (bf16, 4 x 512 tokens, CUDA-event ms per
+           stage of each local epoch, peak memory); ``make_train_step``
+           lowers the loss on a fixed batch with remat on and off; no
+           kernel launches on this path, as in the reference
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line; the line before the last holds the card's name and
@@ -1176,6 +1184,265 @@ def phase_calibrate(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+SPLIT_TOL = 1e-3         # split vs unsplit grads, f32, x max|leaf|
+
+
+class StageClock:
+    """The ``mark`` of ``split_grads``: a CUDA event as each stage begins,
+    read after the run as device ms per stage of each local epoch."""
+
+    STAGES = ("device_forward", "server", "device_backward", "end")
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((stage, ev))
+
+    def epochs(self):
+        torch.cuda.synchronize()
+        n = len(self.STAGES)
+        out = []
+        for i in range(0, len(self.events), n):
+            names, evs = zip(*self.events[i:i + n])
+            assert names == self.STAGES, names
+            out.append({f"{a}_ms": evs[j].elapsed_time(evs[j + 1])
+                        for j, a in enumerate(self.STAGES[:-1])})
+        return out
+
+
+def _tree_err(got, want):
+    """Worst leaf error relative to that leaf's largest magnitude."""
+    worst = 0.0
+    for a, b in zip(_leaves(got), _leaves(want), strict=True):
+        assert a.shape == b.shape, (a.shape, b.shape)
+        if b.numel():
+            scale = b.abs().max().item()
+            worst = max(worst, (a - b).abs().max().item() / max(scale, 1e-30))
+    return worst
+
+
+def mm_out_dtype_has_derivative() -> bool:
+    """Whether ``torch.mm(..., out_dtype=float32)`` (the f32 logits of a
+    bf16 model) has a backward of its own in this PyTorch; the model wraps
+    it in an autograd Function either way."""
+    x = torch.ones(4, 8, dtype=torch.bfloat16, device="cuda",
+                   requires_grad=True)
+    w = torch.ones(8, 4, dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(x, w, out_dtype=torch.float32).sum().backward()
+    except RuntimeError:
+        return False
+    return x.grad is not None
+
+
+def phase_train(seed: int, profile: bool = False):
+    """Split LoRA fine-tuning of full-width llama32-1b on the card:
+    (a) split grads equal unsplit grads in f32 at cuts 0, 16, 32; (b) the
+    kernel routes refuse autograd; (c) ``SplitFineTuner`` with CARD in the
+    loop, then a static mid cut, bf16, per-stage CUDA-event times; (d)
+    ``make_train_step`` lowers the loss on a fixed batch, remat on and off.
+    The path trains through no kernel, as the reference does: its kernel
+    launches are read around the phase and must be 0."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import splitting as S
+    from repro_torch.core.channel import WirelessChannel
+    from repro_torch.core.hardware import (EDGE_FLEET, SERVER_RTX4060TI,
+                                           SimParams)
+    from repro_torch.core.protocol import SplitFineTuner
+    from repro_torch.data import make_fleet_datasets
+    from repro_torch.launch.train import make_train_step, value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.models.common import batch_to_device, lora_dense
+    from repro_torch.optim import adamw, constant_schedule
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama32-1b")
+    gpu = gpu_line()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+
+    # (a) split == unsplit, f32, channel off, batch 2 x 256
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = M.init_params(seed, cfg32)
+    frozen32, lora32 = p32["frozen"], make_adapter(cfg32, seed + 1, dev)
+    del p32
+    rng = np.random.default_rng(seed + 200)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                           device=dev)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                             device=dev)
+    ref_loss, ref = value_and_grad(
+        lambda lo: M.forward_loss(frozen32, lo,
+                                  {"tokens": toks, "labels": labels}, cfg32,
+                                  impl="naive", remat=False), lora32)
+    split = {"batch": [2, 256], "dtype": "float32", "tol": SPLIT_TOL,
+             "loss": ref_loss.item(), "cuts": {}}
+    for cut in (0, 16, 32):
+        d, s_ = S.split_lora(lora32, cut)
+        loss, gd, gs = S.split_grads(frozen32, d, s_, toks, labels, cfg=cfg32,
+                                     cut=cut, compress=False)
+        split["cuts"][cut] = {
+            "loss_rel_err": abs(loss.item() / ref_loss.item() - 1),
+            "worst_leaf_rel_err": _tree_err(S.merge_lora(gd, gs), ref)}
+    # (b) the kernel routes refuse autograd on the card
+    refused = {}
+    d, s_ = S.split_lora(lora32, 16)
+    try:
+        S.split_grads(frozen32, d, s_, toks, labels, cfg=cfg32, cut=16,
+                      impl="pallas")
+    except RuntimeError as e:
+        refused["split_grads_pallas"] = str(e).split(":")[0]
+    x = torch.randn(8, cfg.d_model, device=dev, requires_grad=True)
+    pair = {k: v[0] for k, v in lora32["layers"]["attn"]["wq"].items()}
+    try:
+        lora_dense(x, frozen32["layers"]["attn"]["wq"][0], pair,
+                   cfg.lora.scale, use_kernel=True)
+    except RuntimeError as e:
+        refused["lora_dense_kernel"] = str(e).split(":")[0]
+    del frozen32, lora32, ref, gd, gs
+    torch.cuda.empty_cache()
+    emit({"phase": "train_split_equals_unsplit", "gpu": gpu, **split,
+          "refused_under_grad": refused,
+          "mm_out_dtype_has_derivative": mm_out_dtype_has_derivative()})
+    for cut, r in split["cuts"].items():
+        assert r["loss_rel_err"] <= SPLIT_TOL, (cut, r)
+        assert r["worst_leaf_rel_err"] <= SPLIT_TOL, (cut, r)
+    assert refused == {
+        "split_grads_pallas": "flash_attention has no backward",
+        "lora_dense_kernel": "lora_matmul has no backward"}, refused
+
+    # (c) CARD in the loop, bf16, then a static mid cut
+    params = M.init_params(seed, cfg)
+    frozen, lora0 = params["frozen"], make_adapter(cfg, seed + 1, dev)
+    del params
+    sim = SimParams(local_epochs=2)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for policy, rounds, static in (("card", 3, None), ("static", 2, 16)):
+        ft = SplitFineTuner(
+            cfg, frozen, lora0, adamw(constant_schedule(3e-3)),
+            devices=list(EDGE_FLEET[:2]), server=SERVER_RTX4060TI,
+            channels=[WirelessChannel("normal", seed=i) for i in range(2)],
+            datasets=make_fleet_datasets(cfg, 2, seed=1), sim=sim,
+            policy=policy, static_cut=static, cost_cfg=cfg)
+        clock = StageClock()
+        ft.executor.mark = clock
+        walls = []
+        run_round = ft.run_round
+
+        def timed_round(n, m, run_round=run_round, walls=walls):
+            t0 = time.perf_counter()
+            log = run_round(n, m)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return log
+        ft.run_round = timed_round
+        res = ft.run(rounds)
+        epochs = clock.epochs()
+        logs = [dataclasses.asdict(l) for l in res.logs]
+        for i, log in enumerate(logs):
+            log["wall_s_per_epoch"] = walls[i] / sim.local_epochs
+            log["epochs_ms"] = epochs[i * sim.local_epochs:
+                                      (i + 1) * sim.local_epochs]
+        runs[policy] = {"rounds": rounds, "static_cut": static,
+                        "committed": res.rounds_committed(), "logs": logs}
+        assert res.rounds_committed() == rounds, res.round_summaries
+        assert all(l["status"] == "ok" and math.isfinite(l["loss"])
+                   for l in logs), logs
+    card_peak = torch.cuda.max_memory_allocated()
+    cuts = [l["cut"] for r in runs.values() for l in r["logs"]]
+    emit({"phase": "train_protocol", "gpu": gpu, "arch": cfg.name,
+          "dtype": cfg.dtype, "mini_batch": sim.mini_batch,
+          "seq_len": sim.seq_len, "local_epochs": sim.local_epochs,
+          "peak_memory_bytes": card_peak, **runs})
+    assert any(0 < c < cfg.n_layers for c in cuts), cuts
+
+    # (d) the train step learns on one fixed batch, remat on and off
+    batch = batch_to_device(
+        make_fleet_datasets(cfg, 1, seed=2)[0].minibatch(4, 512), dev)
+    steps = {}
+    for remat in (True, False):
+        opt = adamw(constant_schedule(3e-3))
+        step = make_train_step(cfg, opt, impl="chunked", remat=remat, cut=0)
+        lora, st = lora0, opt.init(lora0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, events = [], []
+        for _ in range(8):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            loss, lora, st = step(frozen, lora, st, batch)
+            losses.append(loss)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        losses = torch.stack(losses).tolist()
+        wall = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        steps["remat" if remat else "no_remat"] = {
+            "losses": losses, "step_ms": step_ms,
+            # steady state: the first step of each run pays first-call costs
+            "steps_per_s": 1e3 / float(np.median(step_ms[1:])),
+            "wall_steps_per_s": 8 / wall,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    counts = kernels.launch_counts()
+    runs_on = kernels.runs_on_card()
+    # ----------------------------------------------------------------------
+    emit({"phase": "train_step", "gpu": gpu, "batch": [4, 512],
+          "optimizer": "adamw, constant 3e-3", "impl": "chunked", **steps,
+          "launches": counts, "phase_seconds": time.time() - t_phase})
+    if profile:
+        emit(train_profile(cfg, frozen, lora0, batch, gpu))
+    for name, r in steps.items():
+        assert all(math.isfinite(v) for v in r["losses"]), (name, r)
+        assert r["losses"][-1] < r["losses"][0], (name, r)
+    assert all(n == 0 for n in counts.values()), counts
+    return counts, runs_on, {}
+
+
+def train_profile(cfg, frozen, lora, batch, gpu, cut: int = 16):
+    """One local epoch (``split_grads`` at ``cut``, bf16, 4 x 512) under
+    ``torch.profiler``: device time by kernel, and the share of the
+    epoch's wall in which the card ran no kernel."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    from repro_torch.core import splitting as S
+    d, s_ = S.split_lora(lora, cut)
+
+    def epoch():
+        S.split_grads(frozen, d, s_, batch["tokens"], batch["labels"],
+                      cfg=cfg, cut=cut)
+        torch.cuda.synchronize()
+    epoch()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        epoch()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels_ = [e for e in p.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels_)
+    rows = sorted(p.key_averages(),
+                  key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    return {"phase": "train_profile", "gpu": gpu, "cut": cut,
+            "wall_us": wall_us, "device_busy_us": busy_us,
+            "device_idle_share": max(0.0, 1 - busy_us / wall_us),
+            "device_kernels": len(kernels_),
+            "device_us_by_op": [
+                {"name": e.key[:60], "calls": e.count,
+                 "self_device_us": getattr(e, "self_device_time_total", 0.0)}
+                for e in rows[:15]]}
+
+
+# ---------------------------------------------------------------------------
 
 
 # the source of the version the main path runs; the redesigned kernels keep
@@ -1210,10 +1477,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="stop after the build and kernels phases")
+    ap.add_argument("--only", choices=("kernels", "train"), default=None,
+                    help="kernels: stop after the build and kernels phases; "
+                         "train: run the train phase alone (it builds and "
+                         "launches no kernel)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one decode tick with torch.profiler")
+                    help="also trace one decode tick and one local epoch "
+                         "of split training with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1228,6 +1498,12 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
+
+    if args.only == "train":
+        phase_train(args.seed, args.profile)
+        emit({"phase": "done", "only": "train",
+              "seconds": time.time() - t_start})
+        return 0
 
     from repro_torch.kernels import _build
     seconds = _build.build_all(force=True)
@@ -1256,6 +1532,7 @@ def main() -> int:
     by_path = {"serve": phase_serve_and_prefill(args.seed, args.requests,
                                                 args.profile),
                "calibrate": phase_calibrate(args.seed)}
+    by_path["train"] = phase_train(args.seed, args.profile)
 
     kernels_line = []
     for name, by_shape in rows.items():

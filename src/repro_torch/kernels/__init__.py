@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 ``lora_matmul``, ``flash_attention``, ``flash_decode`` and ``ssd_scan`` each
-hold a wrapper (checks its arguments, launches the CUDA kernel on a CUDA
-tensor, uses the plain version only for a CPU tensor, counts its launches)
+hold a wrapper (checks its arguments, refuses autograd, launches the CUDA
+kernel on a CUDA tensor, uses the plain version only for a CPU tensor,
+counts its launches)
 and the plain version beside it;
 ``ops`` adapts them to the model's layouts; ``_build`` compiles and binds
 ``csrc/*.cu``. Nothing is built or loaded at import time.
@@ -10,6 +11,22 @@ and the plain version beside it;
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if autograd would record a call of kernel ``name``: a kernel
+    writes its output through a raw launch, so the result carries no
+    gradient, and the JAX package's Pallas kernels cannot be differentiated
+    either. The same on every device, so a CPU run shows what the card
+    does."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() on inputs "
+            "that need no gradient; to train, take the plain path "
+            "(attention impl='naive' or 'chunked', use_lora_kernel=False)")
 
 
 def _wrappers():

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -78,6 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, H, D) tensor); the last dim must be contiguous. The output has
     q's shape and strides. float32 or bfloat16; head dim 16, 32, 64 or 128.
     """
+    refuse_autograd("flash_attention", q, k, v)
     if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError("flash_attention takes 3-D or 4-D q, k, v alike")
     squeeze = q.ndim == 3

@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -117,6 +117,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     permuted); the last dim must be contiguous. float32 or bfloat16; head
     dim 16, 32, 64 or 128; at most 8 queries per group.
     """
+    refuse_autograd("flash_decode", q, k, v)
     if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError("flash_decode takes 3-D or 4-D q, k, v alike")
     squeeze = q.ndim == 3

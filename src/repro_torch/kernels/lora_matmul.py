@@ -41,7 +41,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_RANK = 64
@@ -168,6 +168,7 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     Any M, K, N (ragged edges are masked in the kernel), r <= 64; float32 or
     bfloat16. ``w``, ``a``, ``b`` of another float dtype are cast to
     ``x.dtype`` first."""
+    refuse_autograd("lora_matmul", x, w, a, b)
     if x.ndim != 2 or w.ndim != 2 or a.ndim != 2 or b.ndim != 2:
         raise ValueError("lora_matmul takes 2-D x, w, a, b")
     m, k = x.shape
@@ -232,6 +233,7 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     each request. Returns (G, M, N) in x.dtype. The bank may be strided
     along its first axis (each adapter's own matrix must be contiguous): the
     kernel offsets the bank pointers by ``ids[g]`` times that stride."""
+    refuse_autograd("lora_matmul_grouped", x, w, a, b)
     if x.ndim != 3 or w.ndim != 2 or a.ndim != 3 or b.ndim != 3:
         raise ValueError("lora_matmul_grouped takes x (G,M,K), w (K,N), "
                          "a (E,K,r), b (E,r,N)")

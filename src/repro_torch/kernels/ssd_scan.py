@@ -35,7 +35,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_autograd
 
 MAX_HEAD_DIM = 128
 TC_MAX_CHUNK = 256          # the tensor-core cum scan: up to 8 rows a lane
@@ -138,6 +138,7 @@ def ssd_intra_chunk(xt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     B, C: (b, nc, cl, ns); all float32. Returns
     ``(y (b, nc, cl, nh, hp), states (b, nc, nh, ns, hp),
     dec (b, nc, cl, nh, 2))``, float32. Head dim at most 128."""
+    refuse_autograd("ssd_intra_chunk", xt, a, B, C)
     if xt.ndim != 5 or a.ndim != 4 or B.ndim != 4 or C.ndim != 4:
         raise ValueError("ssd_intra_chunk takes xt (b,nc,cl,nh,hp), "
                          "a (b,nc,cl,nh), B and C (b,nc,cl,ns)")

@@ -5,7 +5,8 @@ Three score paths:
                   of every cached step (decode, chunked prefill).
   * ``chunked`` — same signature; delegates to ``naive`` (see its docstring).
   * ``flash``   — the CUDA kernel in ``repro_torch.kernels.flash_attention``
-                  (the counterpart of the reference's ``pallas``).
+                  (the counterpart of the reference's ``pallas``, a name
+                  taken here for the same route). It has no backward.
 
 Supports causal masking, sliding windows (SWA), GQA head grouping, RoPE,
 qk-norm (Qwen3) and QKV bias (Qwen2).
@@ -122,7 +123,7 @@ def attention_scores(q, k, v, *, impl: str, causal: bool, window: int,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_positions=q_positions,
                                  k_positions=k_positions)
-    if impl == "flash":
+    if impl in ("flash", "pallas"):
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.flash_attention(q, k, v, causal=causal, window=window,
                                           q_positions=q_positions,

@@ -62,6 +62,12 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """The leaves (in ``tree_leaves`` order) in the nesting of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def tree_structure(tree):
     """Hashable description of the dict nesting (keys only)."""
     if isinstance(tree, dict):
@@ -209,3 +215,29 @@ def maybe_lora(lora_tree: Optional[Params], name: str) -> Optional[Params]:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x.to(ACC_DTYPE)).to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_id: int = -100) -> torch.Tensor:
+    """Mean next-token CE over the labels that are not ``ignore_id``.
+    logits: (B,S,V) float, taken in f32; labels: (B,S) int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).to(torch.long)[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors on ``device``: integer leaves
+    (tokens, labels) as int64, the index type of a gather; float leaves
+    (embeds, smashed data) keep their dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if not t.is_floating_point():
+            t = t.to(torch.long)
+        out[k] = t.to(device)
+    return out

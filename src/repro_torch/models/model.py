@@ -5,11 +5,13 @@ Parameters come in two trees:
   * ``lora``   — the adapters (only the A/B matrices train).
 
 Layer params are stacked along a leading ``n_layers`` axis, as in the
-reference, and run by a Python loop over views of that axis. Everything here
-is inference: callers run it under ``torch.no_grad()`` (``launch.serve`` and
-``serving.engine`` do). The cache is a nested dict whose leaves are
-``(n_layers, batch, ...)``; the decode and prefill functions update it IN
-PLACE and return it.
+reference, and run by a Python loop over views of that axis. The
+full-sequence forward trains: ``forward_loss`` and ``forward_hidden`` run
+under autograd (``core.splitting``, ``launch.train``), with each layer
+recomputed in the backward when ``remat`` is set. Serving runs under
+``torch.no_grad()`` (``launch.serve``, ``serving.engine``). The cache is a
+nested dict whose leaves are ``(n_layers, batch, ...)``; the decode and
+prefill functions update it IN PLACE and return it.
 
 Split learning support: ``forward_hidden(..., lo, hi)`` runs layers
 ``[lo, hi)`` only. ``lo == 0`` includes the embedding; ``hi == n_layers``
@@ -17,16 +19,18 @@ is the natural server end (final norm + LM head live with the loss).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.common import (ACC_DTYPE, Params, dtype_of,
                                        embed_init, init_rms_norm,
                                        make_generator, resolve_device,
-                                       rms_norm, tree_map, tree_take)
+                                       rms_norm, softmax_cross_entropy,
+                                       tree_map, tree_take)
 
 
 # ---------------------------------------------------------------------------
@@ -86,15 +90,23 @@ def forward_hidden(frozen: Params, lora: Optional[Params],
                    inputs: torch.Tensor, cfg: ModelConfig, *, lo: int = 0,
                    hi: Optional[int] = None,
                    positions: Optional[torch.Tensor] = None,
-                   impl: str = "chunked", use_lora_kernel: bool = False,
+                   impl: str = "chunked", remat: bool = True,
+                   use_lora_kernel: bool = False,
                    inputs_embedded: Optional[bool] = None,
-                   lora_sliced: bool = False
+                   lora_sliced: bool = False, unroll: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run layers [lo, hi). By default ``lo==0`` means ``inputs`` are
     tokens/embeds and the embedding is applied; otherwise ``inputs`` are
     hidden states (smashed data). ``inputs_embedded=True`` forces the
     hidden-state interpretation (server stage at cut 0).
+
+    ``remat``: under autograd each layer runs inside
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), which
+    keeps its inputs only and recomputes it in the backward; without grad
+    it changes nothing. ``unroll`` is the reference's (a Python loop over
+    layers is already unrolled) and changes nothing.
     Returns (hidden, aux_loss_sum)."""
+    del unroll
     hi = cfg.n_layers if hi is None else hi
     if inputs_embedded is None:
         inputs_embedded = lo != 0
@@ -112,15 +124,44 @@ def forward_hidden(frozen: Params, lora: Optional[Params],
     else:
         layer_lora = slice_layers(lora["layers"], lo, hi)
 
+    remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(hi - lo):
         lp = tree_take(layer_params, i)
         ll = tree_take(layer_lora, i) if layer_lora is not None else None
-        x, aux_l = blocks.layer_forward(lp, ll, x, cfg, positions=positions,
-                                        impl=impl,
-                                        use_lora_kernel=use_lora_kernel)
+        if remat:
+            x, aux_l = checkpoint(blocks.layer_forward, lp, ll, x, cfg,
+                                  positions=positions, impl=impl,
+                                  use_lora_kernel=use_lora_kernel,
+                                  use_reentrant=False)
+        else:
+            x, aux_l = blocks.layer_forward(lp, ll, x, cfg,
+                                            positions=positions, impl=impl,
+                                            use_lora_kernel=use_lora_kernel)
         aux = aux + aux_l
     return x, aux
+
+
+class _MmF32Out(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=f32)`` (CUDA only) with a backward, which
+    that overload lacks. The gradients are what JAX gives for a dot with
+    ``preferred_element_type=f32``: each product of the f32 cotangent is
+    accumulated in f32 and rounded once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=ACC_DTYPE)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.to(ACC_DTYPE).t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.to(ACC_DTYPE).t(), g).to(w.dtype)
+        return dx, dw
 
 
 def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -130,8 +171,7 @@ def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, w)
     if x.is_cuda:
         x2 = x.reshape(-1, x.shape[-1])
-        return torch.mm(x2, w, out_dtype=ACC_DTYPE).reshape(
-            *x.shape[:-1], w.shape[-1])
+        return _MmF32Out.apply(x2, w).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(ACC_DTYPE), w.to(ACC_DTYPE))
 
 
@@ -145,6 +185,19 @@ def logits_from_hidden(frozen: Params, x: torch.Tensor, cfg: ModelConfig
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     return logits
+
+
+def forward_loss(frozen: Params, lora: Optional[Params], batch: Dict[str, Any],
+                 cfg: ModelConfig, *, impl: str = "chunked",
+                 remat: bool = True, use_lora_kernel: bool = False,
+                 unroll: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy of the whole model on ``batch``
+    (``tokens`` or ``embeds``, and ``labels``), plus the layers' aux loss."""
+    inputs = batch["embeds"] if cfg.input_mode == "embeds" else batch["tokens"]
+    x, aux = forward_hidden(frozen, lora, inputs, cfg, impl=impl, remat=remat,
+                            use_lora_kernel=use_lora_kernel, unroll=unroll)
+    logits = logits_from_hidden(frozen, x, cfg)
+    return softmax_cross_entropy(logits, batch["labels"]) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -79,3 +79,19 @@ def t2n(x: torch.Tensor) -> np.ndarray:
 
 def j2n(x) -> np.ndarray:
     return np.asarray(x, np.float32)
+
+
+def assert_tree_close(jtree, ttree, c, atol=0.0):
+    """Same keys (dicts compared by key: JAX sorts them, the port keeps
+    insertion order), same shapes, and every leaf within ``c * max|JAX
+    leaf| + atol`` of the JAX leaf."""
+    if isinstance(ttree, dict):
+        assert set(jtree) == set(ttree), (sorted(jtree), sorted(ttree))
+        for k in ttree:
+            assert_tree_close(jtree[k], ttree[k], c, atol)
+        return
+    want, got = j2n(jtree), t2n(ttree)
+    assert want.shape == got.shape
+    if want.size:
+        tol = c * np.abs(want).max() + atol
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)

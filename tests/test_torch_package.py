@@ -34,6 +34,10 @@ def test_every_module_imports_without_jax_or_reference_package():
     names = _module_names()
     assert "repro_torch.serving.engine" in names
     assert "repro_torch.kernels._build" in names
+    for name in ("core.splitting", "core.faults", "core.protocol",
+                 "optim.optimizer", "data.pipeline", "checkpoint.checkpoint",
+                 "launch.train", "launch.trainer"):
+        assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -110,11 +114,11 @@ def no_gpu():
                                    "ServingEngine", "make_serve_step",
                                    "make_prefill_step", "probe_kernels",
                                    "BatchedRoundContext.build",
-                                   "calibrate.run"])
+                                   "calibrate.run", "run_training"])
 def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
     from repro_torch.configs.base import get_config
     from repro_torch.core import channel, cost_model, hardware, measured_cost
-    from repro_torch.launch import calibrate, serve
+    from repro_torch.launch import calibrate, serve, train
     from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine
     cfg = get_config("llama32-1b").reduced()
@@ -138,6 +142,7 @@ def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
         "probe_kernels": lambda: measured_cost.probe_kernels(),
         "BatchedRoundContext.build": build_context,
         "calibrate.run": lambda: calibrate.run(smoke=True),
+        "run_training": lambda: train.run_training(steps=1, pretrain_steps=0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -439,3 +444,47 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     from repro_torch.core import measured_cost
     with pytest.raises(ValueError, match="unknown probe backend"):
         measured_cost.probe_kernels(backend="jnp", device=cuda)
+
+
+@pytest.mark.gpu
+def test_gpu_f32_logits_of_a_bf16_model_have_a_backward(cuda):
+    """``torch.mm(..., out_dtype=float32)`` has no derivative of its own;
+    the model's autograd Function gives dX = (dY @ Wᵀ) in f32, rounded once
+    to x's dtype, as JAX's transpose of an f32-preferred dot does."""
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (2, 3, 64), torch.bfloat16, cuda).requires_grad_()
+    w = _rand(rng, (64, 96), torch.bfloat16, cuda)
+    y = M._matmul_f32_out(x, w)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, x.detach().float() @ w.float(),
+                               rtol=1e-5, atol=1e-4)
+    gy = _rand(rng, tuple(y.shape), torch.float32, cuda)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    want = (gy.reshape(-1, 96) @ w.float().t()).to(torch.bfloat16)
+    assert gx.dtype == torch.bfloat16
+    torch.testing.assert_close(gx.reshape(-1, 64).float(), want.float(),
+                               rtol=8e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_gpu_wrappers_refuse_autograd(cuda):
+    """On the card, as on the CPU: a kernel's output would carry no
+    gradient, so a call under grad with an input that needs one raises."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(5)
+    x = _rand(rng, (64, 256), torch.bfloat16, cuda).requires_grad_()
+    w = _rand(rng, (256, 128), torch.bfloat16, cuda)
+    a = _rand(rng, (256, 16), torch.bfloat16, cuda)
+    b = _rand(rng, (16, 128), torch.bfloat16, cuda)
+    before = lm.lora_matmul.launches
+    with pytest.raises(RuntimeError, match="lora_matmul has no backward"):
+        lm.lora_matmul(x, w, a, b, 0.5)
+    assert lm.lora_matmul.launches == before
+    with torch.no_grad():
+        lm.lora_matmul(x, w, a, b, 0.5)
+    assert lm.lora_matmul.launches == before + 1
+    q = _rand(rng, (1, 4, 128, 64), torch.bfloat16, cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+        fa.flash_attention(q, q[:, :2].detach(), q[:, :2].detach())
