@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # everything (needs one CUDA device)
     python3 chip_smoke.py --only kernels   # build + kernel checks only
     python3 chip_smoke.py --only train     # the train phase only
+    python3 chip_smoke.py --only families  # build + the families phase
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -43,6 +44,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
            stage of each local epoch, peak memory); ``make_train_step``
            lowers the loss on a fixed batch with remat on and off; no
            kernel launches on this path, as in the reference
+  families mamba2-370m, hymba-1.5b and granite-moe-3b-a800m at their full
+           published configs (bf16, random weights from a seed, four
+           non-zero adapters): ``ServingEngine`` with the fused kernels on
+           8 requests a config (launch counts by kernel and version,
+           tokens, logits against the f32 plain path);
+           ``make_prefill_step(impl="flash")`` on (4, 1024) against
+           ``impl="chunked"`` (``ssd_intra_chunk`` on its model path, its
+           share of the step's device time); split == unsplit grads in f32
+           and a falling bf16 train step, no kernel
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line; the line before the last holds the card's name and
@@ -846,15 +856,17 @@ def phase_kernels(seed: int):
             time_grouped(rng, 8, k, n, 16, 4, bf16))
     rows["flash_attention"].append(time_flash(rng, 4, 1024, 32, 8, 64, bf16))
     # flash_decode at the llama32-1b serving cache (bf16 and f32) and at the
-    # reference bench's shape; ssd_intra_chunk at mamba2-370m's full width
+    # reference bench's shape
     for dtype in (bf16, f32):
         for t in (511, 200, 0):
             rows["flash_decode"].append(
                 time_decode(rng, 8, 512, 32, 8, 64, t, dtype))
     rows["flash_decode"].append(
         time_decode(rng, *decode_bench, decode_bench[1] - 1, f32))
-    rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 2, 256, 32, 64, 128))
-    rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 4, 128, 50, 64, 16))
+    # ssd_intra_chunk at the shapes mamba_forward(impl="flash") hands it on
+    # (4, 1024) tokens: mamba2-370m's and hymba-1.5b's
+    rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 4, 256, 32, 64, 128))
+    rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 8, 128, 50, 64, 16))
     emit({"phase": "kernel_times", "by_shape": rows,
           "calibrate_benches": time_benches(rng)})
     return rows
@@ -998,7 +1010,7 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     pbf = tick_and_chunk(frozen, cfg, torch.bfloat16, False)
     report = {"phase": "serve_logits", "f32_tol": f32_tol,
               "bf16_tol": bf16_tol,
-              "logit_abs_max": p32[0].abs().max().item()}
+              "logit_abs_max": p32[0][..., :cfg.vocab_size].abs().max().item()}
     for i, what in enumerate(("tick", "chunk")):
         report[what] = {
             "f32_kernel_vs_plain": err(k32[i], p32[i]),
@@ -1217,11 +1229,14 @@ class StageClock:
 
 
 def _tree_err(got, want):
-    """Worst leaf error relative to that leaf's largest magnitude."""
+    """Worst leaf error relative to that leaf's largest magnitude; inf if
+    any leaf of either tree is not finite."""
     worst = 0.0
     for a, b in zip(_leaves(got), _leaves(want), strict=True):
         assert a.shape == b.shape, (a.shape, b.shape)
         if b.numel():
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                return math.inf
             scale = b.abs().max().item()
             worst = max(worst, (a - b).abs().max().item() / max(scale, 1e-30))
     return worst
@@ -1443,6 +1458,463 @@ def train_profile(cfg, frozen, lora, batch, gpu, cut: int = 16):
 
 
 # ---------------------------------------------------------------------------
+# families phase
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("mamba2-370m", "hymba-1.5b", "granite-moe-3b-a800m")
+FAMILY_REQUESTS = 8        # served per config
+FAMILY_CHUNK = 32          # the engine's prefill chunk
+LOGIT_TOKENS = 8           # the prompt of the serve logits check
+# the bf16 train step's AdamW rate: the train phase's 3e-3, but 3e-4 for
+# granite, whose loss on the fixed batch rose at 3e-3 at full width (11.57,
+# 11.54, 12.69, 11.83 on the H100); the port's MoE step equals the
+# reference's at 3e-3 step by step at the reduced size
+# (tests/test_torch_train.py::test_moe_train_step_matches_jax_at_3e_3_on_one_batch)
+TRAIN_LR = {"moe": 3e-4}
+
+
+def lora_projections(cfg) -> int:
+    """LoRA projections a layer sends through ``lora_dense`` with the
+    caller's kernel route. The attention takes its targets among wq, wk, wv,
+    wo (4 of them); the dense MLP among w_gate, w_up, w_down (3). The Mamba
+    block's in_proj and out_proj always take the plain product
+    (``mamba_decode`` as the reference; in ``mamba_forward`` the route is
+    the prefill step's, which has none), and the MoE block's out_adapter two
+    plain products. So: mamba2-370m 0, hymba-1.5b 4 + 3 = 7, granite 4."""
+    targets = set(cfg.lora.targets)
+    n = 0
+    if cfg.family != "ssm":
+        n += len(targets & {"wq", "wk", "wv", "wo"})
+    if cfg.family not in ("ssm", "moe"):
+        n += len(targets & {"w_gate", "w_up", "w_down"})
+    return n
+
+
+def family_kernel_checks(seed: int, gpu: str):
+    """The kernels of the families path against their plain versions at
+    the shapes that path hands them, through the version the wrapper picks
+    (``wgmma`` and ``tc``, asserted), at the kernels phase's tolerances
+    (``LORA_TOL``, ``ATTN_TOL``, ``SSD_TOL``). hymba-1.5b and granite, bf16:
+    every LoRA projection (K, N) of a layer; ``lora_matmul`` at M = 1
+    (hymba's scan prefill: a decode step a token) and M = ``FAMILY_CHUNK``
+    (granite's parallel chunk); ``lora_matmul_grouped`` at a tick's 8 rows,
+    each its own adapter of a strided gathered bank, as the engine hands
+    them; the flash prefill's attention on (4, 1024). mamba2-370m and
+    hymba, f32: ``ssd_intra_chunk`` at the flash prefill's chunks of
+    (4, 1024) tokens. mamba2's LoRA takes the plain product. Launches made
+    here precede the families path's counts."""
+    from repro_torch.configs.base import get_config
+    rng = np.random.default_rng(seed + 300)
+    bf16 = torch.bfloat16
+    out = []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        if cfg.has_ssm:
+            cl = cfg.ssm_chunk
+            shape = (4, 1024 // cl, cl, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state)
+            out.append(("ssd_intra_chunk", arch, shape,
+                        check_ssd(rng, *shape)))
+        if cfg.family == "ssm":
+            continue
+        r, scale = cfg.lora.rank, cfg.lora.scale
+        d, q = cfg.d_model, cfg.n_heads * cfg.head_dim
+        kv = cfg.n_kv_heads * cfg.head_dim
+        kns = [(d, q), (d, kv), (q, d)]
+        if cfg.family == "hybrid":                  # the dense MLP's
+            kns += [(d, cfg.d_ff), (cfg.d_ff, d)]
+        m = 1 if cfg.has_ssm else FAMILY_CHUNK
+        for k, n in dict.fromkeys(kns):
+            res = check_lora_matmul(rng, m, k, n, r, bf16, scale)
+            out.append(("lora_matmul", arch, (m, k, n, r), res))
+            res = check_grouped(rng, 8, 1, k, n, r, 8, bf16,
+                                ids=list(range(8)), scale=scale,
+                                strided=True)
+            out.append(("lora_matmul_grouped", arch, (8, 1, k, n, r), res))
+        shape = (4, 1024, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        res = check_flash(rng, *shape, bf16, causal=True,
+                          window=cfg.sliding_window)
+        out.append(("flash_attention", arch,
+                    (*shape, cfg.sliding_window), res))
+    emit({"phase": "families_kernels", "gpu": gpu,
+          "checked": [{"name": name, "arch": arch, "shape": list(shape),
+                       "max_abs_err": err, "tol": tol, "version": version}
+                      for name, arch, shape, (err, tol, version) in out]})
+    for name, arch, shape, (err, tol, version) in out:
+        assert version == ("tc" if name == "ssd_intra_chunk" else "wgmma"), (
+            name, arch, shape, version)
+
+
+def prefill_ssd_share(fn):
+    """One call of ``fn`` under ``torch.profiler``: the device µs of the
+    ``ssd_intra_chunk`` kernels (scores and heads) beside all the device
+    µs of the call."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    kernels_ = [e for e in p.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in kernels_)
+    ssd = sum(e.time_range.elapsed_us() for e in kernels_
+              if "ssd_" in e.name and "_tc_kernel" in e.name)
+    return {"device_us": total, "ssd_intra_chunk_device_us": ssd,
+            "ssd_intra_chunk_share": ssd / total if total else 0.0}
+
+
+def family_serve(cfg, frozen, bank, seed, gpu):
+    """(a) ``ServingEngine`` with the fused kernels on ``FAMILY_REQUESTS``
+    requests; its launch counts read around the run. Returns (counts,
+    versions)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.serving import Request, ServingEngine
+    rng = np.random.default_rng(seed)
+    n_requests = FAMILY_REQUESTS
+    lens = rng.integers(40, 101, n_requests)
+    reqs = [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab_size, int(lens[i]),
+                                        dtype=np.int64).astype(np.int32),
+                    max_new=16, adapter_id=i % 4) for i in range(n_requests)]
+    eng = ServingEngine(cfg, frozen, bank, slots=8, max_len=512,
+                        prefill_chunk=FAMILY_CHUNK, use_lora_kernel=True)
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    versions = {"lora_matmul": dict(lm.lora_matmul.by_version),
+                "lora_matmul_grouped": dict(lm.lora_matmul_grouped.by_version)}
+    # ----------------------------------------------------------------------
+    per_layer = lora_projections(cfg) * cfg.n_layers
+    scan = cfg.has_ssm         # the engine prefills SSM state by decode_scan
+    emit({"phase": "families_serve", "gpu": gpu, "arch": cfg.name,
+          "requests": n_requests, "slots": 8, "max_len": 512,
+          "prefill_chunk": FAMILY_CHUNK,
+          "prefill_mode": "scan" if scan else "parallel",
+          "max_new": 16, "prompt_lens": [int(n) for n in lens],
+          **{k: stats[k] for k in ("completed", "ticks", "prefills", "tokens",
+                                   "tokens_per_sec", "requests_per_s",
+                                   "mean_ttft_s", "wall_s", "drained")},
+          "launches": counts, "launches_by_version": versions})
+    assert stats["drained"] and stats["completed"] == n_requests, stats
+    for r in reqs:
+        assert len(r.output) == 16, (r.uid, len(r.output))
+        assert all(0 <= t < cfg.vocab_size for t in r.output), r.uid
+    assert stats["prefills"] == sum(int(n) // FAMILY_CHUNK for n in lens)
+    # a tick: every projection of every layer through the grouped kernel
+    # (per-row adapters); a prefill chunk: through lora_matmul (one
+    # adapter), once per chunk in parallel mode, once per token of it in
+    # scan mode (decode_scan is one decode_step a token)
+    assert counts["lora_matmul_grouped"] == per_layer * stats["ticks"], counts
+    assert counts["lora_matmul"] == per_layer * stats["prefills"] * (
+        FAMILY_CHUNK if scan else 1), counts
+    for name in ("flash_attention", "flash_decode", "ssd_intra_chunk"):
+        assert counts[name] == 0, counts
+    for name, by in versions.items():      # bf16: tensor cores only
+        assert by["wgmma"] == counts[name] and by["simt"] == 0, versions
+    return counts, versions
+
+
+def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu):
+    """(a) continued: one tick (per-row adapters) and one prompt of
+    ``LOGIT_TOKENS`` tokens through the engine's prefill function (one
+    adapter), with the fused kernels and with the plain LoRA path, in bf16
+    and in f32, on fresh caches; held as the dense serve_logits phase
+    holds them."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank
+    dev = frozen["embed"].device
+    ids = torch.as_tensor([0, 1, 2, 3, 0, 1, 2, 3], device=dev)
+    tok = torch.full((8, 1), 1234 % cfg.vocab_size, dtype=torch.int32,
+                     device=dev)
+    ts = torch.zeros((8,), dtype=torch.int32, device=dev)
+    ptoks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, LOGIT_TOKENS)), device=dev)
+    chunk_fn = M.decode_scan if cfg.has_ssm else M.prefill_chunk
+    f32_tol, bf16_tol = 2e-3, 1.0
+
+    def tick_and_prompt(fz, c, act, use_kernel):
+        stacked = tree_map(lambda v: v.to(act), bank.stacked)
+        lora_b = AdapterBank.gather(stacked, ids)
+        one = {"layers": tree_map(lambda v: v[1], stacked["layers"])}
+        with torch.no_grad():
+            tick, _ = M.decode_step(fz, lora_b, M.init_cache(c, 8, 64, dev),
+                                    tok, ts, c, use_lora_kernel=use_kernel)
+            prompt, _ = chunk_fn(fz, one, M.init_cache(c, 1, 64, dev), ptoks,
+                                 0, c, use_lora_kernel=use_kernel)
+        return tick, prompt
+
+    def err(x, y):
+        return (x - y).abs().max().item()
+
+    k32 = tick_and_prompt(frozen32, cfg32, torch.float32, True)
+    p32 = tick_and_prompt(frozen32, cfg32, torch.float32, False)
+    kbf = tick_and_prompt(frozen, cfg, torch.bfloat16, True)
+    pbf = tick_and_prompt(frozen, cfg, torch.bfloat16, False)
+    report = {"phase": "families_serve_logits", "gpu": gpu, "arch": cfg.name,
+              "prompt_tokens": LOGIT_TOKENS, "f32_tol": f32_tol,
+              "bf16_tol": bf16_tol,
+              "logit_abs_max": p32[0][..., :cfg.vocab_size].abs().max().item()}
+    for i, what in enumerate(("tick", "prompt")):
+        report[what] = {
+            "f32_kernel_vs_plain": err(k32[i], p32[i]),
+            "bf16_kernel_vs_plain": err(kbf[i], pbf[i]),
+            "bf16_kernel_vs_f32": err(kbf[i], p32[i]),
+            "bf16_plain_vs_f32": err(pbf[i], p32[i])}
+    report["diff_between_adapters"] = err(kbf[0][0], kbf[0][1])
+    report["diff_same_adapter"] = err(kbf[0][0], kbf[0][4])
+    emit(report)
+    for what in ("tick", "prompt"):
+        r = report[what]
+        assert all(math.isfinite(v) for v in r.values()), r
+        assert r["f32_kernel_vs_plain"] <= f32_tol, r
+        assert r["bf16_kernel_vs_plain"] <= bf16_tol, r
+        assert (r["bf16_kernel_vs_f32"]
+                <= 2.0 * r["bf16_plain_vs_f32"] + 0.05), r
+    assert report["diff_between_adapters"] > bf16_tol, report
+    assert (report["diff_same_adapter"]
+            <= 0.1 * report["diff_between_adapters"]), report
+
+
+class RoutingLog:
+    """While open, records the (T, k) experts of every ``moe.route`` call,
+    or, given ``replay``, hands those back in order instead of choosing (the
+    gates are then the caller's own probabilities at the replayed experts).
+    Top-k is discontinuous at a near-tie, so two paths that agree to
+    rounding can still route one token differently; replaying one path's
+    routing in the other compares what is continuous."""
+
+    def __init__(self, replay=None):
+        self.idx = []
+        self.replay = None if replay is None else list(replay)
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe.route
+
+        def route(probs, k):
+            if self.replay is not None:
+                idx = self.replay.pop(0)
+                return probs.gather(-1, idx), idx
+            gates, idx = self._orig(probs, k)
+            self.idx.append(idx)
+            return gates, idx
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._orig
+        return False
+
+
+def family_prefill(cfg, cfg32, frozen, frozen32, lora, seed, gpu):
+    """(b) ``make_prefill_step(impl="flash")`` on (4, 1024) tokens, its
+    launches read around one call, against ``impl="chunked"``; the
+    ``ssd_intra_chunk`` share of the step's device time by the profiler.
+    Returns (counts, versions)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.serve import make_prefill_step
+    toks = torch.as_tensor(np.random.default_rng(seed + 100).integers(
+        0, cfg.vocab_size, (4, 1024)), device=frozen["embed"].device)
+    flash = make_prefill_step(cfg, impl="flash")
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    logits_flash = flash(frozen, lora, toks)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    versions = {"flash_attention": dict(fa.flash_attention.by_version),
+                "ssd_intra_chunk": dict(ss.ssd_intra_chunk.by_version)}
+    # ----------------------------------------------------------------------
+    t0 = time.time()
+    flash(frozen, lora, toks)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    share = prefill_ssd_share(lambda: flash(frozen, lora, toks)) \
+        if cfg.has_ssm else {}
+    chunked_bf = make_prefill_step(cfg, impl="chunked")(frozen, lora, toks)
+    with RoutingLog() as flash_route:
+        flash32 = make_prefill_step(cfg32, impl="flash")(frozen32, lora, toks)
+    with RoutingLog() as chunked_route:
+        chunked32 = make_prefill_step(cfg32, impl="chunked")(frozen32, lora,
+                                                             toks)
+    torch.cuda.synchronize()
+
+    def err(x, y):
+        return (x - y).abs().max().item()
+    f32_tol, bf16_tol = 2e-3, 1.0
+    pre = {"f32_flash_vs_chunked": err(flash32, chunked32),
+           "bf16_flash_vs_chunked": err(logits_flash, chunked_bf),
+           "bf16_flash_vs_f32": err(logits_flash, chunked32),
+           "bf16_chunked_vs_f32": err(chunked_bf, chunked32)}
+    if cfg.family == "moe":
+        # (token, layer, slot) expert choices the two f32 runs differ in;
+        # then the chunked run again on the flash run's routing
+        pre["f32_routing_flips"] = sum(
+            int((a != b).sum()) for a, b in zip(flash_route.idx,
+                                                chunked_route.idx))
+        pre["f32_routing_choices"] = sum(a.numel() for a in flash_route.idx)
+        with RoutingLog(replay=flash_route.idx):
+            pinned = make_prefill_step(cfg32, impl="chunked")(frozen32, lora,
+                                                              toks)
+        pre["f32_flash_vs_chunked_same_routing"] = err(flash32, pinned)
+    f32_key = ("f32_flash_vs_chunked_same_routing" if cfg.family == "moe"
+               else "f32_flash_vs_chunked")
+    emit({"phase": "families_prefill", "gpu": gpu, "arch": cfg.name,
+          "batch": 4, "seq": 1024, "impl": "flash", "step_s": step_s,
+          "f32_tol": f32_tol, "bf16_tol": bf16_tol, **pre, **share,
+          "launches": counts, "launches_by_version": versions})
+    assert logits_flash.shape == (4, cfg.padded_vocab)
+    assert torch.isfinite(logits_flash[:, :cfg.vocab_size]).all()
+    assert pre[f32_key] <= f32_tol, pre
+    assert pre["bf16_flash_vs_chunked"] <= bf16_tol, pre
+    assert (pre["bf16_flash_vs_f32"]
+            <= 2.0 * pre["bf16_chunked_vs_f32"] + 0.05), pre
+    # one scan a Mamba block (the SSM families), one attention a layer
+    # (the attention families); the LoRA goes the plain way in a prefill step
+    assert counts["ssd_intra_chunk"] == (cfg.n_layers if cfg.has_ssm else 0)
+    assert counts["flash_attention"] == (
+        cfg.n_layers if cfg.family != "ssm" else 0), counts
+    for name in ("lora_matmul", "lora_matmul_grouped", "flash_decode"):
+        assert counts[name] == 0, counts
+    assert versions["ssd_intra_chunk"] == {
+        "tc": counts["ssd_intra_chunk"], "simt": 0}, versions
+    assert versions["flash_attention"] == {
+        "wgmma": counts["flash_attention"], "simt": 0}, versions
+    if cfg.has_ssm:
+        assert share["ssd_intra_chunk_device_us"] > 0, share
+    return counts, versions
+
+
+def family_train(cfg, cfg32, frozen, frozen32, lora, seed, gpu):
+    """(c) split == unsplit in f32 (2 x 256, channel off) at cut I/2 and
+    cut 0; then ``make_train_step`` in bf16, 4 steps on one 4 x 512 batch;
+    0 kernel launches on the path. For the MoE config at cut I/2 the
+    unsplit side is ``forward_loss`` less the router aux of layers
+    [0, I/2), which the device stage drops as the reference's does."""
+    from repro_torch import kernels
+    from repro_torch.core import splitting as S
+    from repro_torch.data import make_fleet_datasets
+    from repro_torch.launch.train import make_train_step, value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.models.common import batch_to_device
+    from repro_torch.optim import adamw, constant_schedule
+    dev = frozen["embed"].device
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(seed + 200)
+    toks, labels = (torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                                    device=dev) for _ in range(2))
+    batch = {"tokens": toks, "labels": labels}
+    split = {}
+    for cut in (cfg.n_layers // 2, 0):
+        def unsplit(lo, cut=cut):
+            loss = M.forward_loss(frozen32, lo, batch, cfg32, impl="naive",
+                                  remat=False)
+            if cut:         # the device stage's aux, which split drops
+                loss = loss - M.forward_hidden(
+                    frozen32, lo, toks, cfg32, lo=0, hi=cut, impl="naive",
+                    remat=False)[1]
+            return loss
+        ref_loss, ref = value_and_grad(unsplit, lora)
+        d, s_ = S.split_lora(lora, cut)
+        loss, gd, gs = S.split_grads(frozen32, d, s_, toks, labels, cfg=cfg32,
+                                     cut=cut, compress=False)
+        split[cut] = {"loss": ref_loss.item(),
+                      "loss_rel_err": abs(loss.item() / ref_loss.item() - 1),
+                      "worst_leaf_rel_err": _tree_err(S.merge_lora(gd, gs),
+                                                      ref)}
+        del ref, gd, gs
+    lr = TRAIN_LR.get(cfg.family, 3e-3)
+    opt = adamw(constant_schedule(lr))
+    step = make_train_step(cfg, opt, impl="chunked", remat=True, cut=0)
+    tb = batch_to_device(
+        make_fleet_datasets(cfg, 1, seed=2)[0].minibatch(4, 512), dev)
+    lo, st = lora, opt.init(lora)
+    losses = []
+    t0 = time.time()
+    for _ in range(4):
+        loss, lo, st = step(frozen, lo, st, tb)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    train_s = time.time() - t0
+    counts = kernels.launch_counts()
+    # ----------------------------------------------------------------------
+    emit({"phase": "families_train", "gpu": gpu, "arch": cfg.name,
+          "split_batch": [2, 256], "split_dtype": "float32", "tol": SPLIT_TOL,
+          "unsplit": ("forward_loss less the aux of layers [0, cut)"
+                      if cfg.family == "moe" else "forward_loss"),
+          "cuts": split, "train_batch": [4, 512], "train_dtype": cfg.dtype,
+          "optimizer": f"adamw, constant {lr}", "losses": losses,
+          "train_s": train_s, "launches": counts})
+    for cut, r in split.items():
+        assert r["loss_rel_err"] <= SPLIT_TOL, (cut, r)
+        assert r["worst_leaf_rel_err"] <= SPLIT_TOL, (cut, r)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert all(n == 0 for n in counts.values()), counts
+
+
+def phase_families(seed: int):
+    """The ssm, hybrid and moe families at their full published configs,
+    bf16, random weights from ``seed``, four adapters with non-zero B:
+    (a) serve, (b) the flash prefill step, (c) split training. The family
+    path's launches are (a)'s and (b)'s, summed over the three configs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    total = {}
+    versions = {}
+    t_phase = time.time()
+    family_kernel_checks(seed, gpu)
+    for i, arch in enumerate(FAMILY_ARCHS):
+        t0 = time.time()
+        cfg = get_config(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params = M.init_params(seed, cfg)             # device=None: the card
+        frozen = params["frozen"]
+        del params
+        adapters = [make_adapter(cfg, seed + 1 + j, dev) for j in range(4)]
+        bank = AdapterBank(adapters)
+        frozen32 = tree_map(lambda v: v.float(), frozen)
+        torch.cuda.synchronize()
+        emit({"phase": "families_init", "arch": arch, "family": cfg.family,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "param_bytes": sum(x.numel() * x.element_size()
+                                 for x in _leaves(frozen)),
+              "params": sum(x.numel() for x in _leaves(frozen)),
+              "seconds": time.time() - t0})
+        counts, by = family_serve(cfg, frozen, bank, seed + i, gpu)
+        family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu)
+        pc, pby = family_prefill(cfg, cfg32, frozen, frozen32, adapters[0],
+                                 seed + i, gpu)
+        for c in (counts, pc):
+            for name, n in c.items():
+                total[name] = total.get(name, 0) + n
+        for b in (by, pby):
+            for name, v in b.items():
+                acc = versions.setdefault(name, {})
+                for ver, n in v.items():
+                    acc[ver] = acc.get(ver, 0) + n
+        family_train(cfg, cfg32, frozen, frozen32, adapters[0], seed + i, gpu)
+        del frozen, frozen32, adapters, bank
+        torch.cuda.empty_cache()
+    emit({"phase": "families", "gpu": gpu, "archs": list(FAMILY_ARCHS),
+          "launches": total, "launches_by_version": versions,
+          "seconds": time.time() - t_phase})
+    assert total["ssd_intra_chunk"] > 0 and total["flash_attention"] > 0
+    return total, dict(total), versions
+
+# ---------------------------------------------------------------------------
 
 
 # the source of the version the main path runs; the redesigned kernels keep
@@ -1467,20 +1939,24 @@ SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
 HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
             "flash_decode": 0, "ssd_intra_chunk": 0}
 # the path whose launch count each kernel's entry reports: the serving
-# slice's kernels from the serve and prefill run, the others from calibrate
+# slice's kernels from the serve and prefill run, ssd_intra_chunk from the
+# model path of the families phase, flash_decode from calibrate (its only
+# caller)
 PATH_OF = {"lora_matmul": "serve", "lora_matmul_grouped": "serve",
            "flash_attention": "serve", "flash_decode": "calibrate",
-           "ssd_intra_chunk": "calibrate"}
+           "ssd_intra_chunk": "families"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--only", choices=("kernels", "train"), default=None,
+    ap.add_argument("--only", choices=("kernels", "train", "families"),
+                    default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
-                         "launches no kernel)")
+                         "launches no kernel); families: build, then run "
+                         "the families phase alone")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -1523,6 +1999,12 @@ def main() -> int:
         assert sass[name]["HGMMA"] > 0, (name, sass)
     assert sass["ssd_scan_tc"]["HMMA"] > 0, sass     # mma.sync, tf32
 
+    if args.only == "families":
+        phase_families(args.seed)
+        emit({"phase": "done", "only": "families",
+              "seconds": time.time() - t_start})
+        return 0
+
     rows = phase_kernels(args.seed)
     if args.only == "kernels":
         emit({"phase": "done", "only": "kernels",
@@ -1533,6 +2015,7 @@ def main() -> int:
                                                 args.profile),
                "calibrate": phase_calibrate(args.seed)}
     by_path["train"] = phase_train(args.seed, args.profile)
+    by_path["families"] = phase_families(args.seed)
 
     kernels_line = []
     for name, by_shape in rows.items():

@@ -43,7 +43,6 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig,
     """Full parameter tree {"frozen": ..., "lora": ...} on ``device``
     (``None``: the GPU; raises without one). ``seed`` is an int or a
     ``torch.Generator`` that lives on that device."""
-    blocks.require_dense(cfg)
     device = resolve_device(device)
     gen = make_generator(seed, device)
     dtype = dtype_of(cfg.dtype)

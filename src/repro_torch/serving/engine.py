@@ -7,17 +7,20 @@ own LoRA adapter — the fleet's adapters are stacked into an
 (``AdapterBank``), so one tick serves N users x N adapters.
 
 Per-tick work is a single ``decode_step`` with a per-slot position vector;
-prompt chunks are consumed by a multi-token prefill (``model.prefill_chunk``)
-before the slot joins the decode pool, so TTFT does not scale as
-``len(prompt) x tick_latency``.
+prompt chunks are consumed by a multi-token prefill (``model.prefill_chunk``
+for attention families, the exact ``model.decode_scan`` for the
+cumulative-state SSM and hybrid families) before the slot joins the decode
+pool, so TTFT does not scale as ``len(prompt) x tick_latency``.
 
 Slot recycling is lazy and copy-free: stale KV lanes are hidden by the
 causal/ring position masks (a request at position t only ever attends lanes
-it has itself written). Admission never touches the cache.
+it has itself written), and SSM state is zeroed in place for rows starting
+at position 0. Admission never touches the cache.
 
-The cache is updated IN PLACE: a tick writes every slot's new K/V into the
-shared cache, and a prefill chunk writes into a view of its own slot's lane,
-so there is nothing to write back and the other lanes are never touched.
+The cache is updated IN PLACE: a tick writes every slot's new K/V and SSM
+state into the shared cache, and a prefill chunk writes into a view of its
+own slot's lane, so there is nothing to write back and the other lanes are
+never touched.
 Copying the logits to the host (``.cpu()``) is the one synchronisation of a
 tick.
 
@@ -159,27 +162,35 @@ class ServingEngine:
         self.ticks = 0
         self.prefills = 0
 
-        # chunked prefill: parallel cache-writing forward. It writes a
-        # chunk's K/V in one scatter, so a chunk must fit in the cache ring
-        # (chunk <= slot count of the KV cache).
+        # chunked prefill: parallel cache-writing forward for attention
+        # families; the exact decode scan for cumulative-state SSM/hybrid.
+        # The parallel path writes a chunk's K/V in one scatter, so a chunk
+        # must fit in the cache ring (chunk <= slot count of the KV cache).
         self._chunk = 0
         if prefill_chunk > 1 and cfg.input_mode == "tokens":
-            kv_slots = int(tree_leaves(self.cache["kv"])[0].shape[2])
-            self._chunk = min(prefill_chunk, kv_slots)
-            if self._chunk < 2:
-                self._chunk = 0
+            self._chunk = prefill_chunk
+            if not cfg.has_ssm:
+                kv_slots = int(tree_leaves(self.cache["kv"])[0].shape[2])
+                self._chunk = min(self._chunk, kv_slots)
+                if self._chunk < 2:
+                    self._chunk = 0
 
     @staticmethod
     def _lazy_ssm_reset(cache: Params, keep: torch.Tensor) -> Params:
-        """KV lanes need no reset at all: the causal/ring position masks in
+        """Zero the SSM lanes of rows starting a new request (``keep``
+        False: position 0), in place, so that a lane that is a view of the
+        shared cache resets the shared cache too.
+
+        KV lanes need no reset at all: the causal/ring position masks in
         ``attention_decode`` only expose lanes the current request has
-        itself written. A cache without SSM state passes unchanged; the SSM
-        families are not ported yet."""
-        if "ssm" not in cache:
-            return cache
-        raise NotImplementedError(
-            "SSM state in the serving cache: ROADMAP.md Queue 1, the SSM "
-            "and hybrid families item")
+        itself written. SSM state is cumulative, so it is reset here; no
+        cache copy is made on admission."""
+        if "ssm" in cache:
+            for c in tree_leaves(cache["ssm"]):
+                # c: (n_layers, B, ...); keep: (B,)
+                shape = (1, c.shape[1]) + (1,) * (c.ndim - 2)
+                c.masked_fill_(~keep.reshape(shape), 0)
+        return cache
 
     @torch.no_grad()
     def _step(self, toks: np.ndarray, ts: np.ndarray, ids: np.ndarray
@@ -201,8 +212,8 @@ class ServingEngine:
     def _prefill(self, toks: np.ndarray, slot: int, t0: int, aid: int
                  ) -> torch.Tensor:
         """Run one chunk on ONE slot's lane: the lane is a view of the
-        shared cache, so the chunk's K/V land in place and the other slots'
-        in-flight lanes are never touched."""
+        shared cache, so the chunk's K/V and SSM state land in place and the
+        other slots' in-flight lanes are never touched."""
         lane = tree_map(lambda c: c[:, slot:slot + 1], self.cache)
         lane = self._lazy_ssm_reset(
             lane, torch.as_tensor([t0 != 0], device=self.device))
@@ -210,10 +221,11 @@ class ServingEngine:
         if self._stacked is not None:
             lora_b = {"layers": tree_map(lambda v: v[aid],
                                          self._stacked["layers"])}
-        logits, _ = model_lib.prefill_chunk(
-            self.frozen, lora_b, lane,
-            torch.as_tensor(toks, device=self.device), t0, self.cfg,
-            use_lora_kernel=self.use_lora_kernel)
+        run = (model_lib.decode_scan if self.cfg.has_ssm
+               else model_lib.prefill_chunk)
+        logits, _ = run(self.frozen, lora_b, lane,
+                        torch.as_tensor(toks, device=self.device), t0,
+                        self.cfg, use_lora_kernel=self.use_lora_kernel)
         return logits
 
     # --- API -------------------------------------------------------------

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from _torch_parity import j2n, make_pair, t2n
+from repro.configs.base import get_config as jax_get_config
 from repro.models import model as JM
+from repro_torch.configs.base import get_config
 from repro_torch.launch.serve import make_prefill_step, make_serve_step
 from repro_torch.models import attention as t_attn
 from repro_torch.models import model as TM
@@ -257,39 +259,121 @@ def test_cache_abs_positions_and_quant_match_reference():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b",
-                                  "granite-moe-3b-a800m"])
-def test_unported_families_raise_and_name_the_roadmap(arch):
-    from repro_torch.configs.base import get_config
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        TM.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_init_params_structure_matches_reference():
-    jcfg, tcfg, jp, _ = make_pair("qwen2-7b", seed=2)
-    tp = TM.init_params(0, tcfg, device="cpu")
-    jshapes = jax.tree_util.tree_map(lambda x: (tuple(x.shape), str(x.dtype)),
-                                     jp)
-    flat_j = {jax.tree_util.keystr(k): v for k, v in
-              jax.tree_util.tree_flatten_with_path(jshapes,
-                                                   is_leaf=lambda x: isinstance(x, tuple))[0]}
-
+    """Same leaves, shapes and dtypes as the reference's tree, for a dense
+    config and one of each family the port runs besides (ssm, hybrid,
+    moe); seeded, and with the standard B = 0."""
     def walk(tree, prefix=""):
         for k, v in tree.items():
             path = f"{prefix}['{k}']"
             if isinstance(v, dict):
                 yield from walk(v, path)
             else:
-                yield path, (tuple(v.shape), str(v.dtype).replace("torch.", ""))
-    flat_t = dict(walk(tp))
-    assert flat_t == flat_j
-    # same seed, same weights; another seed, other weights
-    tp2 = TM.init_params(0, tcfg, device="cpu")
-    tp3 = TM.init_params(1, tcfg, device="cpu")
-    assert torch.equal(tp["frozen"]["embed"], tp2["frozen"]["embed"])
-    assert not torch.equal(tp["frozen"]["embed"], tp3["frozen"]["embed"])
-    b = tp["lora"]["layers"]["attn"]["wq"]["b"]
-    assert float(b.abs().max()) == 0.0
+                yield path, v
+
+    for arch in ("qwen2-7b",) + FAMILIES:
+        tcfg = get_config(arch).reduced()
+        tp = TM.init_params(0, tcfg, device="cpu")
+        jshapes = jax.tree_util.tree_map(
+            lambda x: (tuple(x.shape), str(x.dtype)),
+            JM.abstract_params(jax_get_config(arch).reduced()))
+        flat_j = {jax.tree_util.keystr(k): v for k, v in
+                  jax.tree_util.tree_flatten_with_path(
+                      jshapes, is_leaf=lambda x: isinstance(x, tuple))[0]}
+        assert {path: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                for path, v in walk(tp)} == flat_j, arch
+        # same seed, same weights; another seed, other weights
+        tp2 = TM.init_params(0, tcfg, device="cpu")
+        tp3 = TM.init_params(1, tcfg, device="cpu")
+        assert torch.equal(tp["frozen"]["embed"], tp2["frozen"]["embed"])
+        assert not torch.equal(tp["frozen"]["embed"], tp3["frozen"]["embed"])
+        for path, leaf in walk(tp["lora"]):
+            if path.endswith("['b']"):
+                assert float(leaf.abs().max()) == 0.0, (arch, path)
+
+
+# ---------------------------------------------------------------------------
+# The ssm, hybrid and moe families: the dense cases above on their configs
+# (each case's tolerance as stated there), and what is theirs alone
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("mamba2-370m", "hymba-1.5b", "granite-moe-3b-a800m")
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    return make_pair(request.param, seed=0)
+
+
+def test_family_forward_hidden_logits_and_aux(family):
+    """The MoE aux loss is summed over the layers as the reference does.
+    The kernel routes (``impl="flash"``) are held against the reference in
+    ``test_family_prefill_flash_vs_reference_pallas``."""
+    jcfg, tcfg, jp, tp = family
+    toks = _tokens(jcfg, (2, 40), 1)
+    jh, jaux = JM.forward_hidden(jp["frozen"], jp["lora"], jnp.asarray(toks),
+                                 jcfg, impl="naive", remat=False)
+    jl = JM.logits_from_hidden(jp["frozen"], jh, jcfg)
+    with torch.no_grad():
+        th, taux = TM.forward_hidden(tp["frozen"], tp["lora"],
+                                     torch.from_numpy(toks), tcfg,
+                                     impl="naive")
+        tl = TM.logits_from_hidden(tp["frozen"], th, tcfg)
+    np.testing.assert_allclose(t2n(th), j2n(jh), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(t2n(tl), j2n(jl), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(taux), float(jaux), atol=ATOL, rtol=0)
+    assert (float(taux) > 0) == (tcfg.family == "moe")
+
+
+def test_family_decode_scan_matches_jax_and_the_step_loop(family):
+    """``decode_scan`` over a 6-token chunk from position 3 against the
+    reference's, logits and cache by key; within the port equal to six
+    ``decode_step`` calls, and the cache updated in place."""
+    jcfg, tcfg, jp, tp = family
+    b, max_len = 2, 16
+    toks = _tokens(jcfg, (b, 9), 7)
+    jcache = JM.init_cache(jcfg, b, max_len)
+    tcache = TM.init_cache(tcfg, b, max_len, device="cpu")
+    loop = TM.init_cache(tcfg, b, max_len, device="cpu")
+    leaves = tree_leaves(tcache)
+    jl, jcache = JM.decode_scan(jp["frozen"], jp["lora"], jcache,
+                                jnp.asarray(toks[:, :3]), 0, jcfg)
+    jl, jcache = JM.decode_scan(jp["frozen"], jp["lora"], jcache,
+                                jnp.asarray(toks[:, 3:]), 3, jcfg)
+    with torch.no_grad():
+        _, got = TM.decode_scan(tp["frozen"], tp["lora"], tcache,
+                                torch.from_numpy(toks[:, :3]), 0, tcfg)
+        tl, got = TM.decode_scan(tp["frozen"], tp["lora"], tcache,
+                                 torch.from_numpy(toks[:, 3:]), 3, tcfg)
+        for i in range(9):
+            want, loop = TM.decode_step(tp["frozen"], tp["lora"], loop,
+                                        torch.from_numpy(toks[:, i:i + 1]),
+                                        i, tcfg)
+    assert got is tcache and all(x is y for x, y in
+                                 zip(tree_leaves(got), leaves))
+    np.testing.assert_allclose(t2n(tl), j2n(jl), atol=ATOL, rtol=0)
+    _cache_leaves_close(jcache, tcache)
+    assert torch.equal(tl, want)
+    for x, y in zip(tree_leaves(tcache), tree_leaves(loop)):
+        assert torch.equal(x, y)
+
+
+def test_family_prefill_chunk(family):
+    """The SSM families' cumulative state has no parallel chunk:
+    ``prefill_chunk`` raises and names ``decode_scan``. The MoE family's
+    parallel prefill runs the MoE block over the chunk (dropless at the
+    reduced size, cf = E/k): two chunks and the cache as the dense cases,
+    and equal to the decode loop."""
+    jcfg, tcfg, jp, tp = family
+    if tcfg.has_ssm:
+        cache = TM.init_cache(tcfg, 1, 16, device="cpu")
+        with pytest.raises(ValueError, match="decode_scan"):
+            TM.prefill_chunk(tp["frozen"], tp["lora"], cache,
+                             torch.zeros((1, 4), dtype=torch.int32), 0, tcfg)
+    else:
+        test_prefill_chunk_two_chunks_and_cache(family)
+        test_prefill_chunk_matches_decode_loop(family)
+
+
+def test_family_prefill_flash_vs_reference_pallas(family):
+    test_prefill_flash_vs_reference_pallas(family)

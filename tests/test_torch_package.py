@@ -488,3 +488,42 @@ def test_gpu_wrappers_refuse_autograd(cuda):
     q = _rand(rng, (1, 4, 128, 64), torch.bfloat16, cuda).requires_grad_()
     with pytest.raises(RuntimeError, match="flash_attention has no backward"):
         fa.flash_attention(q, q[:, :2].detach(), q[:, :2].detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,nc", [("mamba2-370m", 4), ("hymba-1.5b", 8)])
+def test_gpu_ssd_scan_at_the_model_path_shapes(cuda, arch, nc):
+    """The scan of ``mamba_forward(impl="flash")`` on (4, 1024) tokens at
+    the full published width: ``ops.ssd_scan`` takes the tensor-core
+    version once a call and agrees with ``ssd_chunked`` to 1e-4; one f32
+    Mamba block through either scan agrees to 2e-4 of its largest output."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import mamba as mb
+    cfg = get_config(arch)
+    nh, hp, ns, chunk = (cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                         cfg.ssm_chunk)
+    assert 1024 // chunk == nc
+    rng = np.random.default_rng(6)
+    xt = _rand(rng, (4, 1024, nh, hp), torch.float32, cuda) * 0.2
+    a = -_rand(rng, (4, 1024, nh), torch.float32, cuda).abs() * 0.1
+    B = _rand(rng, (4, 1024, ns), torch.float32, cuda) * 0.3
+    C = _rand(rng, (4, 1024, ns), torch.float32, cuda) * 0.3
+    before = dict(ss.ssd_intra_chunk.by_version)
+    y, h = ops.ssd_scan(xt, a, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_intra_chunk.by_version["tc"] == before["tc"] + 1
+    assert ss.ssd_intra_chunk.by_version["simt"] == before["simt"]
+    y2, h2 = mb.ssd_chunked(xt, a, B, C, chunk)
+    assert (y - y2).abs().max() <= 1e-4 and (h - h2).abs().max() <= 1e-4
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = mb.init_mamba(gen, cfg, torch.float32, cuda)
+    x = _rand(rng, (4, 1024, cfg.d_model), torch.float32, cuda)
+    with torch.no_grad():
+        want = mb.mamba_forward(params, None, x, cfg, impl="chunked")
+        got = mb.mamba_forward(params, None, x, cfg, impl="flash")
+    torch.cuda.synchronize()
+    assert ss.ssd_intra_chunk.by_version["tc"] == before["tc"] + 2
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()

@@ -273,3 +273,73 @@ def test_admission_stats_equal_to_jax_controller(setup, tight):
         assert blocked == 0 and adm["forced_admits"] == 0
     with pytest.raises(ValueError, match="training_reserve_frac"):
         ChannelAdmissionController(training_reserve_frac=1.0)
+
+
+# ---------------------------------------------------------------------------
+# The ssm, hybrid and moe families: prompts consumed by the exact decode scan
+# (ssm, hybrid) or the parallel prefill (moe), SSM lanes reset in place
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("mamba2-370m", "hymba-1.5b", "granite-moe-3b-a800m")
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    """(setup of the family, the JAX engine's tokens and stats)."""
+    jcfg, tcfg, jp, tp = make_pair(request.param, seed=0)
+    jads, tads = make_adapters(jcfg, (0, 7, 13))
+    eng = JEngine(jcfg, jp["frozen"], JBank(jads), slots=3, max_len=32,
+                  prefill_chunk=4)
+    reqs = _requests(JRequest, jcfg, 6)
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run_until_drained()
+    assert stats["completed"] == 6 and stats["drained"]
+    return ((jcfg, tcfg, jp, tp, jads, tads),
+            ({r.uid: list(r.output) for r in reqs}, stats))
+
+
+@pytest.mark.parametrize("use_lora_kernel", [False, True])
+def test_family_engine_token_identical_to_jax_engine(family, use_lora_kernel):
+    setup, jax_outputs = family
+    test_engine_token_identical_to_jax_engine(setup, jax_outputs,
+                                              use_lora_kernel)
+    # the SSM state is cumulative: the engine prefills it by the exact scan
+    # (decode_scan), the attention-only families by the parallel chunk
+    assert setup[1].has_ssm == (setup[1].family in ("ssm", "hybrid"))
+
+
+def test_family_slot_recycling_does_not_perturb_neighbor(family):
+    """Three short requests recycle one slot beside a long one: each new
+    request's SSM lane is zeroed, the neighbour's never touched."""
+    test_slot_recycling_does_not_perturb_neighbor(family[0])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_lane_reset_in_place(arch):
+    """``_lazy_ssm_reset`` zeroes exactly the rows with keep False, in the
+    tensors it was given: through a lane that is a view of the shared cache
+    (as ``_prefill`` hands it) the shared cache is reset too."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = get_config(arch).reduced()
+    cache = TM.init_cache(cfg, 3, 16, device="cpu")
+    for i, leaf in enumerate(tree_leaves(cache)):
+        leaf.copy_(torch.randn(leaf.shape, generator=torch.Generator()
+                               .manual_seed(i)).to(leaf.dtype))
+    before = tree_map(lambda v: v.clone(), cache)
+    lane = tree_map(lambda c: c[:, 1:2], cache)
+    out = ServingEngine._lazy_ssm_reset(lane, torch.tensor([False]))
+    assert out is lane
+    for name in ("h", "conv"):
+        got, was = cache["ssm"][name], before["ssm"][name]
+        assert float(got[:, 1].abs().max()) == 0.0
+        assert torch.equal(got[:, 0], was[:, 0])
+        assert torch.equal(got[:, 2], was[:, 2])
+    if "kv" in cache:               # KV lanes are never touched
+        for x, y in zip(tree_leaves(cache["kv"]), tree_leaves(before["kv"])):
+            assert torch.equal(x, y)
+    ServingEngine._lazy_ssm_reset(cache, torch.tensor([True, True, False]))
+    assert float(cache["ssm"]["h"][:, 2].abs().max()) == 0.0
+    assert torch.equal(cache["ssm"]["h"][:, 0], before["ssm"]["h"][:, 0])

@@ -326,3 +326,67 @@ def test_attention_takes_the_reference_name_of_the_kernel_route():
     torch.testing.assert_close(got, naive, rtol=0, atol=2e-5)
     with pytest.raises(RuntimeError, match="flash_attention has no backward"):
         t_attn.attention_scores(q.requires_grad_(), k, v, impl="pallas", **kw)
+
+
+# ---------------------------------------------------------------------------
+# The ssm, hybrid and moe families
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b",
+                                  "granite-moe-3b-a800m"])
+def test_family_split_grads_match_jax(arch):
+    """At the middle cut, channel off, tolerances as above (loss rel 1e-5,
+    leaves 1e-4 of the JAX leaf's largest magnitude)."""
+    jcfg, tcfg, jp, tp = make_pair(arch, seed=1)
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    labels = rng.integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    jd, js = JS.split_lora(jp["lora"], 1)
+    jloss, jgd, jgs = JS.split_grads(jp["frozen"], jd, js, jnp.asarray(tokens),
+                                     jnp.asarray(labels), cfg=jcfg, cut=1,
+                                     compress=False)
+    td, ts = TS.split_lora(tp["lora"], 1)
+    tloss, tgd, tgs = TS.split_grads(tp["frozen"], td, ts, _t(tokens),
+                                     _t(labels), cfg=tcfg, cut=1,
+                                     compress=False)
+    assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
+    assert_tree_close(jgd, tgd, 1e-4)
+    assert_tree_close(jgs, tgs, 1e-4)
+    assert any(t2n(x).any() for x in tree_leaves(tgd))
+    assert any(t2n(x).any() for x in tree_leaves(tgs))
+
+
+def test_moe_split_grads_drop_the_device_stage_aux_as_the_reference():
+    """The reference's ``device_forward`` discards the router aux loss of
+    layers [0, c), and the port keeps that: at cut 1 the split grads equal
+    the grads of ``forward_loss`` less layer 0's aux (to 1e-6, the same
+    arithmetic), and differ from those of ``forward_loss`` itself."""
+    _, cfg, _, tp = make_pair("granite-moe-3b-a800m", seed=2)
+    rng = np.random.default_rng(7)
+    batch = {k: _t(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
+             for k in ("tokens", "labels")}
+
+    def unsplit(lora, less_device_aux):
+        loss = TM.forward_loss(tp["frozen"], lora, batch, cfg, impl="naive",
+                               remat=False)
+        if less_device_aux:
+            loss = loss - TM.forward_hidden(tp["frozen"], lora,
+                                            batch["tokens"], cfg, lo=0, hi=1,
+                                            impl="naive", remat=False)[1]
+        return loss
+    d, s = TS.split_lora(tp["lora"], 1)
+    loss, gd, gs = TS.split_grads(tp["frozen"], d, s, batch["tokens"],
+                                  batch["labels"], cfg=cfg, cut=1,
+                                  compress=False)
+    got = tree_leaves(TS.merge_lora(gd, gs))
+    want_loss, want = value_and_grad(lambda lo: unsplit(lo, True), tp["lora"])
+    full_loss, full = value_and_grad(lambda lo: unsplit(lo, False),
+                                     tp["lora"])
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-6)
+    assert float(full_loss) - float(loss) > 1e-4       # layer 0's aux
+    for a, b in zip(got, tree_leaves(want), strict=True):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-6 * b.abs().max().item())
+    assert max(float((a - b).abs().max())
+               for a, b in zip(got, tree_leaves(full))) > 1e-6

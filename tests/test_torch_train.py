@@ -245,3 +245,31 @@ def test_run_training_on_the_cpu():
     assert math.isfinite(out["pretrain_loss"])
     assert out["cfg"].n_layers == 2
     assert all(x.device.type == "cpu" for x in tree_leaves(out["lora"]))
+
+
+def test_moe_train_step_matches_jax_at_3e_3_on_one_batch():
+    """granite-moe-3b-a800m: four AdamW steps at 3e-3 on one fixed batch,
+    as ``chip_smoke.py``'s families phase takes them. Each loss within 1e-4
+    relative of the reference's, falling or not, and the LoRA leaves and
+    Adam's first moment after the last step within the tolerance above:
+    the port's MoE step (routing, dispatch, aux loss, AdamW) is the
+    reference's, step by step."""
+    jcfg, tcfg, jp, tp = make_pair("granite-moe-3b-a800m", seed=3)
+    jstep = jax.jit(j_make_train_step(jcfg, j_adamw(j_const(3e-3))))
+    topt = adamw(constant_schedule(3e-3))
+    tstep = make_train_step(tcfg, topt)
+    rng = np.random.default_rng(11)
+    batch = {k: rng.integers(0, jcfg.vocab_size, (4, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jl, jst = jp["lora"], j_adamw(j_const(3e-3)).init(jp["lora"])
+    tl, tst = tp["lora"], topt.init(tp["lora"])
+    jlosses, tlosses = [], []
+    for _ in range(4):
+        jloss, jl, jst = jstep(jp["frozen"], jl, jst, jb)
+        tloss, tl, tst = tstep(tp["frozen"], tl, tst, batch)
+        jlosses.append(float(jloss))
+        tlosses.append(float(tloss))
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+    assert_tree_close(jl, tl, 1e-4)
+    assert_tree_close(jst["m"], tst["m"], 1e-4)

@@ -123,3 +123,44 @@ def test_a_new_header_renames_every_library(tmp_path, monkeypatch):
     before = {name: _build._target(name) for name in _build.SOURCES}
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert all(_build._target(name) != before[name] for name in _build.SOURCES)
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("mamba2-370m", (4, 4, 256, 32, 64, 128)),
+    ("hymba-1.5b", (4, 8, 128, 50, 64, 16)),
+])
+def test_mamba_forward_hands_ssd_intra_chunk_the_tc_shapes(monkeypatch, arch,
+                                                           want):
+    """``mamba_forward(impl="flash")`` at the full published width on
+    (4, 1024) tokens, traced on the meta device (shapes only, no memory):
+    each call of ``ssd_intra_chunk`` gets whole f32 tensors (contiguous,
+    offset 0, so 16-byte aligned on the card) at the shape that the
+    tensor-core version takes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd_scan as t_ssd
+    from repro_torch.models import mamba as t_mamba
+    cfg = get_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    params = t_mamba.init_mamba(gen, cfg, BF16, "meta")
+    lora = {k: {n: v.to(BF16) for n, v in pair.items()} for k, pair in
+            t_mamba.init_mamba_lora(gen, cfg, "meta").items()}
+    calls = []
+
+    def record(xt, a, B, C):
+        calls.append([(tuple(t.shape), t.dtype, t.is_contiguous(),
+                       t.storage_offset()) for t in (xt, a, B, C)])
+        b, nc, cl, nh, hp = xt.shape
+        return (torch.empty_like(xt),
+                xt.new_empty((b, nc, nh, B.shape[-1], hp)),
+                xt.new_empty((b, nc, cl, nh, 2)))
+    monkeypatch.setattr(t_ssd, "ssd_intra_chunk", record)
+    x = torch.empty((4, 1024, cfg.d_model), dtype=BF16, device="meta")
+    y = t_mamba.mamba_forward(params, lora, x, cfg, impl="flash")
+    assert tuple(y.shape) == tuple(x.shape)
+    assert len(calls) == 1
+    b, nc, cl, nh, hp, ns = want
+    shapes = [(b, nc, cl, nh, hp), (b, nc, cl, nh), (b, nc, cl, ns),
+              (b, nc, cl, ns)]
+    assert [c[0] for c in calls[0]] == shapes
+    assert all(c[1:] == (F32, True, 0) for c in calls[0])
+    assert t_ssd.ssd_intra_chunk_version(cl, hp, ns, True) == "tc"
