@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels   # build + kernel checks only
     python3 chip_smoke.py --only train     # the train phase only
     python3 chip_smoke.py --only families  # build + the families phase
+    python3 chip_smoke.py --only fleet     # build + smoke calibrate + fleet
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -37,6 +38,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
            for four full configs x three channel states over a 100-device
            fleet, and the batched decisions held to the scalar float64
            ``card`` on every (round, device) of one state
+  fleet    the fleet engines and tiered CARD at llama32-1b's full config
+           (33 cuts, batch 4 x 512), decision grids on the card, no kernel
+           (0 launches): Fig. 4 (5 devices x 40 rounds x 3 states x 3
+           policies) held to the scalar float64 engine; decisions/s of
+           the vectorized engine at 10^3, 10^4, 10^5 devices and, in
+           chunks (``FleetMesh``), at 10^6, median of 5 synchronised runs,
+           with the peak memory; sharded == unsharded bit for bit; the
+           hierarchy sweep (1-8 servers) and hierarchical CARD against its
+           scalar oracle; the churn sweep and its zero-fault identity; Fig.
+           3 and its decision divergence on the calibrate path's measured
+           tables
   train    split LoRA fine-tuning of full-width llama32-1b: split grads
            equal unsplit grads (f32, cuts 0, 16, 32); the kernel routes
            refuse autograd; ``SplitFineTuner`` with CARD in the loop and
@@ -1192,11 +1204,352 @@ def phase_calibrate(seed: int):
     for cell in agree:
         assert cell["disagree_beyond_near_ties"] == 0, cell
         assert cell["worst_freq_rel_diff"] <= 1e-5, cell
-    return calibrate_result
+    return calibrate_result, tables
 
 
 # ---------------------------------------------------------------------------
 # train phase
+# ---------------------------------------------------------------------------
+# fleet phase
+# ---------------------------------------------------------------------------
+
+FLEET_ROUNDS = 10             # rounds of every decisions/s fleet
+FLEET_SIZES = (1_000, 10_000, 100_000)
+FLEET_BIG = 1_000_000         # the sharded path
+FLEET_BIG_SHARDS = 4          # ~1/4 of the unsharded grid's memory
+FLEET_SHARD_CHECK = 4         # shards of the 10^5 identity check
+FLEET_REPS = 5                # synchronised repetitions per rate
+FIG4_AVG_TOL = 1e-4           # vectorized vs scalar Fig. 4 averages, abs
+
+
+def cut_flips(cfg, scalar_log, batched_log, devices, seed):
+    """(flips at near ties, flips beyond them) between the scalar and the
+    batched log of one fleet: a flip is a near tie where the scalar costs
+    of the two best cuts differ by at most ``calibrate.NEAR_TIE_REL``."""
+    from repro_torch.core.channel import draw_channel_matrix
+    from repro_torch.core.cost_model import RoundContext, Workload
+    from repro_torch.core.hardware import DEFAULT_SIM, SERVER_RTX4060TI
+    from repro_torch.launch.calibrate import is_near_tie
+    flips = np.argwhere(scalar_log.cuts != batched_log.cuts)
+    if len(flips) == 0:
+        return 0, 0
+    sim = DEFAULT_SIM
+    chans = draw_channel_matrix(
+        scalar_log.channel_state, *scalar_log.cuts.shape, seed=seed,
+        bandwidth_hz=sim.bandwidth_hz, tx_power_dbm_up=sim.tx_power_dbm_up,
+        tx_power_dbm_down=sim.tx_power_dbm_down,
+        noise_dbm_per_hz=sim.noise_dbm_per_hz)
+    workload = Workload(cfg, sim.mini_batch, sim.seq_len)
+    tied = sum(is_near_tie(RoundContext(
+        workload=workload, device=devices[m], server=SERVER_RTX4060TI,
+        channel=chans.state(r, m), sim=sim), float(scalar_log.freqs[r, m]))
+        for r, m in flips)
+    return tied, len(flips) - tied
+
+
+def fleet_fig4(cfg, seed, gpu):
+    """The paper's Fig. 4 grid (5 Table-I devices, 40 rounds x 3 states x
+    3 policies) through the vectorized engine on the card, held to the
+    port's scalar float64 engine."""
+    from repro_torch.core.hardware import EDGE_FLEET
+    from repro_torch.core.scheduler import compare_policies
+    from repro_torch.launch.fig4_comparison import reductions
+    states = ("good", "normal", "poor")
+    kw = dict(rounds=40, seed=seed, channel_states=states)
+    t0 = time.perf_counter()
+    grid_v = compare_policies(cfg, **kw)             # device=None: the card
+    t_vec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid_s = compare_policies(cfg, engine="scalar", **kw)
+    t_scalar = time.perf_counter() - t0
+    red_v, red_s = reductions(grid_v, states), reductions(grid_s, states)
+    tied = beyond = 0
+    for state in states:
+        t, b = cut_flips(cfg, grid_s["card"][state], grid_v["card"][state],
+                         EDGE_FLEET, seed)
+        tied, beyond = tied + t, beyond + b
+    diffs = {k: abs(red_v[k] - red_s[k]) for k in ("avg_delay_reduction",
+                                                   "avg_energy_reduction")}
+    emit({"phase": "fleet_fig4", "gpu": gpu, "devices": len(EDGE_FLEET),
+          "rounds": 40, "states": list(states),
+          "per_state": {s: {k: red_v["per_state"][s][k] for k in (
+              "delay_reduction_vs_device_only",
+              "energy_reduction_vs_server_only")} for s in states},
+          "avg_delay_reduction": red_v["avg_delay_reduction"],
+          "avg_energy_reduction": red_v["avg_energy_reduction"],
+          "scalar_avg_delay_reduction": red_s["avg_delay_reduction"],
+          "scalar_avg_energy_reduction": red_s["avg_energy_reduction"],
+          "paper_claims": red_v["paper_claims"],
+          "avg_abs_diff_vs_scalar": diffs, "tol": FIG4_AVG_TOL,
+          "cut_flips_near_tie": tied, "cut_flips_beyond_near_tie": beyond,
+          "vectorized_s": t_vec, "scalar_s": t_scalar})
+    assert beyond == 0, (tied, beyond)
+    assert all(d <= FIG4_AVG_TOL for d in diffs.values()), diffs
+    for state in states:
+        for policy in ("card", "server_only", "device_only"):
+            log = grid_v[policy][state]
+            assert np.isfinite(log.delays).all() and (log.delays > 0).all()
+            assert log.cuts.shape == (40, len(EDGE_FLEET))
+
+
+def _same_logs(a, b, fields) -> bool:
+    return all(np.array_equal(a[f], b[f]) for f in fields)
+
+
+def fleet_rates(cfg, seed, gpu):
+    """Decisions/s of the vectorized engine: one built context per fleet
+    size, then the grid on the card and the one host copy, median of
+    ``FLEET_REPS`` synchronised repetitions; 10^6 devices through
+    ``FLEET_BIG_SHARDS`` chunks. Sharded against unsharded, bit for bit, at
+    10^3 through ``simulate_fleet``, at 10^5 and 10^6 on one context."""
+    from repro_torch.core import card as C
+    from repro_torch.core import scheduler as S
+    from repro_torch.core.hardware import (DEFAULT_SIM, SERVER_RTX4060TI,
+                                           make_heterogeneous_fleet)
+    from repro_torch.launch.mesh import make_fleet_mesh
+    fields = S.LOG_FIELDS
+    rows = []
+    # the public path: simulate_fleet, sharded == unsharded at 10^3
+    fleet = make_heterogeneous_fleet(FLEET_SIZES[0], seed=seed)
+    a = S.simulate_fleet(cfg, rounds=FLEET_ROUNDS, devices=fleet, seed=seed)
+    b = S.simulate_fleet(cfg, rounds=FLEET_ROUNDS, devices=fleet, seed=seed,
+                         mesh=make_fleet_mesh(3))
+    same_1k = _same_logs(vars(a), vars(b), fields)
+    # the scalar engine at 100 devices, and the vectorized one beside it
+    fleet100 = make_heterogeneous_fleet(100, seed=seed)
+    t0 = time.perf_counter()
+    s100 = S.simulate_fleet(cfg, rounds=5, devices=fleet100, seed=seed,
+                            engine="scalar")
+    scalar_s = time.perf_counter() - t0
+    v100 = S.simulate_fleet(cfg, rounds=5, devices=fleet100, seed=seed)
+    flips100 = cut_flips(cfg, s100, v100, fleet100, seed)
+    for n in FLEET_SIZES + (FLEET_BIG,):
+        t0 = time.perf_counter()
+        fleet = make_heterogeneous_fleet(n, seed=seed)
+        bctx = S.fleet_context(cfg, channel_state="normal",
+                               rounds=FLEET_ROUNDS, devices=fleet,
+                               server=SERVER_RTX4060TI, sim=DEFAULT_SIM,
+                               seed=seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        del fleet
+        mesh = make_fleet_mesh(FLEET_BIG_SHARDS) if n == FLEET_BIG else None
+        S.fleet_decisions(bctx, mesh=mesh)                  # first use
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(FLEET_REPS):
+            t0 = time.perf_counter()
+            host = S.fleet_decisions(bctx, mesh=mesh)       # ends in a copy
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(times))
+        row = {"devices": n, "rounds": FLEET_ROUNDS,
+               "decisions": n * FLEET_ROUNDS,
+               "n_shards": 1 if mesh is None else mesh.n_shards,
+               "build_s": build_s, "decide_s": times, "median_s": med,
+               "decisions_per_s": n * FLEET_ROUNDS / med,
+               "context_bytes": base, "peak_memory_bytes": peak}
+        if mesh is None:
+            # CUDA-event span of the grid alone (batched_card, no host
+            # copy): device time plus the card's waits for the host's
+            # launches
+            grid_ms = []
+            for _ in range(FLEET_REPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                C.batched_card(bctx)
+                ev[1].record()
+                torch.cuda.synchronize()
+                grid_ms.append(ev[0].elapsed_time(ev[1]))
+            row["grid_span_ms_median"] = float(np.median(grid_ms))
+        if n == FLEET_SIZES[-1]:
+            check = make_fleet_mesh(FLEET_SHARD_CHECK)
+            row["sharded_equal"] = _same_logs(
+                S.fleet_decisions(bctx, mesh=check), host, fields)
+            row["sharded_check_shards"] = check.n_shards
+            if torch.cuda.device_count() > 1:     # one shard per card
+                cards = make_fleet_mesh(0)
+                t0 = time.perf_counter()
+                row["multi_card_equal"] = _same_logs(
+                    S.fleet_decisions(bctx, mesh=cards), host, fields)
+                row["multi_card_s"] = time.perf_counter() - t0
+                row["multi_card_devices"] = [str(d) for d in cards.devices]
+        if n == FLEET_BIG:
+            torch.cuda.reset_peak_memory_stats()
+            unsharded = S.fleet_decisions(bctx)
+            row["unsharded_peak_memory_bytes"] = \
+                torch.cuda.max_memory_allocated()
+            row["sharded_equal"] = _same_logs(unsharded, host, fields)
+            del unsharded
+            row["finite"] = bool(np.isfinite(host["delays"]).all())
+        rows.append(row)
+        del bctx, host
+        torch.cuda.empty_cache()
+    emit({"phase": "fleet_rates", "gpu": gpu, "rows": rows,
+          "simulate_fleet_sharded_equal_1k": same_1k,
+          "scalar_100": {"devices": 100, "rounds": 5, "seconds": scalar_s,
+                         "decisions_per_s": 500 / scalar_s,
+                         "cut_flips_vs_vectorized": flips100}})
+    assert same_1k
+    assert flips100[1] == 0, flips100
+    for row in rows:
+        assert row.get("sharded_equal", True), row
+        assert row.get("multi_card_equal", True), row
+    assert rows[-1]["finite"], rows[-1]
+    return rows
+
+
+def fleet_hierarchy(cfg, seed, gpu):
+    """The hierarchy sweep (1, 2, 4, 8 servers x 100, 1000 devices), then
+    hierarchical CARD on the card against the scalar float64 oracle at 20
+    devices x 3 servers."""
+    from repro_torch.core import card as C
+    from repro_torch.core.channel import draw_channel_matrix
+    from repro_torch.core.cost_model import (RoundContext, TieredRoundContext,
+                                             Workload)
+    from repro_torch.core.hardware import (DEFAULT_SIM,
+                                           make_heterogeneous_fleet,
+                                           make_server_tier)
+    from repro_torch.launch import hierarchy_bench
+    from repro_torch.launch.calibrate import NEAR_TIE_REL, is_near_tie
+    sweep = hierarchy_bench.run(seed=seed)           # device=None: the card
+    sim = DEFAULT_SIM
+    workload = Workload(cfg, sim.mini_batch, sim.seq_len)
+    fleet = make_heterogeneous_fleet(20, seed=seed)
+    tier = make_server_tier(3, capacity=7, seed=seed)
+    chans = draw_channel_matrix("normal", 3, 20, seed=seed,
+                                bandwidth_hz=sim.bandwidth_hz,
+                                tx_power_dbm_up=sim.tx_power_dbm_up,
+                                tx_power_dbm_down=sim.tx_power_dbm_down,
+                                noise_dbm_per_hz=sim.noise_dbm_per_hz)
+    tctx = TieredRoundContext.build(workload, fleet, tier, chans, sim)
+    hb = C.hierarchical_card(tctx, assign="optimal")
+    hs = C.hierarchical_card_scalar(workload, fleet, tier, chans, sim,
+                                    assign="optimal")
+    price = C.tiered_card_grid(tctx).costs.double().mean(dim=1).cpu().numpy()
+    moved = np.nonzero(hb.assignment != hs.assignment)[0]
+    moved_tied = [int(d) for d in moved if abs(
+        price[hb.assignment[d], d] - price[hs.assignment[d], d])
+        <= NEAR_TIE_REL * max(abs(price[hb.assignment[d], d]),
+                              abs(price[hs.assignment[d], d]))]
+    same = hb.assignment == hs.assignment
+    flips = np.argwhere((hb.cuts != hs.cuts) & same[None, :])
+    flips_tied = sum(is_near_tie(RoundContext(
+        workload=workload, device=fleet[m],
+        server=tier.servers[hb.assignment[m]], channel=chans.state(r, m),
+        sim=sim), float(hs.freqs[r, m])) for r, m in flips)
+    freq_rel = float(np.max(np.abs(hb.freqs[:, same] - hs.freqs[:, same])
+                            / hs.freqs[:, same]))
+    agg_rel = float(np.max(np.abs(hb.aggregation_s - hs.aggregation_s)
+                           / hs.aggregation_s.clip(min=1e-30)))
+    emit({"phase": "fleet_hierarchy", "gpu": gpu,
+          "sweep": [{k: r[k] for k in ("servers", "devices", "wall_s",
+                                       "load_imbalance", "mean_round_s",
+                                       "mean_delay_s", "mean_energy_j")}
+                    for r in sweep["sweep"]],
+          "vs_scalar": {"devices": 20, "servers": 3, "rounds": 3,
+                        "capacity": 7, "assign": "optimal",
+                        "assignment_equal": bool(same.all()),
+                        "assignment_moved_near_tie": moved_tied,
+                        "cut_flips": len(flips),
+                        "cut_flips_near_tie": flips_tied,
+                        "worst_freq_rel_diff": freq_rel,
+                        "worst_aggregation_rel_diff": agg_rel,
+                        "server_load": hb.server_load.tolist()}})
+    assert len(moved_tied) == len(moved), (moved, moved_tied)
+    assert flips_tied == len(flips), (flips, flips_tied)
+    assert freq_rel <= 1e-5 and agg_rel <= 1e-5, (freq_rel, agg_rel)
+    assert (hb.server_load <= 7).all() and hb.server_load.sum() == 20
+    assert len(sweep["sweep"]) == 8
+    for r in sweep["sweep"]:
+        assert math.isfinite(r["mean_round_s"]) and r["mean_round_s"] > 0, r
+
+
+def fleet_churn(cfg, seed, gpu):
+    """The churn sweep (1000 devices, 10 rounds, dropout 0-0.4) and the
+    zero-fault identity on the card."""
+    from repro_torch.core.faults import DeadlinePolicy, FaultModel
+    from repro_torch.core.hardware import make_heterogeneous_fleet
+    from repro_torch.core.scheduler import LOG_FIELDS, simulate_fleet
+    from repro_torch.launch import churn_bench
+    sweep = churn_bench.run(seed=seed)               # device=None: the card
+    sweep.pop("worst_case_realization")
+    fleet = make_heterogeneous_fleet(1000, seed=seed)
+    base = simulate_fleet(cfg, rounds=10, devices=fleet, seed=seed)
+    degenerate = simulate_fleet(cfg, rounds=10, devices=fleet, seed=seed,
+                                fault_model=FaultModel(),
+                                deadline=DeadlinePolicy(quantile=1.0))
+    identical = (_same_logs(vars(base), vars(degenerate), LOG_FIELDS)
+                 and bool(degenerate.participation.all()))
+    emit({"phase": "fleet_churn", "gpu": gpu, **sweep,
+          "zero_fault_identity": identical})
+    assert identical
+    rates = [r["dropout_rate"] for r in sweep["sweep"]]
+    survivors = [r["survivor_fraction"] for r in sweep["sweep"]]
+    assert rates == [0.0, 0.1, 0.2, 0.4], rates
+    assert all(b < a for a, b in zip(survivors, survivors[1:])), survivors
+    assert all(math.isfinite(r["mean_delay_s"]) for r in sweep["sweep"])
+
+
+def fleet_fig3(cfg, seed, gpu, tables):
+    """Fig. 3 (cuts and frequencies per device over 50 rounds) and its
+    decision divergence over the card-calibrated measured tables."""
+    from repro_torch.launch import fig3_decisions
+    fig3 = fig3_decisions.run(seed=seed)             # device=None: the card
+    div = fig3_decisions.run_divergence(seed=seed, tables=tables)
+    emit({"phase": "fleet_fig3", "gpu": gpu, "bimodal": fig3["bimodal"],
+          "offload_monotone_with_weakness":
+              fig3["offload_monotone_with_weakness"],
+          "cuts": fig3["cuts"], "divergence": div})
+    assert div["table_source"] == "tables" and len(div["cells"]) == 9
+    for cell in div["cells"]:
+        assert math.isfinite(cell["mean_delay_ratio"]), cell
+        assert 0.0 <= cell["frac_decisions_moved"] <= 1.0, cell
+
+
+def phase_fleet(seed: int, tables):
+    """The fleet engines and the tiered CARD stack on the card, at
+    llama32-1b's full config (32 layers, 33 cuts), ``DEFAULT_SIM`` (batch
+    4 x 512): Fig. 4, decisions/s to 10^6 devices, sharded == unsharded,
+    hierarchy, churn, Fig. 3 on ``tables`` (the calibrate path's). No
+    kernel is launched: the grids are plain tensor programs, as the
+    reference's are plain jnp."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    gpu = gpu_line()
+    cfg = get_config("llama32-1b")
+    t_phase = time.time()
+    seconds, peaks = {}, {}
+    # ---- the fleet path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    for name, fn, args in (("fig4", fleet_fig4, ()),
+                           ("rates", fleet_rates, ()),
+                           ("hierarchy", fleet_hierarchy, ()),
+                           ("churn", fleet_churn, ()),
+                           ("fig3", fleet_fig3, (tables,))):
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(cfg, seed, gpu, *args)
+        seconds[name] = time.time() - t0
+        # fleet_rates resets the peak per fleet size and reports each
+        peaks[name] = max([torch.cuda.max_memory_allocated()]
+                          + [r[k] for r in (out or ()) for k in r
+                             if k.endswith("peak_memory_bytes")])
+    counts = kernels.launch_counts()
+    runs = kernels.runs_on_card()
+    # ----------------------------------------------------------------------
+    emit({"phase": "fleet", "gpu": gpu, "launches": counts,
+          "runs_on_card": runs, "seconds_by_part": seconds,
+          "peak_memory_bytes_by_part": peaks,
+          "peak_memory_bytes": max(peaks.values()),
+          "seconds": time.time() - t_phase})
+    assert all(n == 0 for n in counts.values()), counts
+    assert all(n == 0 for n in runs.values()), runs
+    return counts, runs, {}
+
+
 # ---------------------------------------------------------------------------
 
 SPLIT_TOL = 1e-3         # split vs unsplit grads, f32, x max|leaf|
@@ -1951,12 +2304,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--only", choices=("kernels", "train", "families"),
+    ap.add_argument("--only", choices=("kernels", "train", "families",
+                                       "fleet"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
                          "launches no kernel); families: build, then run "
-                         "the families phase alone")
+                         "the families phase alone; fleet: build, the "
+                         "calibrate pipeline's smoke probes for the "
+                         "measured tables, then the fleet phase")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -2004,6 +2360,18 @@ def main() -> int:
         emit({"phase": "done", "only": "families",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "fleet":
+        from repro_torch.core.measured_cost import LatencyTable
+        from repro_torch.launch import calibrate
+        payload = calibrate.run(smoke=True)          # device=None: the card
+        tables = {a: LatencyTable.from_dict(t)
+                  for a, t in payload["latency_tables"].items()}
+        emit({"phase": "calibrate_smoke", "seconds": payload["seconds"],
+              "fit": payload["roofline_fit"]})
+        phase_fleet(args.seed, tables)
+        emit({"phase": "done", "only": "fleet",
+              "seconds": time.time() - t_start})
+        return 0
 
     rows = phase_kernels(args.seed)
     if args.only == "kernels":
@@ -2012,8 +2380,9 @@ def main() -> int:
         return 0
 
     by_path = {"serve": phase_serve_and_prefill(args.seed, args.requests,
-                                                args.profile),
-               "calibrate": phase_calibrate(args.seed)}
+                                                args.profile)}
+    by_path["calibrate"], tables = phase_calibrate(args.seed)
+    by_path["fleet"] = phase_fleet(args.seed, tables)
     by_path["train"] = phase_train(args.seed, args.profile)
     by_path["families"] = phase_families(args.seed)
 

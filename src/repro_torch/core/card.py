@@ -13,18 +13,20 @@ plus static-cut and random-cut baselines for wider comparison.
 A port of the reference's ``core/card.py``: the scalar oracle in Python
 floats as there, and the batched fleet grids, which the reference jit-compiles,
 as plain tensor programs on the context's device (no Python branching on
-tensor values, ``where``-selection, ``argmin``'s first-index tie rule). The
-tiered and hierarchical half is not ported yet.
+tensor values, ``where``-selection, ``argmin``'s first-index tie rule); the
+tiered grid the same way, and the hierarchical assignment stage as the
+reference's host numpy, verbatim.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.cost_model import BatchedRoundContext, RoundContext
+from repro_torch.core.cost_model import (BatchedRoundContext, RoundContext,
+                                         TieredRoundContext)
 
 
 @dataclass(frozen=True)
@@ -331,3 +333,353 @@ def batched_static_cut(bctx: BatchedRoundContext, cut) -> BatchedDecision:
         torch.as_tensor(cut, dtype=torch.int32, device=bctx.device),
         bctx.shape)
     return _batched_evaluate(bctx, cuts, f_star, corners)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical CARD — a tier of servers with device -> server assignment
+# ---------------------------------------------------------------------------
+#
+# SplitLLM (arXiv:2501.13318) hierarchical setting: stage 1 assigns each
+# device to one server of the tier (capacity-constrained), stage 2 runs
+# per-server CARD exactly as before. The assignment objective is device-
+# separable — each (server, device) pair is priced at the device's *optimal*
+# CARD cost under that server (mean over the round batch) — so the two
+# stages decouple the same way Eq. 16 decouples f from c: the per-server
+# grids are computed once for all S servers and the assignment is a pure
+# host-side matching over the (S, D) price matrix.
+
+
+class TierDecision(NamedTuple):
+    """Per-(server, round, device) best-response CARD grids; every field is
+    an (S, R, D) tensor. ``costs`` is what the assignment stage prices;
+    ``delays`` are seconds, ``energies`` joules, ``freqs`` Hz. ``d_server``
+    is the server-compute share of ``delays`` — the term that contends when
+    one server hosts many devices (parallel-SL round folding)."""
+    cuts: torch.Tensor
+    freqs: torch.Tensor
+    costs: torch.Tensor
+    delays: torch.Tensor
+    energies: torch.Tensor
+    d_server: torch.Tensor
+
+
+def tiered_optimal_frequency(tctx: TieredRoundContext,
+                             corners=None) -> torch.Tensor:
+    """Eq. (16) per (server, round, device): same closed form as
+    :func:`batched_optimal_frequency` with per-server DVFS bounds."""
+    if corners is None:
+        corners = tctx.corners()
+    d_min, d_max, e_min, e_max = corners
+    q = ((tctx.w * (e_max - e_min))
+         / (2.0 * tctx.xi * torch.clamp(1.0 - tctx.w, min=1e-12)
+            * torch.clamp(d_max - d_min, min=1e-12))) ** (1.0 / 3.0)
+    f_hi = torch.broadcast_to(tctx.server_f_max[:, None, None], tctx.shape)
+    f = torch.minimum(torch.maximum(q, tctx.f_min()[:, None, :]), f_hi)
+    return torch.where(tctx.w >= 1.0, f_hi, f)
+
+
+def tiered_card_grid(tctx: TieredRoundContext, *,
+                     respect_memory: bool = True) -> TierDecision:
+    """Alg. 1 for every candidate server at once: closed-form f* per
+    (server, round, device), then one argmin over the (S, R, D, C) cost
+    tensor (first index on ties). Stage 2 of ``hierarchical_card`` — and,
+    gathered along the assignment, identical to running ``batched_card``
+    per server."""
+    corners = tctx.corners()
+    f_star = tiered_optimal_frequency(tctx, corners)
+    grid = torch.arange(tctx.n_cuts, device=tctx.device)
+    cost = tctx.cost(grid, f_star, corners)                  # (S, R, D, C)
+    if respect_memory:
+        infeasible = (grid[None, None, None, :]
+                      > tctx.max_cut[None, None, :, None])
+        cost = torch.where(infeasible, torch.full_like(cost, float("inf")),
+                           cost)
+    best = torch.argmin(cost, dim=-1).to(torch.int32)        # (S, R, D)
+    c = best.long()[..., None]
+    parts = tctx.delay_components(c, f_star)
+    return TierDecision(
+        cuts=best,
+        freqs=f_star,
+        costs=tctx.cost(c, f_star, corners)[..., 0],
+        delays=parts.total[..., 0],
+        energies=tctx.server_energy(c, f_star)[..., 0],
+        d_server=parts.server_comp[..., 0])
+
+
+ASSIGN_METHODS = ("greedy", "optimal")
+
+
+def assign_devices(cost_sd: np.ndarray, capacity: np.ndarray, *,
+                   method: str = "greedy") -> np.ndarray:
+    """Capacity-constrained device -> server assignment over an (S, D)
+    price matrix (float64, NaN/inf = infeasible pair). Returns (D,) int.
+
+    ``"greedy"`` — regret-ordered auction-style pass: devices bid in order
+    of decreasing regret (second-best minus best price) and take the
+    cheapest server with remaining capacity. Optimal whenever no capacity
+    binds (then it degenerates to the per-device argmin); a heuristic
+    otherwise — the O(D log D + D S) path for million-device fleets.
+
+    ``"optimal"`` — successive-shortest-path min-cost matching (unit-supply
+    transportation problem): devices are assigned one at a time via the
+    cheapest chain of reassignments in the residual graph. Exactly optimal
+    (the residual graph stays free of negative cycles, the SSP invariant);
+    O(D * S^2 * D) worst case — the oracle for tests and small tiers, not
+    the million-device path.
+    """
+    cost_sd = np.asarray(cost_sd, np.float64)
+    n_servers, n_devices = cost_sd.shape
+    capacity = np.asarray(capacity, np.int64)
+    if capacity.shape != (n_servers,):
+        raise ValueError(f"capacity shape {capacity.shape} != ({n_servers},)")
+    if capacity.sum() < n_devices:
+        raise ValueError(f"tier capacity {int(capacity.sum())} < "
+                         f"{n_devices} devices")
+    if method == "greedy":
+        return _assign_greedy(cost_sd, capacity)
+    if method == "optimal":
+        return _assign_optimal(cost_sd, capacity)
+    raise ValueError(f"unknown assignment method {method!r}; "
+                     f"expected one of {ASSIGN_METHODS}")
+
+
+def _assign_greedy(cost_sd: np.ndarray, capacity: np.ndarray) -> np.ndarray:
+    n_servers, n_devices = cost_sd.shape
+    finite = np.where(np.isfinite(cost_sd), cost_sd, np.inf)
+    if n_servers > 1:
+        part = np.partition(finite, 1, axis=0)
+        regret = part[1] - part[0]                   # (D,)
+        regret = np.where(np.isfinite(regret), regret, np.inf)
+    else:
+        regret = np.zeros(n_devices)
+    remaining = capacity.copy()
+    assign = np.full(n_devices, -1, np.int64)
+    # stable argsort on -regret: ties resolve by device index, deterministic
+    for d in np.argsort(-regret, kind="stable"):
+        for s in np.argsort(finite[:, d], kind="stable"):
+            if remaining[s] > 0 and np.isfinite(finite[s, d]):
+                assign[d] = s
+                remaining[s] -= 1
+                break
+        if assign[d] < 0:
+            raise ValueError(f"device {d} has no feasible server with "
+                             "remaining capacity")
+    return assign
+
+
+def _assign_optimal(cost_sd: np.ndarray, capacity: np.ndarray) -> np.ndarray:
+    """Successive shortest augmenting paths (Bellman-Ford over the server
+    nodes; path length <= S-1 because the residual graph of a partial
+    optimum has no negative cycles)."""
+    n_servers, n_devices = cost_sd.shape
+    remaining = capacity.copy()
+    assign = np.full(n_devices, -1, np.int64)
+    members: list = [[] for _ in range(n_servers)]
+    for d in range(n_devices):
+        dist = np.where(np.isfinite(cost_sd[:, d]), cost_sd[:, d], np.inf)
+        pred: list = [None] * n_servers       # (prev_server, moved_device)
+        for _ in range(n_servers - 1):
+            changed = False
+            for s in range(n_servers):
+                if not np.isfinite(dist[s]) or not members[s]:
+                    continue
+                ds = np.asarray(members[s])
+                # moving device d' from s to s2 costs c[s2,d'] - c[s,d']
+                delta = cost_sd[:, ds] - cost_sd[s, ds][None, :]  # (S, |ds|)
+                j = np.nanargmin(np.where(np.isfinite(delta), delta, np.inf),
+                                 axis=1)
+                step = delta[np.arange(n_servers), j]
+                nd = dist[s] + step
+                upd = np.isfinite(nd) & (nd < dist - 1e-15)
+                for s2 in np.nonzero(upd)[0]:
+                    dist[s2] = nd[s2]
+                    pred[s2] = (s, int(ds[j[s2]]))
+                    changed = True
+            if not changed:
+                break
+        open_servers = np.nonzero(remaining > 0)[0]
+        if open_servers.size == 0 or not np.isfinite(
+                dist[open_servers]).any():
+            raise ValueError(f"device {d} has no feasible augmenting path")
+        target = int(open_servers[np.argmin(dist[open_servers])])
+        # walk the chain of reassignments back to the direct edge
+        s = target
+        while pred[s] is not None:
+            prev_s, moved = pred[s]
+            members[prev_s].remove(moved)
+            members[s].append(moved)
+            assign[moved] = s
+            s = prev_s
+        members[s].append(d)
+        assign[d] = s
+        remaining[target] -= 1
+    return assign
+
+
+def exhaustive_assignment(cost_sd: np.ndarray,
+                          capacity: np.ndarray) -> np.ndarray:
+    """Brute-force over all S^D capacity-feasible assignments — the oracle
+    ``_assign_optimal`` is tested against. Lexicographically-first argmin,
+    strictly for small fleets (<= ~8 devices)."""
+    import itertools
+    cost_sd = np.asarray(cost_sd, np.float64)
+    n_servers, n_devices = cost_sd.shape
+    if n_servers ** n_devices > 2_000_000:
+        raise ValueError(f"{n_servers}^{n_devices} assignments is too many "
+                         "to enumerate — use assign_devices")
+    best_total, best = np.inf, None
+    dev_idx = np.arange(n_devices)
+    for combo in itertools.product(range(n_servers), repeat=n_devices):
+        a = np.asarray(combo)
+        counts = np.bincount(a, minlength=n_servers)
+        if (counts > capacity).any():
+            continue
+        total = cost_sd[a, dev_idx].sum()
+        if total < best_total - 1e-15:
+            best_total, best = total, a
+    if best is None:
+        raise ValueError("no capacity-feasible assignment exists")
+    return best
+
+
+class HierarchicalDecision(NamedTuple):
+    """The hierarchical_card result, as host numpy arrays.
+
+    ``assignment`` — (D,) int server index per device; ``cuts``/``freqs``/
+    ``costs``/``delays``/``energies``/``d_server`` — (R, D) per-device
+    decisions under the assigned server (seconds / joules / Hz, as in
+    BatchedDecision; ``d_server`` is the server-compute share of
+    ``delays``); ``aggregation_s`` — (S, R) per-server backhaul aggregation
+    delay; ``server_load`` — (S,) devices per server.
+    """
+    assignment: np.ndarray
+    cuts: np.ndarray
+    freqs: np.ndarray
+    costs: np.ndarray
+    delays: np.ndarray
+    energies: np.ndarray
+    d_server: np.ndarray
+    aggregation_s: np.ndarray
+    server_load: np.ndarray
+
+
+def _grid_to_host(grid: TierDecision) -> Dict[str, np.ndarray]:
+    """The whole (S, R, D) grid in one device->host copy: the six fields
+    stacked as float32 (the int32 cuts are exact in float32)."""
+    stacked = torch.stack([getattr(grid, f).float()
+                           for f in TierDecision._fields]).cpu().numpy()
+    host = dict(zip(TierDecision._fields, stacked))
+    host["cuts"] = host["cuts"].astype(np.int32)
+    return host
+
+
+def _gather_assigned(host: Dict[str, np.ndarray], assign: np.ndarray
+                     ) -> Dict[str, np.ndarray]:
+    """Select each device's (R,) lane from its assigned server's grid."""
+    n_devices = assign.shape[0]
+    dev_idx = np.arange(n_devices)
+    return {field: host[field][assign, :, dev_idx].T
+            for field in TierDecision._fields}
+
+
+def _hierarchical_readout(tctx: TieredRoundContext, host, a: np.ndarray
+                          ) -> HierarchicalDecision:
+    """Stage 3: each device's decisions under its assigned server, and the
+    per-server backhaul aggregation delay."""
+    picked = _gather_assigned(host, a)
+    assign_mask = a[None, :] == np.arange(tctx.n_servers)[:, None]
+    agg = tctx.aggregation_delay(assign_mask, picked["cuts"]).cpu().numpy()
+    return HierarchicalDecision(
+        assignment=a.astype(np.int64),
+        cuts=picked["cuts"].astype(np.int32),
+        freqs=picked["freqs"], costs=picked["costs"],
+        delays=picked["delays"], energies=picked["energies"],
+        d_server=picked["d_server"],
+        aggregation_s=agg,
+        server_load=assign_mask.sum(axis=1).astype(np.int64))
+
+
+def hierarchical_card(tctx: TieredRoundContext, *,
+                      respect_memory: bool = True,
+                      assign: str = "greedy") -> HierarchicalDecision:
+    """Two-stage hierarchical CARD (fleet-of-fleets):
+
+    1. price every (server, device) pair at the device's optimal CARD cost
+       under that server (one (S, R, D, C) grid on the context's device,
+       mean over rounds in float64 on the host),
+    2. assign devices to servers under the tier's capacity
+       (:func:`assign_devices`, ``assign="greedy" | "optimal"``),
+    3. read each device's per-round (cut, f) decision off its assigned
+       server's grid and price the per-server backhaul aggregation.
+
+    Decision-equivalent to exhaustive assignment enumeration for
+    ``assign="optimal"`` (tested on fleets <= 8 devices x 2 servers).
+    """
+    host = _grid_to_host(tiered_card_grid(tctx,
+                                          respect_memory=respect_memory))
+    cost_sd = host["costs"].astype(np.float64).mean(axis=1)
+    a = assign_devices(cost_sd, np.asarray(tctx.capacity), method=assign)
+    return _hierarchical_readout(tctx, host, a)
+
+
+def hierarchical_card_exhaustive(tctx: TieredRoundContext, *,
+                                 respect_memory: bool = True
+                                 ) -> HierarchicalDecision:
+    """The test oracle: exhaustive assignment enumeration over the same
+    price matrix, then the identical per-server decision readout."""
+    host = _grid_to_host(tiered_card_grid(tctx,
+                                          respect_memory=respect_memory))
+    cost_sd = host["costs"].astype(np.float64).mean(axis=1)
+    a = exhaustive_assignment(cost_sd, np.asarray(tctx.capacity))
+    return _hierarchical_readout(tctx, host, a)
+
+
+def hierarchical_card_scalar(workload, devices, tier, channels, sim, *,
+                             respect_memory: bool = True,
+                             assign: str = "optimal") -> HierarchicalDecision:
+    """Float64 scalar reference oracle for :func:`hierarchical_card`: the
+    per-(server, device, round) grids come from the scalar ``card`` loop
+    (``RoundContext`` per cell), the assignment from the same matcher.
+
+    ``channels`` is a ``ChannelBatch`` — both paths must consume identical
+    link realizations, exactly like the flat engines.
+    """
+    n_servers = tier.n_servers
+    rounds, n_devices = channels.rate_up.shape
+    cost_sRD = np.zeros((n_servers, rounds, n_devices))
+    cuts = np.zeros((n_servers, rounds, n_devices), np.int32)
+    freqs = np.zeros((n_servers, rounds, n_devices))
+    delays = np.zeros((n_servers, rounds, n_devices))
+    energies = np.zeros((n_servers, rounds, n_devices))
+    d_srv = np.zeros((n_servers, rounds, n_devices))
+    for s, server in enumerate(tier.servers):
+        for m, dev in enumerate(devices):
+            for r in range(rounds):
+                ctx = RoundContext(workload=workload, device=dev,
+                                   server=server,
+                                   channel=channels.state(r, m), sim=sim)
+                d = card(ctx, respect_memory=respect_memory)
+                cost_sRD[s, r, m] = d.cost
+                cuts[s, r, m] = d.cut
+                freqs[s, r, m] = d.frequency
+                delays[s, r, m] = d.delay
+                energies[s, r, m] = d.energy
+                d_srv[s, r, m] = ctx.delay_components(
+                    d.cut, d.frequency).server_comp
+    cost_sd = cost_sRD.mean(axis=1)
+    a = assign_devices(cost_sd, np.asarray(tier.capacity), method=assign)
+    dev_idx = np.arange(n_devices)
+    pick = lambda x: x[a, :, dev_idx].T                       # noqa: E731
+    picked_cuts = pick(cuts)
+    assign_mask = a[None, :] == np.arange(n_servers)[:, None]
+    adapter_bits = np.array([8 * workload.adapter_bytes(c, sim.adapter_bytes)
+                             for c in range(workload.cfg.n_layers + 1)])
+    bits = adapter_bits[picked_cuts]                          # (R, D)
+    backhaul = np.asarray(tier.backhaul_bits_per_s)
+    agg = (np.where(assign_mask[:, None, :], bits[None], 0.0).sum(axis=-1)
+           / backhaul[:, None])
+    return HierarchicalDecision(
+        assignment=a.astype(np.int64), cuts=picked_cuts,
+        freqs=pick(freqs), costs=pick(cost_sRD), delays=pick(delays),
+        energies=pick(energies), d_server=pick(d_srv), aggregation_s=agg,
+        server_load=assign_mask.sum(axis=1).astype(np.int64))

@@ -18,9 +18,9 @@ weights (dX GEMMs) + adapter-gradient GEMMs, i.e. ~2x forward FLOPs + the
 uniform stack, so Fig. 3's bimodal-cut finding is preserved per-arch.
 
 A port of the reference's ``core/cost_model.py``: the scalar model in Python
-floats (float64) as there, and ``BatchedRoundContext`` as float32 tensors on
-an explicit device (the reference's jnp precision). ``TieredRoundContext``
-(the hierarchical tier) is not ported yet.
+floats (float64) as there, and ``BatchedRoundContext`` and
+``TieredRoundContext`` (the hierarchical tier) as float32 tensors on an
+explicit device (the reference's jnp precision).
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import ChannelBatch, ChannelState
-from repro_torch.core.hardware import DeviceProfile, SimParams, fleet_arrays
+from repro_torch.core.hardware import (DeviceProfile, ServerTier, SimParams,
+                                       fleet_arrays, tier_arrays)
 from repro_torch.models.common import resolve_device
 
 
@@ -342,8 +343,7 @@ class RoundContext:
 
 
 def _per_cut_tables(workload: Workload, sim: SimParams, compute) -> dict:
-    """Float64 per-cut tables shared by the batched (and, later, tiered)
-    contexts.
+    """Float64 per-cut tables shared by the batched and tiered contexts.
 
     One accounting for both: ``dev_flops``/``srv_flops`` (effective FLOPs,
     Eqs. 7-8), ``up_bits``/``down_bits`` (per-local-epoch phi-compressed
@@ -378,6 +378,40 @@ def _max_cut_per_device(weight_bytes: np.ndarray,
     return np.where(feas.any(axis=1),
                     feas.shape[1] - 1 - np.argmax(feas[:, ::-1], axis=1),
                     0)
+
+
+def _f32(x, dev: torch.device) -> torch.Tensor:
+    """A float64 host value as a float32 tensor on ``dev`` (the reference's
+    jnp precision)."""
+    return torch.as_tensor(np.asarray(x, np.float64), dtype=torch.float32,
+                           device=dev)
+
+
+def _fleet_tensors(workload: Workload, devices: Sequence[DeviceProfile],
+                   channels: ChannelBatch, sim: SimParams, cost_source: str,
+                   latency_table, device) -> dict:
+    """The server-agnostic fields of the batched and tiered contexts: the
+    ``(C,)`` per-cut tables, the ``(D,)`` fleet arrays, the ``(R, D)``
+    channel rates and the Eq. 12 weights, float32 (``max_cut`` int32) on
+    ``device`` (``None``: the GPU, raising without one)."""
+    dev = resolve_device(device)
+    compute = resolve_compute(workload, cost_source, latency_table)
+    tables = _per_cut_tables(workload, sim, compute)
+    arrs = fleet_arrays(devices)
+    # memory feasibility: largest c whose frozen weights fit the budget
+    max_cut = _max_cut_per_device(tables["weight_bytes"], arrs["mem_bytes"])
+    return dict(
+        dev_flops=_f32(tables["dev_flops"], dev),
+        srv_flops=_f32(tables["srv_flops"], dev),
+        up_bits=_f32(tables["up_bits"], dev),
+        down_bits=_f32(tables["down_bits"], dev),
+        adapter_bits=_f32(tables["adapter_bits"], dev),
+        peak_flops=_f32(arrs["peak_flops"], dev),
+        max_cut=torch.as_tensor(max_cut, dtype=torch.int32, device=dev),
+        rate_up=_f32(channels.rate_up, dev),
+        rate_down=_f32(channels.rate_down, dev),
+        w=_f32(float(sim.w), dev), xi=_f32(float(sim.xi), dev),
+        local_epochs=int(sim.local_epochs))
 
 
 @dataclass(frozen=True)
@@ -433,32 +467,11 @@ class BatchedRoundContext:
               latency_table=None, device=None) -> "BatchedRoundContext":
         """Tables and fleet arrays as float32 tensors on ``device``
         (``None``: the GPU, raising without one)."""
-        dev = resolve_device(device)
-        compute = resolve_compute(workload, cost_source, latency_table)
-        tables = _per_cut_tables(workload, sim, compute)
-        arrs = fleet_arrays(devices)
-        # memory feasibility: largest c whose frozen weights fit the budget
-        max_cut = _max_cut_per_device(tables["weight_bytes"],
-                                      arrs["mem_bytes"])
-
-        def f32(x):
-            return torch.as_tensor(np.asarray(x, np.float64),
-                                   dtype=torch.float32, device=dev)
-
-        return cls(
-            dev_flops=f32(tables["dev_flops"]),
-            srv_flops=f32(tables["srv_flops"]),
-            up_bits=f32(tables["up_bits"]),
-            down_bits=f32(tables["down_bits"]),
-            adapter_bits=f32(tables["adapter_bits"]),
-            peak_flops=f32(arrs["peak_flops"]),
-            max_cut=torch.as_tensor(max_cut, dtype=torch.int32, device=dev),
-            rate_up=f32(channels.rate_up),
-            rate_down=f32(channels.rate_down),
-            w=f32(float(sim.w)), xi=f32(float(sim.xi)),
-            local_epochs=int(sim.local_epochs),
-            server_tp_per_hz=float(server.delta * server.sigma),
-            server_f_max=float(server.f_max), server_f_min=float(server.f_min))
+        return cls(**_fleet_tensors(workload, devices, channels, sim,
+                                    cost_source, latency_table, device),
+                   server_tp_per_hz=float(server.delta * server.sigma),
+                   server_f_max=float(server.f_max),
+                   server_f_min=float(server.f_min))
 
     # -- shapes --------------------------------------------------------------
     @property
@@ -545,3 +558,206 @@ class BatchedRoundContext:
         en = ((e - e_min[..., None])
               / torch.clamp(e_max - e_min, min=1e-12)[..., None])
         return self.w * dn + (1 - self.w) * en
+
+
+# ---------------------------------------------------------------------------
+# Tiered fleet context — Eqs. 7-12 with a leading server axis
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TieredRoundContext:
+    """``BatchedRoundContext`` for a :class:`~repro_torch.core.hardware.ServerTier`.
+
+    The hierarchical-SL setting (SplitLLM, arXiv:2501.13318): a tier of
+    ``S`` edge servers, each with its own DVFS range and backhaul link to
+    the aggregator, shared by one fleet of ``D`` devices. Every delay /
+    energy / cost tensor gains a leading server axis:
+
+      per-cut tables  (C,)     — device-side quantities, server-agnostic
+      per-device      (D,)
+      channel         (R, D)   — the device's radio link to its access
+                                 point, shared across candidate servers
+      per-server      (S,)     — throughput/Hz, DVFS bounds, backhaul
+
+    ``delay_components``/``cost``/``server_energy`` broadcast over
+    ``(S, R, D, C')``; ``corners`` is per ``(S, R, D)``. An ``S = 1`` tier
+    gives the single-server batched context's numbers (the per-server
+    parameters appear in exactly the same algebraic positions —
+    ``tests/test_torch_hierarchy.py``). Float32 tensors on one device, as
+    ``BatchedRoundContext``.
+
+    Lanes of devices *not* assigned to a server are masked to NaN by
+    :meth:`mask_unassigned` — downstream reductions must be NaN-aware,
+    exactly like the churn layer's survivor masking.
+
+    Units follow the repo suffix registry: ``*_s`` seconds, ``*_bits``
+    bits, ``*_flops`` effective FLOPs, frequencies in Hz, energies in J.
+    """
+    # per-cut tables (C,)
+    dev_flops: torch.Tensor
+    srv_flops: torch.Tensor
+    up_bits: torch.Tensor
+    down_bits: torch.Tensor
+    adapter_bits: torch.Tensor
+    # per-device (D,)
+    peak_flops: torch.Tensor
+    max_cut: torch.Tensor
+    # per-(round, device) (R, D)
+    rate_up: torch.Tensor
+    rate_down: torch.Tensor
+    # per-server (S,)
+    server_tp_per_hz: torch.Tensor   # delta_S * sigma_S
+    server_f_max: torch.Tensor       # Hz
+    server_f_min: torch.Tensor       # Hz
+    backhaul_bits_per_s: torch.Tensor
+    # Eq. 12 weights as 0-d tensors
+    w: torch.Tensor
+    xi: torch.Tensor
+    # static hyperparameters
+    local_epochs: int
+    capacity: Tuple[int, ...]        # per-server device cap (host-side input
+                                     # to the assignment stage)
+
+    @classmethod
+    def build(cls, workload: Workload, devices: Sequence[DeviceProfile],
+              tier: ServerTier, channels: ChannelBatch, sim: SimParams, *,
+              cost_source: str = "analytic", latency_table=None,
+              device=None) -> "TieredRoundContext":
+        """The batched context's tables and fleet arrays, plus the tier's
+        per-server scalars stacked into ``(S,)`` tensors, on ``device``
+        (``None``: the GPU, raising without one)."""
+        fields = _fleet_tensors(workload, devices, channels, sim,
+                                cost_source, latency_table, device)
+        dev = fields["dev_flops"].device
+        srv = tier_arrays(tier)
+        return cls(**fields,
+                   server_tp_per_hz=_f32(srv["tp_per_hz"], dev),
+                   server_f_max=_f32(srv["f_max"], dev),
+                   server_f_min=_f32(srv["f_min"], dev),
+                   backhaul_bits_per_s=_f32(srv["backhaul_bits_per_s"], dev),
+                   capacity=tuple(int(c) for c in tier.capacity))
+
+    # -- shapes --------------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.dev_flops.device
+
+    @property
+    def n_cuts(self) -> int:
+        return self.dev_flops.shape[0]
+
+    @property
+    def n_servers(self) -> int:
+        return self.server_tp_per_hz.shape[0]
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        """(S, R, D) — the per-(server, round, device) decision lattice."""
+        return (self.n_servers,) + tuple(self.rate_up.shape)
+
+    def _f_expand(self, f) -> torch.Tensor:
+        f = torch.as_tensor(f, dtype=torch.float32, device=self.device)
+        return f[..., None] if f.ndim == 3 else f
+
+    def _index(self, cuts) -> torch.Tensor:
+        return torch.as_tensor(cuts, dtype=torch.long, device=self.device)
+
+    # -- Sec. III-C feasible frequency floor, per (server, device) -----------
+    def f_min(self) -> torch.Tensor:
+        """(S, D) Hz: the server must be at least as fast as the device,
+        per candidate server."""
+        return torch.maximum(
+            self.peak_flops[None, :] / self.server_tp_per_hz[:, None],
+            self.server_f_min[:, None])
+
+    # -- Eqs. 7-10, per component, broadcast over (S, R, D, C') --------------
+    def delay_components(self, cuts, f) -> DelayBreakdown:
+        """``cuts`` broadcastable against trailing ``(S, R, D, C')``
+        (typically the ``(C,)`` grid or an ``(S, R, D, 1)`` decision);
+        ``f`` is an ``(S, R, D)`` per-decision server frequency in Hz."""
+        cuts = self._index(cuts)
+        f = self._f_expand(f)
+        t = self.local_epochs
+        dev = (t * self.dev_flops[cuts]
+               / self.peak_flops[None, None, :, None])
+        srv = (t * self.srv_flops[cuts]
+               / (f * self.server_tp_per_hz[:, None, None, None]))
+        up = ((t * self.up_bits[cuts] + self.adapter_bits[cuts])
+              / self.rate_up[None, ..., None])
+        down = ((t * self.down_bits[cuts] + self.adapter_bits[cuts])
+                / self.rate_down[None, ..., None])
+        dev, up, srv, down = torch.broadcast_tensors(dev, up, srv, down)
+        return DelayBreakdown(device_comp=dev, uplink=up,
+                              server_comp=srv, downlink=down)
+
+    def round_delay(self, cuts, f) -> torch.Tensor:
+        """Eq. 10 total round delay in seconds."""
+        return self.delay_components(cuts, f).total
+
+    # -- Eq. 11 --------------------------------------------------------------
+    def server_energy(self, cuts, f) -> torch.Tensor:
+        """Eq. 11 server energy in joules."""
+        cuts = self._index(cuts)
+        f = self._f_expand(f)
+        return (self.local_epochs * self.xi * f ** 2 * self.srv_flops[cuts]
+                / self.server_tp_per_hz[:, None, None, None])
+
+    # -- normalization corners (Sec. III-C), each (S, R, D) ------------------
+    def corners(self) -> Tuple[torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+        """(D_min, D_max, E_min, E_max), each (S, R, D)."""
+        last = [self.n_cuts - 1]
+        first = [0]
+        f_lo = torch.broadcast_to(self.f_min()[:, None, :], self.shape)
+        f_hi = torch.broadcast_to(self.server_f_max[:, None, None],
+                                  self.shape)
+        d_max = self.round_delay(last, f_lo)[..., 0]
+        e_min = self.server_energy(last, f_lo)[..., 0]
+        d_min = self.round_delay(first, f_hi)[..., 0]
+        e_max = self.server_energy(first, f_hi)[..., 0]
+        return d_min, d_max, e_min, e_max
+
+    # -- Eq. 12 --------------------------------------------------------------
+    def cost(self, cuts, f, corners=None) -> torch.Tensor:
+        """Eq. 12 scalarized cost, broadcast to ``(S, R, D, C')``."""
+        if corners is None:
+            corners = self.corners()
+        d_min, d_max, e_min, e_max = corners
+        d = self.round_delay(cuts, f)
+        e = self.server_energy(cuts, f)
+        dn = ((d - d_min[..., None])
+              / torch.clamp(d_max - d_min, min=1e-12)[..., None])
+        en = ((e - e_min[..., None])
+              / torch.clamp(e_max - e_min, min=1e-12)[..., None])
+        return self.w * dn + (1 - self.w) * en
+
+    # -- assignment lanes ----------------------------------------------------
+    def mask_unassigned(self, x: torch.Tensor, assign_mask) -> torch.Tensor:
+        """NaN out lanes of (server, device) pairs that are not assigned.
+
+        ``assign_mask`` is bool ``(S, D)``; ``x`` is ``(S, R, D)`` or
+        ``(S, R, D, C)``. Mirrors the churn layer's survivor masking: all
+        downstream reductions must be NaN-aware.
+        """
+        m = torch.as_tensor(assign_mask, dtype=torch.bool,
+                            device=x.device)[:, None, :]
+        if x.ndim == 4:
+            m = m[..., None]
+        return torch.where(m, x, torch.full_like(x, float("nan")))
+
+    def aggregation_delay(self, assign_mask, cuts) -> torch.Tensor:
+        """Per-(server, round) backhaul aggregation delay in seconds.
+
+        After closing a round, server ``s`` relays the LoRA adapter update
+        of each of its assigned devices to the aggregator over its
+        backhaul link: ``sum_d adapter_bits[cut_{r,d}] / backhaul``.
+        ``assign_mask`` is bool ``(S, D)``, ``cuts`` the int ``(R, D)``
+        decision; returns ``(S, R)`` (0 for servers with no devices).
+        """
+        mask = torch.as_tensor(assign_mask, dtype=torch.bool,
+                               device=self.device)
+        bits = self.adapter_bits[self._index(cuts)]              # (R, D)
+        per_server_bits = torch.where(mask[:, None, :], bits[None, :, :],
+                                      torch.zeros_like(bits)).sum(dim=-1)
+        return per_server_bits / self.backhaul_bits_per_s[:, None]

@@ -93,10 +93,10 @@ class ServerTier:
     aggregated LoRA adapters to the cloud aggregator over a backhaul link
     of ``backhaul_bits_per_s[s]`` (bit/s).
 
-    In the reference, ``hierarchical_card`` (``core/card.py``) decides
-    device→server assignment against this structure and
-    ``TieredRoundContext`` (``core/cost_model.py``) broadcasts Eqs. 7-12
-    over the extra server axis; the port has not taken those over yet.
+    ``hierarchical_card`` (``core/card.py``) decides device→server
+    assignment against this structure; ``TieredRoundContext``
+    (``core/cost_model.py``) broadcasts Eqs. 7-12 over the extra server
+    axis.
     """
     servers: Tuple[DeviceProfile, ...]
     capacity: Tuple[int, ...]

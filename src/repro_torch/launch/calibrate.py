@@ -14,10 +14,11 @@ an H100 could take for the same work. It is the counterpart of the
 reference's ``benchmarks/kernel_bench.py::run`` and
 ``benchmarks/cost_model_calibration.py::run_measured``.
 
-``decision_divergence`` then runs ``batched_card`` over a fleet with the
-analytic and with the measured tables and reports where the measured
-latencies move CARD's cut; ``scalar_agreement`` holds the batched decisions
-(float32, on the card) to the scalar float64 oracle ``card``.
+``decision_divergence`` then runs ``simulate_fleet`` (``batched_card``) over
+a fleet with the analytic and with the measured tables and reports where
+the measured latencies move CARD's cut; ``scalar_agreement`` holds the
+batched decisions (float32, on the card) to the scalar float64 oracle
+``card``.
 
 Nothing is written unless ``--json`` is given. ``device=None`` (no
 ``--device``) means the GPU and raises without one; ``--device cpu`` with
@@ -27,7 +28,6 @@ device.
 from __future__ import annotations
 
 import argparse
-import json
 import time
 from typing import Dict, Optional, Sequence
 
@@ -45,7 +45,9 @@ from repro_torch.core.measured_cost import (LatencyTable, RooflineFit,
                                             _time_call, build_latency_tables,
                                             fit_roofline, normal_inputs,
                                             probe_kernels)
-from repro_torch.models.common import resolve_device
+from repro_torch.core.scheduler import simulate_fleet
+from repro_torch.launch import write_payload
+from repro_torch.models.common import describe_device, resolve_device
 
 SCHEMA = "torch-calibrate/v1"
 DEFAULT_TABLE_BATCH = 4     # SimParams.mini_batch — the fleet workload shape
@@ -195,8 +197,7 @@ def run(*, smoke: bool = False, reps: int = 3, device=None) -> Dict:
     payload: Dict = {
         "schema": SCHEMA,
         "mode": "smoke" if smoke else "full",
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else str(dev)),
+        "device": describe_device(dev),
         "probes": [p.to_dict() for p in probes],
         "roofline_fit": fit.to_dict(),
         "host_profile": {"name": host.name, "peak_flops": host.peak_flops},
@@ -242,35 +243,46 @@ def decision_divergence(tables: Dict[str, LatencyTable], *,
                         n_devices: int = 100, rounds: int = 20, seed: int = 0,
                         device=None) -> Dict:
     """Where do measured latencies move CARD's decisions? For every (arch,
-    channel state), the same fleet and channel draws through ``batched_card``
-    with ``cost_source="analytic"`` and ``"measured"``."""
+    channel state), the same fleet and channel draws through
+    ``simulate_fleet`` (``batched_card`` on ``device``) with
+    ``cost_source="analytic"`` and ``"measured"``."""
     dev = resolve_device(device)
+    fleet = make_heterogeneous_fleet(n_devices, seed=seed)
     cells = []
     moved_total = n_total = 0
     for arch in archs:
         for state in states:
-            workload, fleet, chans = _fleet(arch, state, n_devices, rounds,
-                                            seed)
-            a, m = (C.batched_card(BatchedRoundContext.build(
-                workload, fleet, SERVER_RTX4060TI, chans, DEFAULT_SIM,
-                device=dev, **_source(table)))
-                for table in (None, tables[arch]))
+            a, m = (simulate_fleet(get_config(arch), channel_state=state,
+                                   rounds=rounds, devices=fleet, seed=seed,
+                                   device=dev, **_source(table))
+                    for table in (None, tables[arch]))
             moved = a.cuts != m.cuts
             moved_total += int(moved.sum())
-            n_total += moved.numel()
+            n_total += moved.size
             cells.append({
                 "arch": arch, "channel_state": state,
-                "frac_decisions_moved": float(moved.float().mean()),
-                "mean_cut_analytic": float(a.cuts.float().mean()),
-                "mean_cut_measured": float(m.cuts.float().mean()),
+                "frac_decisions_moved": float(moved.mean()),
+                "mean_cut_analytic": float(a.cuts.mean()),
+                "mean_cut_measured": float(m.cuts.mean()),
                 "mean_freq_shift_ghz": float((m.freqs - a.freqs).mean()
                                              / 1e9),
                 "mean_delay_ratio": float(m.delays.mean()
-                                          / a.delays.mean().clamp(min=1e-30)),
+                                          / max(a.delays.mean(), 1e-30)),
             })
     return {"cells": cells, "rounds": rounds, "n_devices": n_devices,
             "frac_decisions_moved_overall": (moved_total / n_total
                                              if n_total else 0.0)}
+
+
+def is_near_tie(ctx: RoundContext, frequency: float) -> bool:
+    """Whether the scalar costs of the two best feasible cuts at
+    ``frequency`` differ by at most ``NEAR_TIE_REL`` relative: there a
+    float32 batched decision may rightly pick the other cut."""
+    corners = ctx.corners()
+    costs = sorted(ctx.cost(c, frequency, corners)
+                   for c in range(ctx.max_feasible_cut() + 1))
+    return (len(costs) > 1 and costs[1] - costs[0]
+            <= NEAR_TIE_REL * max(abs(costs[0]), abs(costs[1])))
 
 
 def scalar_agreement(arch: str, table: Optional[LatencyTable], *,
@@ -296,13 +308,9 @@ def scalar_agreement(arch: str, table: Optional[LatencyTable], *,
                                channel=chans.state(r, d), sim=DEFAULT_SIM,
                                **kw)
             dec = C.card(ctx)
-            corners = ctx.corners()
-            costs = sorted(ctx.cost(c, dec.frequency, corners)
-                           for c in range(ctx.max_feasible_cut() + 1))
-            tied = (len(costs) > 1 and costs[1] - costs[0]
-                    <= NEAR_TIE_REL * max(abs(costs[0]), abs(costs[1])))
-            near_ties += int(tied)
-            if batched[r, d] != dec.cut and not tied:
+            if is_near_tie(ctx, dec.frequency):
+                near_ties += 1
+            elif batched[r, d] != dec.cut:
                 disagree += 1
             worst_freq_rel = max(worst_freq_rel,
                                  abs(float(bfreqs[r, d]) - dec.frequency)
@@ -325,10 +333,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
     payload = run(smoke=args.smoke, reps=args.reps, device=args.device)
     if args.json:
-        with open(args.json, "w") as f:
-            json.dump(payload, f, indent=1, sort_keys=True)
-            f.write("\n")
-        print(f"wrote {args.json}")
+        write_payload(args.json, payload)
     fit = payload["roofline_fit"]
     print(f"roofline fit [{payload['device']}]: "
           f"C={fit['compute_flops_per_s']:.4g} FLOP/s "

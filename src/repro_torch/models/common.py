@@ -36,6 +36,14 @@ def resolve_device(device: Union[str, torch.device, None] = None
     return torch.device(device)
 
 
+def describe_device(device: torch.device) -> str:
+    """The name a result carries of the device it ran on: the card's name
+    (``torch.cuda.get_device_name``), else the torch device string."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
 def make_generator(seed: Union[int, torch.Generator],
                    device: torch.device) -> torch.Generator:
     """An int seed becomes a generator on ``device``; a generator passes."""

@@ -36,7 +36,11 @@ def test_every_module_imports_without_jax_or_reference_package():
     assert "repro_torch.kernels._build" in names
     for name in ("core.splitting", "core.faults", "core.protocol",
                  "optim.optimizer", "data.pipeline", "checkpoint.checkpoint",
-                 "launch.train", "launch.trainer"):
+                 "launch.train", "launch.trainer", "core.scheduler",
+                 "launch.mesh", "launch.fig4_comparison",
+                 "launch.fig3_decisions", "launch.fleet_scale_bench",
+                 "launch.hierarchy_bench", "launch.churn_bench",
+                 "launch.fleet_sweep", "launch.quickstart"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -114,11 +118,19 @@ def no_gpu():
                                    "ServingEngine", "make_serve_step",
                                    "make_prefill_step", "probe_kernels",
                                    "BatchedRoundContext.build",
-                                   "calibrate.run", "run_training"])
+                                   "calibrate.run", "run_training",
+                                   "simulate_fleet",
+                                   "simulate_fleet(engine='scalar')",
+                                   "simulate_hierarchical_fleet",
+                                   "TieredRoundContext.build",
+                                   "make_fleet_mesh", "fig4_comparison.run",
+                                   "quickstart.run"])
 def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
     from repro_torch.configs.base import get_config
-    from repro_torch.core import channel, cost_model, hardware, measured_cost
-    from repro_torch.launch import calibrate, serve, train
+    from repro_torch.core import (channel, cost_model, hardware, measured_cost,
+                                  scheduler)
+    from repro_torch.launch import (calibrate, fig4_comparison, mesh,
+                                    quickstart, serve, train)
     from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine
     cfg = get_config("llama32-1b").reduced()
@@ -128,6 +140,13 @@ def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
         chans = channel.draw_channel_matrix("normal", 1, 2, seed=0)
         return cost_model.BatchedRoundContext.build(
             w, hardware.EDGE_FLEET[:2], hardware.SERVER_RTX4060TI, chans,
+            hardware.DEFAULT_SIM)
+
+    def build_tier():
+        w = cost_model.Workload(get_config("llama32-1b"), 4, 512)
+        chans = channel.draw_channel_matrix("normal", 1, 2, seed=0)
+        return cost_model.TieredRoundContext.build(
+            w, hardware.EDGE_FLEET[:2], hardware.make_server_tier(2), chans,
             hardware.DEFAULT_SIM)
 
     calls = {
@@ -143,6 +162,18 @@ def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
         "BatchedRoundContext.build": build_context,
         "calibrate.run": lambda: calibrate.run(smoke=True),
         "run_training": lambda: train.run_training(steps=1, pretrain_steps=0),
+        "simulate_fleet": lambda: scheduler.simulate_fleet(
+            get_config("llama32-1b"), rounds=1),
+        "simulate_fleet(engine='scalar')": lambda: scheduler.simulate_fleet(
+            get_config("llama32-1b"), rounds=1, engine="scalar"),
+        "simulate_hierarchical_fleet":
+            lambda: scheduler.simulate_hierarchical_fleet(
+                get_config("llama32-1b"), tier=hardware.make_server_tier(2),
+                rounds=1),
+        "TieredRoundContext.build": build_tier,
+        "make_fleet_mesh": lambda: mesh.make_fleet_mesh(2),
+        "fig4_comparison.run": lambda: fig4_comparison.run(rounds=1),
+        "quickstart.run": lambda: quickstart.run(pretrain_steps=0, rounds=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
