@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only train     # the train phase only
     python3 chip_smoke.py --only families  # build + the families phase
     python3 chip_smoke.py --only fleet     # build + smoke calibrate + fleet
+    python3 chip_smoke.py --only calibrate # the calibrate phase alone
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -14,10 +15,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
            count of tensor-core instructions (HGMMA, HMMA) in each
            library's SASS (``cuobjdump -sass``)
   kernels  every hand-written kernel against its plain PyTorch version on
-           the card (main-path shapes and ragged ones, bf16 and f32; both
-           versions of ``lora_matmul``, ``lora_matmul_grouped``,
-           ``flash_attention`` and ``ssd_intra_chunk``, the tensor-core one
-           and the SIMT one; ``ssd_intra_chunk`` also at hymba-1.5b's
+           the card (main-path shapes and ragged ones, bf16 and f32; every
+           version of ``lora_matmul``, ``lora_matmul_grouped``,
+           ``flash_attention`` and ``ssd_intra_chunk``: the tensor-core ones
+           (bf16 ``wgmma``, f32 ``tf32x3``) and the SIMT one, the f32
+           tensor-core ones at every probe shape of the calibrate path;
+           ``ssd_intra_chunk`` also at hymba-1.5b's
            width and under steep decay;
            ``flash_decode`` at runs of one piece and of the most pieces,
            linear and ring; every call of the calibrate
@@ -37,7 +40,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
            ``batched_card`` on the card with analytic and measured tables
            for four full configs x three channel states over a 100-device
            fleet, and the batched decisions held to the scalar float64
-           ``card`` on every (round, device) of one state
+           ``card`` on every (round, device) of one state; every
+           ``lora_matmul`` and ``flash_attention`` launch of the path is
+           ``tf32x3``; a summary line: the fit, the inflations, the moved
+           share of CARD's decisions and of Fig. 3's (``--only
+           calibrate`` runs this phase alone, no other check: copied into a
+           ``git archive`` of an earlier commit, with the version checks
+           edited to that commit's kernels, it gives that commit's numbers
+           for a before/after comparison on one machine)
   fleet    the fleet engines and tiered CARD at llama32-1b's full config
            (33 cuts, batch 4 x 512), decision grids on the card, no kernel
            (0 launches): Fig. 4 (5 devices x 40 rounds x 3 states x 3
@@ -95,7 +105,13 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # absolute
 # tests' 1e-4, absolute on y, the states and the decay vectors
 DECODE_TOL = ATTN_TOL
 SSD_TOL = 1e-4
-H100_TF32_FLOPS = 495e12          # dense TF32 tensor-core rate (data sheet)
+# f32 lora_matmul (M, K, N, r) and flash_attention (B, S, Hq, Hkv, D) at the
+# calibrate path's probe shapes (measured_cost._FULL_SHAPES; the kernel
+# benches' are among them), in the ladder's order
+F32_LORA_SHAPES = ((128, 128, 128, 8), (256, 256, 256, 8), (512, 512, 512, 16),
+                   (1024, 1024, 1024, 16), (256, 1024, 512, 16))
+F32_FLASH_SHAPES = ((1, 128, 4, 2, 32), (1, 256, 4, 2, 32), (1, 512, 4, 2, 32),
+                    (1, 512, 8, 4, 64))
 KN_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 
 
@@ -198,6 +214,9 @@ def check_lora_matmul(rng, m, k, n, r, dtype, scale=0.5, simt=False):
     w_in = misaligned(w) if simt else w
     got, version = run_version(lm.lora_matmul,
                                lambda: lm.lora_matmul(x, w_in, a, b, scale))
+    want_version = "simt" if simt else lm.lora_matmul_version(dtype, k, n, r,
+                                                              True)
+    assert version == want_version, (version, want_version)
     torch.cuda.synchronize()
     want = lm.lora_matmul_ref(x, w, a, b, scale).float()
     err = (got.float() - want).abs().max().item()
@@ -255,18 +274,23 @@ def check_flash(rng, b, sq, skv, hq, hkv, d, dtype, causal=True, window=0,
     q = randn(rng, (b, sq, hq, d), dtype)
     k = randn(rng, (b, skv, hkv, d), dtype)
     v = randn(rng, (b, skv, hkv, d), dtype)
-    qi, ki, vi = (misaligned(t) for t in (q, k, v)) if simt else (q, k, v)
     if causal:
+        qi, ki, vi = (misaligned(t) for t in (q, k, v)) if simt else (q, k, v)
         call = lambda: ops.flash_attention(qi, ki, vi, causal=True,  # noqa: E731
                                            window=window)
     else:           # the (BH, S, D) form of the kernel's own wrapper
+        # (the reshape copies, so the misaligned copies are made after it)
+        qi, ki, vi = (t.permute(0, 2, 1, 3).reshape(-1, t.shape[1], d)
+                      for t in (q, k, v))
+        if simt:
+            qi, ki, vi = (misaligned(t) for t in (qi, ki, vi))
         call = lambda: fa.flash_attention(  # noqa: E731
-            qi.permute(0, 2, 1, 3).reshape(b * hq, sq, d),
-            ki.permute(0, 2, 1, 3).reshape(b * hkv, skv, d),
-            vi.permute(0, 2, 1, 3).reshape(b * hkv, skv, d),
-            causal=False, window=window
+            qi, ki, vi, causal=False, window=window
         ).reshape(b, hq, sq, d).permute(0, 2, 1, 3)
     got, version = run_version(fa.flash_attention, call)
+    want_version = "simt" if simt else fa.flash_attention_version(dtype, d,
+                                                                  True)
+    assert version == want_version, (version, want_version)
     torch.cuda.synchronize()
     want = fa.flash_attention_ref(
         q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
@@ -316,11 +340,22 @@ def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
     bytes_moved = es * (m * k + k * n + k * r + r * n + m * n)
     flops = 2.0 * m * k * n + 2.0 * m * k * r + 2.0 * m * r * n
     b_ms, by = bound(bytes_moved, flops, dtype)
-    return {"shape": {"M": m, "K": k, "N": n, "r": r}, "dtype": str(dtype),
-            "version": timed, "max_abs_err": err, "tol": tol, "ms": ms,
-            "simt_ms": simt_ms, "host_us": hosts[timed], "simt_host_us": hosts["simt"],
-            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-            "bound_by": by}
+    out = {"shape": {"M": m, "K": k, "N": n, "r": r}, "dtype": str(dtype),
+           "version": timed, "max_abs_err": err, "tol": tol, "ms": ms,
+           "simt_ms": simt_ms, "host_us": hosts[timed],
+           "simt_host_us": hosts["simt"], "plain_ms": plain,
+           "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+    if timed == "tf32x3":
+        out.update(bound_3xtf32(bytes_moved, flops))
+    return out
+
+
+def bound_3xtf32(bytes_moved: float, flops: float):
+    """The bound of f32 work done as three tf32 products on the tensor
+    cores: max(bytes / 3.35 TB/s, 3 flops / 495 TFLOP/s)."""
+    from repro_torch.launch.calibrate import h100_bound_3xtf32_s
+    seconds, by = h100_bound_3xtf32_s(bytes_moved, flops)
+    return {"bound_3xtf32_ms": seconds * 1e3, "bound_3xtf32_by": by}
 
 
 def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
@@ -404,11 +439,14 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
     bytes_moved = es * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     flops = 4.0 * d * pairs * b * hq
     b_ms, by = bound(bytes_moved, flops, dtype)
-    return {"shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
-                      "causal": True, "window": 0},
-            "dtype": str(dtype), "version": timed, "max_abs_err": err, "tol": tol, "ms": ms, "simt_ms": simt_ms,
-            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-            "bound_by": by}
+    out = {"shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+                     "causal": True, "window": 0},
+           "dtype": str(dtype), "version": timed, "max_abs_err": err,
+           "tol": tol, "ms": ms, "simt_ms": simt_ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+    if timed == "tf32x3":
+        out.update(bound_3xtf32(bytes_moved, flops))
+    return out
 
 
 def check_ssd(rng, b, nc, cl, nh, hp, ns, simt=False, steep=False):
@@ -548,7 +586,6 @@ def ssd_library(xt, a, B, C):
 
 def time_ssd(rng, b, nc, cl, nh, hp, ns):
     from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.launch.calibrate import H100_HBM_BYTES_PER_S
     f32 = torch.float32
     err, tol, _ = check_ssd(rng, b, nc, cl, nh, hp, ns)
     copies = n_copies(4 * b * nc * cl * nh * hp)
@@ -584,15 +621,13 @@ def time_ssd(rng, b, nc, cl, nh, hp, ns):
     b_ms, by = bound(4 * elems, flops, f32)
     # at the rate of the units the tensor-core version runs on: three tf32
     # products for each product at the dense TF32 rate, or the bytes
-    t_bytes, t_ops = 4 * elems / H100_HBM_BYTES_PER_S, 3 * flops / H100_TF32_FLOPS
     return {"shape": {"b": b, "nc": nc, "cl": cl, "nh": nh, "hp": hp,
                       "ns": ns}, "dtype": str(f32), "version": timed,
             "max_abs_err": err, "tol": tol, "ms": ms, "simt_ms": simt_ms,
             "plain_ms": plain, "library_ms": lib,
             "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by,
-            "bound_3xtf32_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_3xtf32_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": 4 * elems, "flops": flops,
+            **bound_3xtf32(4 * elems, flops), "bytes": 4 * elems,
+            "flops": flops,
             "profile_device_us_by_kernel": by_kernel}
 
 
@@ -705,9 +740,12 @@ def check_ladder(rng):
     ladder = [(kernel, args) for kernel, _, args in mc._FULL_SHAPES]
     for kernel in ("lora_matmul", "flash_attention", "ssd_scan"):
         assert (kernel, BENCH_SHAPES[kernel]) in ladder, kernel
+    from repro_torch import kernels
     for kernel, args in ladder:
         with torch.no_grad():
+            before = kernels.version_counts()
             got = mc._BUILDERS[kernel](*args, "cuda", dev)[0]()
+            version = mc.timed_version(mc._WRAPPER[kernel], before)
             want = mc._BUILDERS[kernel](*args, "plain", dev)[0]()
         torch.cuda.synchronize()
         if torch.is_tensor(got):
@@ -723,14 +761,12 @@ def check_ladder(rng):
         if not (math.isfinite(err) and err <= tol):
             raise AssertionError(f"calibrate probe {kernel} {args}: max err "
                                  f"{err} > tol {tol}")
+        yield name, (err, tol, version)
         if kernel == "ssd_scan":
             b, length, nh, hp, ns, chunk = args
-            yield name, (err, tol, ssd_version(chunk, hp, ns))
             for res in check_ssd_both(rng, b, length // chunk, chunk, nh, hp,
                                       ns):
                 yield name, res
-        else:
-            yield name, (err, tol)
 
 
 def phase_kernels(seed: int):
@@ -753,15 +789,19 @@ def phase_kernels(seed: int):
             worst[key] = (err, tol)
 
     for dtype in (f32, bf16):
-        # bf16: each shape through the version the wrapper picks for it (the
-        # tensor-core one where the shape allows) and through the SIMT one
-        simts = (False, True) if dtype == bf16 else (False,)
+        # each shape through the version the wrapper picks for it (the
+        # tensor-core one where the shape allows: bf16 wgmma, f32 tf32x3)
+        # and through the SIMT one
+        simts = (False, True)
+        # f32: every probe shape of the calibrate path, and ragged M and K
+        f32_extra = (F32_LORA_SHAPES + ((70, 260, 196, 12), (130, 64, 68, 4))
+                     if dtype == f32 else ())
         for simt in simts:
             for mkn in ((37, 53, 41, 3), (33, 70, 65, 2), (100, 96, 72, 8),
                         (256, 128, 512, 16), (64, 64, 64, 4),
                         (70, 130, 90, 20), (65, 257, 129, 40),
                         (1, 2048, 2048, 16), (37, 136, 72, 8),
-                        (200, 520, 264, 64)):
+                        (200, 520, 264, 64)) + f32_extra:
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, *mkn, dtype, simt=simt))
             for k, n in KN_SHAPES:
@@ -769,7 +809,8 @@ def phase_kernels(seed: int):
                      check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
                                        simt=simt))
         # bf16: the version the wrapper picks (tensor cores where K, N, r
-        # allow), and the SIMT kernel's two variants (x or W misaligned)
+        # allow), and the SIMT kernel's two variants (x or W misaligned);
+        # f32 has the SIMT kernel only
         g_simts = (None, "x", "w") if dtype == bf16 else (None,)
         for simt in g_simts:
             for gmknre in ((3, 1, 64, 48, 4, 2), (4, 8, 128, 128, 8, 4),
@@ -805,7 +846,12 @@ def phase_kernels(seed: int):
                          ((2, 96, 96, 25, 5, 16), {"window": 64}),
                          ((1, 150, 150, 2, 1, 128), {}),
                          ((2, 70, 150, 4, 2, 32), {"causal": False}),
-                         ((1, 1024, 1024, 32, 8, 64), {})):
+                         ((2, 150, 70, 4, 2, 64), {"causal": False}),
+                         ((1, 200, 200, 4, 2, 128), {"window": 64}),
+                         ((1, 90, 90, 2, 2, 16), {"window": 20}),
+                         ((1, 1024, 1024, 32, 8, 64), {}),
+                         *(((b, s, s, hq, hkv, d), {})
+                           for b, s, hq, hkv, d in F32_FLASH_SHAPES)):
             for simt in simts:
                 note("flash_attention", dtype,
                      check_flash(rng, *args, dtype, simt=simt, **kw))
@@ -867,6 +913,11 @@ def phase_kernels(seed: int):
         rows["lora_matmul_grouped"].append(
             time_grouped(rng, 8, k, n, 16, 4, bf16))
     rows["flash_attention"].append(time_flash(rng, 4, 1024, 32, 8, 64, bf16))
+    # the f32 tensor-core versions at the calibrate path's probe shapes
+    rows["lora_matmul_tf32x3"] = [time_lora_matmul(rng, *shape, f32)
+                                  for shape in F32_LORA_SHAPES]
+    rows["flash_attention_tf32x3"] = [time_flash(rng, *shape, f32)
+                                      for shape in F32_FLASH_SHAPES]
     # flash_decode at the llama32-1b serving cache (bf16 and f32) and at the
     # reference bench's shape
     for dtype in (bf16, f32):
@@ -1147,25 +1198,34 @@ def phase_calibrate(seed: int):
     from repro_torch.launch import calibrate
 
     # ---- the main path: counts set to 0 just before, read just after ----
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ssd_scan as ss
     kernels.reset_launch_counts()
     payload = calibrate.run(smoke=False, reps=3)       # device=None: the card
     counts = kernels.launch_counts()
     runs = kernels.runs_on_card()
-    versions = {"ssd_intra_chunk": dict(ss.ssd_intra_chunk.by_version)}
+    versions = {"lora_matmul": dict(lm.lora_matmul.by_version),
+                "flash_attention": dict(fa.flash_attention.by_version),
+                "ssd_intra_chunk": dict(ss.ssd_intra_chunk.by_version)}
     # ----------------------------------------------------------------------
+    gpu = gpu_line()
     fit = payload["roofline_fit"]
-    emit({"phase": "calibrate", "gpu": gpu_line(), "device": payload["device"],
+    inflation = {r["arch"]: r["inflation"] for r in payload["measured"]["rows"]}
+    emit({"phase": "calibrate", "gpu": gpu, "device": payload["device"],
           "seconds": payload["seconds"], "probes": payload["probes"],
           "fit": fit, "kernel_benches": payload["kernels"],
-          "inflation": {r["arch"]: r["inflation"]
-                        for r in payload["measured"]["rows"]},
-          "launches": counts, "runs_on_card": runs,
+          "inflation": inflation, "launches": counts, "runs_on_card": runs,
           "launches_by_version": versions})
     assert len(payload["probes"]) == 12, payload["probes"]
-    # every shape of the calibrate path takes the tensor-core version
+    # every shape of the calibrate path takes the tensor-core version:
+    # ssd_intra_chunk "tc", lora_matmul and flash_attention "tf32x3"
     by = versions["ssd_intra_chunk"]
     assert by["tc"] == counts["ssd_intra_chunk"] and by["simt"] == 0, by
+    for name in ("lora_matmul", "flash_attention"):
+        assert versions[name]["tf32x3"] == counts[name] > 0, (name, versions)
+        assert all(p["version"] == "tf32x3" for p in payload["probes"]
+                   if p["kernel"] == name), payload["probes"]
     assert all(p["backend"] == "cuda" and p["seconds"] > 0
                and math.isfinite(p["seconds"]) for p in payload["probes"])
     assert all(math.isfinite(fit[k]) for k in
@@ -1204,6 +1264,26 @@ def phase_calibrate(seed: int):
     for cell in agree:
         assert cell["disagree_beyond_near_ties"] == 0, cell
         assert cell["worst_freq_rel_diff"] <= 1e-5, cell
+
+    # Fig. 3's decisions moved by the measured tables, and what the tables
+    # rest on, on one line (the before/after comparison reads it)
+    from repro_torch.launch import fig3_decisions
+    fig3 = fig3_decisions.run_divergence(seed=seed, tables=tables)
+    emit({"phase": "calibrate_summary", "gpu": gpu,
+          "fit": {k: fit[k] for k in ("compute_flops_per_s",
+                                      "bandwidth_bytes_per_s", "overhead_s",
+                                      "rel_residual")},
+          "probes": {f"{p['kernel']}/{p['shape']}": {
+              "us": p["seconds"] * 1e6, "version": p["version"]}
+              for p in payload["probes"]},
+          "benches_us": {r["name"]: r["kernel_us"] for r in payload["kernels"]},
+          "inflation": inflation,
+          "card_moved_share": div["frac_decisions_moved_overall"],
+          "card_decisions": len(div["cells"]) * div["rounds"]
+          * div["n_devices"],
+          "fig3_moved_share": fig3["frac_decisions_moved_overall"],
+          "fig3_moved": {f"{c['arch']}/{c['channel_state']}":
+                         c["frac_decisions_moved"] for c in fig3["cells"]}})
     return calibrate_result, tables
 
 
@@ -2139,7 +2219,7 @@ def family_prefill(cfg, cfg32, frozen, frozen32, lora, seed, gpu):
     assert versions["ssd_intra_chunk"] == {
         "tc": counts["ssd_intra_chunk"], "simt": 0}, versions
     assert versions["flash_attention"] == {
-        "wgmma": counts["flash_attention"], "simt": 0}, versions
+        "wgmma": counts["flash_attention"], "tf32x3": 0, "simt": 0}, versions
     if cfg.has_ssm:
         assert share["ssd_intra_chunk_device_us"] > 0, share
     return counts, versions
@@ -2283,21 +2363,35 @@ SOURCES = {
                      "src/repro/kernels/flash_decode.py:109"),
     "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_scan_tc.cu",
                         "src/repro/kernels/ssd_scan.py:80"),
+    "lora_matmul_tf32x3": ("src/repro_torch/csrc/lora_matmul_tf32.cu",
+                           "src/repro/kernels/lora_matmul.py:73"),
+    "flash_attention_tf32x3": ("src/repro_torch/csrc/flash_attention_tf32.cu",
+                               "src/repro/kernels/flash_attention.py:107"),
 }
 SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
                 "lora_matmul_grouped": "src/repro_torch/csrc/lora_matmul.cu",
                 "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-                "ssd_intra_chunk": "src/repro_torch/csrc/ssd_scan.cu"}
-# the shape whose numbers head each kernel's entry (all shapes: "by_shape")
+                "ssd_intra_chunk": "src/repro_torch/csrc/ssd_scan.cu",
+                "lora_matmul_tf32x3": "src/repro_torch/csrc/lora_matmul.cu",
+                "flash_attention_tf32x3":
+                    "src/repro_torch/csrc/flash_attention.cu"}
+# the wrapper of each entry: the f32 tensor-core versions are a second
+# entry of their wrapper, beside its bf16 one
+WRAPPER = {"lora_matmul_tf32x3": "lora_matmul",
+           "flash_attention_tf32x3": "flash_attention"}
+# the shape whose numbers head each kernel's entry (all shapes: "by_shape"):
+# the f32 versions' calibrate bench (lora_matmul_512, flash_attention_512)
 HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
-            "flash_decode": 0, "ssd_intra_chunk": 0}
+            "flash_decode": 0, "ssd_intra_chunk": 0, "lora_matmul_tf32x3": 2,
+            "flash_attention_tf32x3": 3}
 # the path whose launch count each kernel's entry reports: the serving
 # slice's kernels from the serve and prefill run, ssd_intra_chunk from the
-# model path of the families phase, flash_decode from calibrate (its only
-# caller)
+# model path of the families phase, flash_decode and the f32 versions from
+# calibrate (their only caller)
 PATH_OF = {"lora_matmul": "serve", "lora_matmul_grouped": "serve",
            "flash_attention": "serve", "flash_decode": "calibrate",
-           "ssd_intra_chunk": "families"}
+           "ssd_intra_chunk": "families", "lora_matmul_tf32x3": "calibrate",
+           "flash_attention_tf32x3": "calibrate"}
 
 
 def main() -> int:
@@ -2305,14 +2399,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--only", choices=("kernels", "train", "families",
-                                       "fleet"),
+                                       "fleet", "calibrate"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
                          "launches no kernel); families: build, then run "
                          "the families phase alone; fleet: build, the "
                          "calibrate pipeline's smoke probes for the "
-                         "measured tables, then the fleet phase")
+                         "measured tables, then the fleet phase; "
+                         "calibrate: the calibrate phase alone (its first "
+                         "launch builds the kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -2336,6 +2432,11 @@ def main() -> int:
         emit({"phase": "done", "only": "train",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "calibrate":
+        phase_calibrate(args.seed)
+        emit({"phase": "done", "only": "calibrate",
+              "seconds": time.time() - t_start})
+        return 0
 
     from repro_torch.kernels import _build
     seconds = _build.build_all(force=True)
@@ -2353,7 +2454,8 @@ def main() -> int:
     for name in ("lora_matmul_tc", "lora_matmul_grouped_tc",
                  "flash_attention_tc"):
         assert sass[name]["HGMMA"] > 0, (name, sass)
-    assert sass["ssd_scan_tc"]["HMMA"] > 0, sass     # mma.sync, tf32
+    for name in ("ssd_scan_tc", "lora_matmul_tf32", "flash_attention_tf32"):
+        assert sass[name]["HMMA"] > 0, (name, sass)  # mma.sync, tf32
 
     if args.only == "families":
         phase_families(args.seed)
@@ -2389,25 +2491,31 @@ def main() -> int:
     kernels_line = []
     for name, by_shape in rows.items():
         head = by_shape[HEADLINE[name]]
-        launches = by_path[PATH_OF[name]][0][name]
+        wrapper = WRAPPER.get(name, name)
+        counts, runs, versions = by_path[PATH_OF[name]]
+        launches = counts[wrapper]
         assert launches > 0, (name, by_path)
+        if name in WRAPPER:         # every launch of the path is this version
+            assert versions[wrapper][head["version"]] == launches, (
+                name, versions)
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": launches,
             "path": PATH_OF[name],
-            "launches_by_path": {p: c[name] for p, (c, *_) in by_path.items()},
+            "launches_by_path": {p: c[wrapper]
+                                 for p, (c, *_) in by_path.items()},
             # the card's runs: a launch captured into a CUDA graph (the
             # calibrate path's timer) counts once per replay here
-            "runs_on_card": by_path[PATH_OF[name]][1][name],
-            "runs_on_card_by_path": {p: r[name]
+            "runs_on_card": runs[wrapper],
+            "runs_on_card_by_path": {p: r[wrapper]
                                      for p, (_, r, _) in by_path.items()},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             **{k: head[k] for k in ("version", "simt_ms", "bound_3xtf32_ms",
                                     "bound_3xtf32_by") if k in head},
-            **({"launches_by_version": by_path[PATH_OF[name]][2][name]}
-               if name in by_path[PATH_OF[name]][2] else {}),
+            **({"launches_by_version": versions[wrapper]}
+               if wrapper in versions else {}),
             **({"simt_source": SIMT_SOURCES[name]}
                if name in SIMT_SOURCES else {}),
             "shape": head["shape"], "dtype": head["dtype"],

@@ -71,11 +71,13 @@ class ProbeResult:
     flops: float       # analytic FLOPs of the call
     hbm_bytes: float   # bytes moved between HBM and compute (inputs+outputs)
     seconds: float     # best-of-reps time
+    version: str = "plain"   # the kernel version timed ("plain" backend: "plain")
 
     def to_dict(self) -> Dict:
         return {"kernel": self.kernel, "backend": self.backend,
                 "shape": self.shape, "flops": self.flops,
-                "hbm_bytes": self.hbm_bytes, "seconds": self.seconds}
+                "hbm_bytes": self.hbm_bytes, "seconds": self.seconds,
+                "version": self.version}
 
 
 def time_cuda(calls: Sequence[Callable], reps: int) -> float:
@@ -218,6 +220,16 @@ _FULL_SHAPES: Tuple[Tuple[str, str, tuple], ...] = _SMOKE_SHAPES + (
 
 _BUILDERS = {"lora_matmul": _lora_probe, "flash_attention": _attention_probe,
              "ssd_scan": _ssd_probe}
+#: the kernel wrapper each probe's "cuda" backend launches
+_WRAPPER = {"lora_matmul": "lora_matmul", "flash_attention": "flash_attention",
+            "ssd_scan": "ssd_intra_chunk"}
+
+
+def timed_version(wrapper: str, before) -> str:
+    """The version(s) of ``wrapper`` launched since ``before`` (a
+    ``kernels.version_counts()``), "+"-joined; "" if it launched none."""
+    from repro_torch import kernels
+    return "+".join(kernels.versions_since(before).get(wrapper, []))
 
 
 def probe_kernels(*, mode: str = "smoke", backend: Optional[str] = None,
@@ -237,13 +249,18 @@ def probe_kernels(*, mode: str = "smoke", backend: Optional[str] = None,
     if mode not in ("smoke", "full"):
         raise ValueError(f"mode must be 'smoke' or 'full', not {mode!r}")
     shapes = _SMOKE_SHAPES if mode == "smoke" else _FULL_SHAPES
+    from repro_torch import kernels
     out = []
     with torch.no_grad():
         for kernel, tag, args in shapes:
             fn, flops, bytes_ = _BUILDERS[kernel](*args, backend, dev)
+            before = kernels.version_counts()
+            seconds = _time_call(fn, reps, dev)
+            version = (timed_version(_WRAPPER[kernel], before)
+                       if backend == "cuda" else "plain")
             out.append(ProbeResult(kernel=kernel, backend=backend, shape=tag,
                                    flops=flops, hbm_bytes=bytes_,
-                                   seconds=_time_call(fn, reps, dev)))
+                                   seconds=seconds, version=version))
     return out
 
 

@@ -64,6 +64,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -72,6 +73,8 @@ using repro::sm90::cp_async16;
 using repro::sm90::cp_async_commit;
 using repro::sm90::cp_async_wait;
 using repro::sm90::smem_u32;
+using repro::tf32x3::mma3;
+using repro::tf32x3::split;
 
 constexpr int TI = 64;          // rows of a tile (i, j and state rows n)
 constexpr int NW = 8;           // warps: rows 16 (w % 4).., column half w / 4
@@ -84,52 +87,6 @@ constexpr int MAX_CL = 256;
 constexpr int SA_SLOTS = 4 * 8 * 32;
 
 constexpr int cmax(int x, int y) { return x > y ? x : y; }
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both exact tf32 values
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, f32) += a (16 x 8, row) * b (8 x 8, col), tf32 operands:
-//   a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
-//   b0 (t, g), b1 (t + 4, g); d0 (g, 2t), d1 (g, 2t + 1), d2, d3 row g + 8;
-// g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[n] += a * b_n to f32 accuracy for n < n_max, b_n given split as
-// (hi b0, lo b0, hi b1, lo b1): the products term by term (lo.hi, hi.lo,
-// hi.hi), so that no product waits for the one before.
-template <int N>
-__device__ __forceinline__ void mma3(float (&acc)[N][4],
-                                     const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4],
-                                     const float4 (&b)[N], int n_max = N) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-    if (n < n_max)
-      mma_tf32(acc[n], alo, __float_as_uint(b[n].x), __float_as_uint(b[n].z));
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-    if (n < n_max)
-      mma_tf32(acc[n], ahi, __float_as_uint(b[n].y), __float_as_uint(b[n].w));
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-    if (n < n_max)
-      mma_tf32(acc[n], ahi, __float_as_uint(b[n].x), __float_as_uint(b[n].z));
-}
 
 // exp(cum_i - cum_j) from (hi, lo) pairs
 __device__ __forceinline__ float decay(float2 ci, float2 cj) {

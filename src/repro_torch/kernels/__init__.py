@@ -10,7 +10,7 @@ and the plain version beside it;
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -50,6 +50,24 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches made by each wrapper since the last reset. A launch
     captured into a CUDA graph counts once, at capture."""
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def version_counts() -> Dict[str, Dict[str, int]]:
+    """Launches since the last reset by version, for each wrapper that has
+    more than one version (``<wrapper>.by_version``)."""
+    return {name: dict(fn.by_version) for name, fn in _wrappers().items()
+            if hasattr(fn, "by_version")}
+
+
+def versions_since(before: Dict[str, Dict[str, int]]) -> Dict[str, List[str]]:
+    """The versions each wrapper launched since ``before`` (a
+    ``version_counts()``), for the wrappers that launched any."""
+    out = {}
+    for name, now in version_counts().items():
+        ran = [v for v, n in now.items() if n != before[name].get(v, 0)]
+        if ran:
+            out[name] = ran
+    return out
 
 
 def note_graph_replays(captured: Dict[str, int], replays: int) -> None:

@@ -23,9 +23,9 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_grouped_tc",
-           "flash_attention", "flash_attention_tc", "flash_decode", "ssd_scan",
-           "ssd_scan_tc")
+SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_tf32",
+           "lora_matmul_grouped_tc", "flash_attention", "flash_attention_tc",
+           "flash_attention_tf32", "flash_decode", "ssd_scan", "ssd_scan_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,12 @@ _SIGNATURES = {
         # iters_per_split, stream
         "lora_matmul_tc_launch": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     },
+    "lora_matmul_tf32": {
+        # x, w, a, b, y, ws_y, ws_xa, M, K, N, r, scale, splits,
+        # iters_per_split, stream
+        "lora_matmul_tf32_launch": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 2
+                                   + [_P],
+    },
     "lora_matmul_grouped_tc": {
         # x, w, a_bank, b_bank, ids, y, ws_y, ws_xa, rows, rows_per_group,
         # K, N, r, a_stride, b_stride, scale, bn, splits, iters_per_split,
@@ -67,6 +73,12 @@ _SIGNATURES = {
         # stream
         "flash_attention_tc_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
                                      + [_I, _I, _P],
+    },
+    "flash_attention_tf32": {
+        # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides, causal, window,
+        # stream
+        "flash_attention_tf32_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
+                                       + [_I, _I, _P],
     },
     "flash_decode": {
         # q, k, v, o, B, Hkv, G, S, D, 9 strides (q,k,v x b,h,row),

@@ -4,10 +4,12 @@ masks, grouped-query heads.
 Replaces: the Pallas TPU kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py``. CUDA sources (built and bound by
 ``_build``): ``csrc/flash_attention_tc.cu`` (bf16 on the tensor cores,
-``wgmma``) and ``csrc/flash_attention.cu`` (the SIMT kernel: f32, and the
-bf16 calls whose pointers or strides do not allow 16-byte copies).
-``flash_attention_version`` names the one a call takes, by dtype, head dim
-and alignment alone (never by failure).
+``wgmma``), ``csrc/flash_attention_tf32.cu`` (f32 on the tensor cores,
+``mma.sync``, every product as three tf32 products) and
+``csrc/flash_attention.cu`` (the SIMT kernel: the calls whose pointers or
+strides do not allow 16-byte copies). ``flash_attention_version`` names the
+one a call takes, by dtype, head dim and alignment alone (never by
+failure).
 
 Bound on this card: at the prefill shape (sequence 1024, head dim 64) the
 work is bound by operations; the (Sq, Skv) score matrix never reaches device
@@ -25,6 +27,7 @@ plain version only for a CPU tensor. ``flash_attention.launches`` counts,
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -60,13 +63,47 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_version(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` (the tensor-core kernel)
-    for bf16 with a head dim of 16, 32, 64 or 128 when every pointer is
-    16-byte aligned and every stride a multiple of 8 elements; otherwise
-    ``"simt"``."""
-    if dtype == torch.bfloat16 and d in HEAD_DIMS and aligned:
-        return "wgmma"
+    """The kernel a CUDA call takes when the head dim is 16, 32, 64 or 128,
+    every pointer is 16-byte aligned and every stride a whole number of
+    16-byte steps (``aligned``): ``"wgmma"`` (``csrc/flash_attention_tc.cu``)
+    for bf16, ``"tf32x3"`` (``csrc/flash_attention_tf32.cu``) for f32;
+    otherwise ``"simt"``."""
+    if d in HEAD_DIMS and aligned:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "simt"
+
+
+def sixteen_byte_steps(*tensors: torch.Tensor) -> bool:
+    """``aligned`` of ``flash_attention_version`` for 4-D (batch, head, seq,
+    dim) tensors: every pointer 16-byte aligned and every stride of the
+    first three dims a whole number of 16 bytes (the last dim is
+    contiguous), so that the tensor-core kernels' 16-byte copies can read
+    every row."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:3]) for t in tensors)
+
+
+TF32_QUERIES = 16           # queries a block of the f32 tensor-core kernel
+
+
+def tf32_grid(b: int, hq: int, sq: int) -> Tuple[int, int]:
+    """Grid of the f32 tensor-core kernel: ``(b * hq, ceil(sq / 16))``,
+    one block per 16 queries of one head (four warps that split the
+    keys)."""
+    return b * hq, -(-sq // TF32_QUERIES)
+
+
+def tf32_block(bx: int, by: int, hq: int, sq: int) -> Tuple[int, int, range]:
+    """What block ``(bx, by)`` of the f32 tensor-core kernel computes, as the
+    kernel decodes it: ``(batch, head, query rows)``; heads vary fastest,
+    and the last query tiles (the heaviest under a causal mask) come first."""
+    n_tiles = -(-sq // TF32_QUERIES)
+    q0 = (n_tiles - 1 - by) * TF32_QUERIES
+    return bx // hq, bx % hq, range(q0, min(q0 + TF32_QUERIES, sq))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -111,14 +148,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)          # keeps q's strides when q is dense
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    version = flash_attention_version(
-        q.dtype, d, all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
-        and all(s % 8 == 0 for s in strides))
+    version = flash_attention_version(q.dtype, d,
+                                      sixteen_byte_steps(q, k, v, out))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if version == "wgmma":
             code = _build.load("flash_attention_tc").flash_attention_tc_launch(
+                *ptrs, bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)),
+                window, stream)
+        elif version == "tf32x3":
+            code = _build.load(
+                "flash_attention_tf32").flash_attention_tf32_launch(
                 *ptrs, bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)),
                 window, stream)
         else:
@@ -132,4 +173,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.by_version = {"wgmma": 0, "simt": 0}
+flash_attention.by_version = {"wgmma": 0, "tf32x3": 0, "simt": 0}

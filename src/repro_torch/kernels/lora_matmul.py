@@ -5,9 +5,11 @@
 Replaces: the Pallas TPU kernels ``lora_matmul`` and ``lora_matmul_grouped``
 of ``src/repro/kernels/lora_matmul.py``. CUDA sources (built and bound by
 ``_build``): ``csrc/lora_matmul_tc.cu`` (``lora_matmul`` on the tensor
-cores, bf16), ``csrc/lora_matmul_grouped_tc.cu`` (``lora_matmul_grouped``
-on the tensor cores, bf16) and ``csrc/lora_matmul.cu`` (the SIMT kernels of
-both, for f32 and the shapes the tensor-core kernels do not take).
+cores, bf16), ``csrc/lora_matmul_tf32.cu`` (``lora_matmul`` on the tensor
+cores, f32 as three tf32 products), ``csrc/lora_matmul_grouped_tc.cu``
+(``lora_matmul_grouped`` on the tensor cores, bf16) and
+``csrc/lora_matmul.cu`` (the SIMT kernels of both, for the shapes the
+tensor-core kernels do not take, and f32 ``lora_matmul_grouped``).
 
 Bound on this card: at the serving shapes (64 rows of a prefill chunk, one
 row per request in a decode tick) both are bound by bytes, those of ``W``.
@@ -15,12 +17,15 @@ The kernels read ``W`` once per tile of rows, keep ``X @ A`` out of the
 output's path until its one rounding and add the rank-r correction before
 the output is rounded; the grouped kernels read each request's adapter
 through ``ids`` from the bank where it lies, so no gathered copy is made for
-it. Each function has two versions, and ``lora_matmul_version`` /
-``lora_matmul_grouped_version`` name the one a call takes, by dtype, shape
-and alignment alone (never by failure): ``"wgmma"`` (bf16; K, N, r
-multiples of 8, r <= 64; 16-byte aligned pointers and bank strides) splits
-K over blocks by ``tc_plan`` / ``grouped_plan`` so that every SM streams W,
-or ``"simt"``. The SIMT grouped kernel itself has two variants (2-byte and
+it. ``lora_matmul_version`` / ``lora_matmul_grouped_version`` name the
+version a call takes, by dtype, shape and alignment alone (never by
+failure): ``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 64; 16-byte
+aligned pointers and bank strides) splits K over blocks by ``tc_plan`` /
+``grouped_plan`` so that every SM streams W; ``"tf32x3"`` (``lora_matmul``
+in f32; K, N, r multiples of 4, r <= 64, 16-byte aligned pointers; the
+calibrate path's probes, bound by operations) splits K by ``tf32_plan``
+so that the calibrate bench starts at least one block per SM; otherwise
+``"simt"``. The SIMT grouped kernel itself has two variants (2-byte and
 16-byte loads), which its launcher picks by alignment.
 
 Rounding order (kernel and plain version alike; it follows the reference's
@@ -46,6 +51,8 @@ from repro_torch.kernels import _build, refuse_autograd
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_RANK = 64
 TC_BK = 64                  # K depth of one step of the tensor-core kernel
+TF32_BK = 32                # K depth of one step of the f32 tensor-core kernel
+TF32_TILE = 64              # its output tiles: 64 x 64
 
 
 # ---------------------------------------------------------------------------
@@ -93,13 +100,18 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
 
 def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
                         aligned: bool) -> str:
-    """The kernel a CUDA call of ``lora_matmul`` takes: ``"wgmma"`` (the
-    tensor-core kernel) for bf16 with K, N and r multiples of 8 (whole
-    16-byte copies), r <= 64 and every pointer 16-byte aligned; otherwise
-    ``"simt"``."""
-    if (dtype == torch.bfloat16 and aligned and k % 8 == 0 and n % 8 == 0
-            and r % 8 == 0 and r <= MAX_RANK):
-        return "wgmma"
+    """The kernel a CUDA call of ``lora_matmul`` takes, when every pointer
+    is 16-byte aligned and r <= 64: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``)
+    for bf16 with K, N and r multiples of 8, ``"tf32x3"``
+    (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r multiples of 4
+    (whole 16-byte copies either way); otherwise ``"simt"``."""
+    if aligned and r <= MAX_RANK:
+        if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+                and r % 8 == 0):
+            return "wgmma"
+        if (dtype == torch.float32 and k % 4 == 0 and n % 4 == 0
+                and r % 4 == 0):
+            return "tf32x3"
     return "simt"
 
 
@@ -126,14 +138,49 @@ def tc_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
     return plan
 
 
+@functools.lru_cache(maxsize=256)
+def tf32_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int]:
+    """Grid of the f32 tensor-core kernel: ``(splits, iters_per_split)``.
+
+    Output tiles are 64 x 64; K is cut into ``ceil(k / 32)`` steps, dealt
+    to ``splits`` blocks per tile, ``iters_per_split`` consecutive steps
+    each, the last split taking the rest (none is empty). The splits are as
+    few as give at least ``sms`` blocks, where K is deep enough."""
+    n_iters = -(-k // TF32_BK)
+    tiles = -(-m // TF32_TILE) * -(-n // TF32_TILE)
+    want = -(-sms // tiles)
+    ips = max(1, n_iters // want)
+    return -(-n_iters // ips), ips
+
+
+def launch_tf32x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, y: torch.Tensor, scale: float,
+                  stream: int) -> int:
+    """Enqueue ``csrc/lora_matmul_tf32.cu`` on ``stream`` for contiguous,
+    aligned f32 CUDA tensors that ``lora_matmul`` has checked; returns the
+    launch's error code."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, ips = tf32_plan(m, k, n, sms)
+    # f32 split-K partials: X@W (splits, m, n), then X@A (splits, m, r)
+    ws = torch.empty(splits * m * (n + r), dtype=torch.float32,
+                     device=x.device)
+    return _build.load("lora_matmul_tf32").lora_matmul_tf32_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+        ws.data_ptr(), ws.data_ptr() + 4 * splits * m * n, m, k, n, r,
+        float(scale), splits, ips, stream)
+
+
 def lora_matmul_grouped_version(dtype: torch.dtype, k: int, n: int, r: int,
                                 aligned: bool) -> str:
     """The kernel a CUDA call of ``lora_matmul_grouped`` takes: ``"wgmma"``
-    (``csrc/lora_matmul_grouped_tc.cu``) under the same rule as
+    (``csrc/lora_matmul_grouped_tc.cu``) under the bf16 rule of
     ``lora_matmul_version``, where ``aligned`` also covers the bank strides
-    (whole 16-byte steps from one adapter to the next); otherwise
-    ``"simt"`` (``csrc/lora_matmul.cu``)."""
-    return lora_matmul_version(dtype, k, n, r, aligned)
+    (whole 16-byte steps from one adapter to the next); otherwise, f32
+    included, ``"simt"`` (``csrc/lora_matmul.cu``)."""
+    version = lora_matmul_version(dtype, k, n, r, aligned)
+    return version if version == "wgmma" else "simt"
 
 
 @functools.lru_cache(maxsize=256)
@@ -208,6 +255,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                 y.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * splits * m * n,
                 m, k, n, r, float(scale), bn, splits, ips, stream)
+        elif version == "tf32x3":
+            code = launch_tf32x3(x, w, a, b, y, scale, stream)
         else:
             code = _build.load("lora_matmul").lora_matmul_launch(
                 x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -220,7 +269,7 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 lora_matmul.launches = 0
-lora_matmul.by_version = {"wgmma": 0, "simt": 0}
+lora_matmul.by_version = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 
 
 def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

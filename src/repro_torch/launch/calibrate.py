@@ -44,7 +44,7 @@ from repro_torch.core.hardware import (DEFAULT_SIM, SERVER_RTX4060TI,
 from repro_torch.core.measured_cost import (LatencyTable, RooflineFit,
                                             _time_call, build_latency_tables,
                                             fit_roofline, normal_inputs,
-                                            probe_kernels)
+                                            probe_kernels, timed_version)
 from repro_torch.core.scheduler import simulate_fleet
 from repro_torch.launch import write_payload
 from repro_torch.models.common import describe_device, resolve_device
@@ -56,6 +56,9 @@ DEFAULT_TABLE_SEQ = 512     # SimParams.seq_len
 # published peaks of one H100 SXM (dense): bytes/s of HBM3, FLOP/s by type
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the dense TF32 tensor-core rate: an f32 product taken as three tf32
+#: products (the "tf32x3" kernels and ssd_intra_chunk's "tc") costs 3 of them
+H100_TF32_FLOPS = 495e12
 
 #: the kernel benches' shapes (the reference's): lora_matmul (M, K, N, r);
 #: flash_attention (B, S, Hq, Hkv, D), causal; ssd_scan (B, L, nh, hp, ns,
@@ -78,22 +81,41 @@ def h100_bound_s(hbm_bytes: float, flops: float, dtype=torch.float32):
                                  else "operations")
 
 
+def h100_bound_3xtf32_s(hbm_bytes: float, flops: float):
+    """(least seconds an H100 could take for f32 work done as three tf32
+    products on the tensor cores, "bytes" | "operations")."""
+    t_bytes = hbm_bytes / H100_HBM_BYTES_PER_S
+    t_ops = 3.0 * flops / H100_TF32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 # ---------------------------------------------------------------------------
 # Kernel benches (f32, the reference's shapes)
 # ---------------------------------------------------------------------------
 
 
-def _bench_row(name, kernel_fn, plain_fn, hbm_bytes, flops, device, reps,
-               **extra) -> Dict:
+def _bench_row(name, wrapper, kernel_fn, plain_fn, hbm_bytes, flops, device,
+               reps, **extra) -> Dict:
+    """One bench: the kernel (through ``wrapper``; the row records the
+    version it ran, None for a wrapper of one version) and the plain
+    version, beside both H100 bounds (f32 on the CUDA cores, and as three
+    tf32 products on the tensor cores)."""
+    from repro_torch import kernels
     if device.type != "cuda":
         raise ValueError("the kernel benches time the CUDA kernels and need "
                          f"a CUDA device, not {device}")
+    before = kernels.version_counts()
     kernel_s = _time_call(kernel_fn, reps, device)
+    version = timed_version(wrapper, before) or None
     plain_s = _time_call(plain_fn, reps, device)
     bound, by = h100_bound_s(hbm_bytes, flops)
-    return {"name": name, "kernel_us": kernel_s * 1e6,
+    bound3, by3 = h100_bound_3xtf32_s(hbm_bytes, flops)
+    return {"name": name, "version": version, "kernel_us": kernel_s * 1e6,
             "plain_us": plain_s * 1e6, "h100_bound_us": bound * 1e6,
-            "bound_by": by, "flops": flops, "hbm_bytes": hbm_bytes, **extra}
+            "bound_by": by, "h100_bound_3xtf32_us": bound3 * 1e6,
+            "bound_3xtf32_by": by3, "flops": flops, "hbm_bytes": hbm_bytes,
+            **extra}
 
 
 def bench_lora_matmul(device, reps: int = 3) -> Dict:
@@ -102,7 +124,7 @@ def bench_lora_matmul(device, reps: int = 3) -> Dict:
     m, k, n, r = BENCH_SHAPES["lora_matmul"]
     x, w, a, b = normal_inputs(0, device, (m, k), (k, n), (k, r), (r, n))
     flops = 2.0 * m * k * n + 2.0 * m * k * r + 2.0 * m * r * n
-    return _bench_row("lora_matmul_512",
+    return _bench_row("lora_matmul_512", "lora_matmul",
                       lambda: ops.lora_matmul(x, w, a, b, 2.0),
                       lambda: lm.lora_matmul_ref(x, w, a, b, 2.0),
                       4.0 * (m * k + k * n + k * r + r * n + m * n), flops,
@@ -118,7 +140,8 @@ def bench_flash_attention(device, reps: int = 3) -> Dict:
     pos = torch.arange(s, device=device).expand(b, s)
     pairs = s * (s + 1) // 2                 # unmasked (query, key) pairs
     return _bench_row(
-        "flash_attention_512", lambda: ops.flash_attention(q, k, v),
+        "flash_attention_512", "flash_attention",
+        lambda: ops.flash_attention(q, k, v),
         lambda: chunked_attention(q, k, v, causal=True, window=0,
                                   q_positions=pos, k_positions=pos),
         4.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d),
@@ -136,7 +159,8 @@ def bench_ssd_scan(device, reps: int = 3) -> Dict:
     di = nh * hp
     flops = float(b * length) * (2.0 * chunk * di + 4.0 * di * ns)
     return _bench_row(
-        "ssd_scan_512", lambda: ops.ssd_scan(xt, a, B, Cm, chunk),
+        "ssd_scan_512", "ssd_intra_chunk",
+        lambda: ops.ssd_scan(xt, a, B, Cm, chunk),
         lambda: ssd_chunked(xt, a, B, Cm, chunk),
         4.0 * b * length * (2 * nh * hp + nh + 2 * ns), flops, device, reps)
 
@@ -151,7 +175,8 @@ def bench_flash_decode(device, reps: int = 3) -> Dict:
     pos = torch.full((b, 1), t, dtype=torch.int32, device=device)
     kpos = torch.arange(s, device=device).expand(b, s)
     return _bench_row(
-        "flash_decode_1k", lambda: ops.flash_decode(q, k, v, t),
+        "flash_decode_1k", "flash_decode",
+        lambda: ops.flash_decode(q, k, v, t),
         lambda: naive_attention(q, k, v, causal=True, window=0,
                                 q_positions=pos, k_positions=kpos),
         4.0 * (2 * b * hq * d + 2 * b * s * hkv * d), 4.0 * b * hq * s * d,

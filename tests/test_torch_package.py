@@ -75,13 +75,17 @@ def test_csrc_holds_the_three_kernels():
     """The serving slice's three kernels, and since the calibration slice
     the other two: all five TPU kernels of the reference; ``lora_matmul``,
     ``lora_matmul_grouped`` and ``flash_attention`` also on the tensor cores
-    (``wgmma``), ``ssd_intra_chunk`` too (``mma.sync`` with tf32)."""
+    (``wgmma``), ``ssd_intra_chunk`` too (``mma.sync`` with tf32), and the
+    f32 ``lora_matmul`` and ``flash_attention`` on ``mma.sync`` with tf32,
+    the shared three-product helpers in ``tf32x3.cuh``."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
             for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
-                      "lora_matmul_grouped_tc.cu", "flash_attention.cu", "flash_attention_tc.cu",
-                      "flash_decode.cu", "ssd_scan.cu", "ssd_scan_tc.cu",
-                      "common.cuh", "hopper.cuh")}
+                      "lora_matmul_tf32.cu", "lora_matmul_grouped_tc.cu",
+                      "flash_attention.cu", "flash_attention_tc.cu",
+                      "flash_attention_tf32.cu", "flash_decode.cu",
+                      "ssd_scan.cu", "ssd_scan_tc.cu", "common.cuh",
+                      "hopper.cuh", "tf32x3.cuh")}
     assert "lora_matmul_kernel" in text["lora_matmul.cu"]
     assert "lora_matmul_tc_split_kernel" in text["lora_matmul_tc.cu"]
     assert ("lora_matmul_grouped_tc_split_kernel"
@@ -94,12 +98,19 @@ def test_csrc_holds_the_three_kernels():
     assert "cudaLaunchAttributeClusterDimension" in text["flash_decode.cu"]
     assert "ssd_intra_chunk_kernel" in text["ssd_scan.cu"]
     assert ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
-            in text["ssd_scan_tc.cu"])
+            in text["tf32x3.cuh"])
+    for name in ("ssd_scan_tc.cu", "lora_matmul_tf32.cu",
+                 "flash_attention_tf32.cu"):
+        assert '#include "tf32x3.cuh"' in text[name], name
+    assert "lora_matmul_tf32_split_kernel" in text["lora_matmul_tf32.cu"]
+    assert "flash_attention_tf32_kernel" in text["flash_attention_tf32.cu"]
     from repro_torch.kernels import _build, launch_counts
     assert set(_build.SOURCES) == {"lora_matmul", "lora_matmul_tc",
+                                   "lora_matmul_tf32",
                                    "lora_matmul_grouped_tc",
                                    "flash_attention", "flash_attention_tc",
-                                   "flash_decode", "ssd_scan", "ssd_scan_tc"}
+                                   "flash_attention_tf32", "flash_decode",
+                                   "ssd_scan", "ssd_scan_tc"}
     assert set(launch_counts()) == {"lora_matmul", "lora_matmul_grouped",
                                     "flash_attention", "flash_decode",
                                     "ssd_intra_chunk"}
@@ -220,6 +231,15 @@ def _rand(rng, shape, dtype, device):
                             ).to(device).to(dtype)
 
 
+def _misaligned(t):
+    """A copy of ``t`` one element past a 16-byte boundary, which the
+    wrappers hand to their SIMT kernels."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape).copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,c", [(torch.float32, 2e-4),
                                      (torch.bfloat16, 1e-2)])
@@ -229,10 +249,13 @@ def test_gpu_lora_matmul_kernel(cuda, dtype, c):
     for m, k, n, r in ((37, 53, 41, 3), (64, 256, 192, 16), (70, 130, 90, 40)):
         x, w = _rand(rng, (m, k), dtype, cuda), _rand(rng, (k, n), dtype, cuda)
         a, b = _rand(rng, (k, r), dtype, cuda), _rand(rng, (r, n), dtype, cuda)
+        version = lm.lora_matmul_version(dtype, k, n, r, True)
         before = lm.lora_matmul.launches
+        before_version = lm.lora_matmul.by_version[version]
         got = lm.lora_matmul(x, w, a, b, 0.5).float()
         torch.cuda.synchronize()
         assert lm.lora_matmul.launches == before + 1
+        assert lm.lora_matmul.by_version[version] == before_version + 1
         want = lm.lora_matmul_ref(x, w, a, b, 0.5).float()
         assert (got - want).abs().max() <= c * want.abs().max()
 
@@ -263,19 +286,27 @@ def test_gpu_lora_matmul_grouped_kernel(cuda, dtype, c):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_gpu_flash_attention_kernel(cuda, dtype, atol):
+    """bf16 through the wgmma version; f32 through the SIMT version, which
+    misaligned inputs take (aligned f32 takes tf32x3, tested below)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     rng = np.random.default_rng(2)
+    f32 = dtype == torch.float32
+    version = "simt" if f32 else "wgmma"
     for b, s, hq, hkv, d, window in ((2, 65, 4, 4, 16, 0),
                                      (2, 130, 8, 2, 32, 64),
                                      (1, 200, 4, 2, 64, 0)):
         q = _rand(rng, (b, s, hq, d), dtype, cuda)
         k = _rand(rng, (b, s, hkv, d), dtype, cuda)
         v = _rand(rng, (b, s, hkv, d), dtype, cuda)
+        if f32:
+            q, k, v = (_misaligned(t) for t in (q, k, v))
         before = fa.flash_attention.launches
+        before_version = fa.flash_attention.by_version[version]
         got = ops.flash_attention(q, k, v, causal=True, window=window).float()
         torch.cuda.synchronize()
         assert fa.flash_attention.launches == before + 1
+        assert fa.flash_attention.by_version[version] == before_version + 1
         want = fa.flash_attention_ref(
             q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
             v.permute(0, 2, 1, 3), causal=True, window=window
@@ -376,6 +407,50 @@ def test_gpu_flash_attention_tensor_core_kernel(cuda, b, sq, skv, hq, hkv, d,
     assert fa.flash_attention.by_version["wgmma"] == before + 1
     want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert (got - want.float()).abs().max() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,r", [(128, 128, 128, 8), (512, 512, 512, 16),
+                                     (256, 1024, 512, 16), (70, 260, 196, 12),
+                                     (37, 136, 72, 8), (200, 520, 264, 64)])
+def test_gpu_lora_matmul_tf32x3_kernel(cuda, m, k, n, r):
+    """f32 at calibrate probe shapes, ragged M and K, r up to 64: the
+    tf32x3 version, at the f32 tolerance."""
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(9)
+    x, w = _rand(rng, (m, k), torch.float32, cuda), \
+        _rand(rng, (k, n), torch.float32, cuda)
+    a, b = _rand(rng, (k, r), torch.float32, cuda), \
+        _rand(rng, (r, n), torch.float32, cuda)
+    before = lm.lora_matmul.by_version["tf32x3"]
+    got = lm.lora_matmul(x, w, a, b, 2.0)
+    assert lm.lora_matmul.by_version["tf32x3"] == before + 1
+    torch.cuda.synchronize()
+    want = lm.lora_matmul_ref(x, w, a, b, 2.0)
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
+    (1, 512, 512, 8, 4, 64, True, 0), (1, 256, 256, 4, 2, 32, True, 0),
+    (2, 130, 130, 4, 4, 16, True, 64), (1, 150, 150, 2, 1, 128, True, 0),
+    (1, 200, 200, 4, 2, 128, True, 64), (2, 96, 96, 25, 5, 16, True, 64),
+    (2, 70, 150, 4, 2, 32, False, 0), (2, 150, 70, 4, 2, 64, False, 0)])
+def test_gpu_flash_attention_tf32x3_kernel(cuda, b, sq, skv, hq, hkv, d,
+                                           causal, window):
+    """f32 head dims 16/32/64/128, windows, GQA groups 1-5 and non-causal
+    Sq != Skv: the tf32x3 version, at the f32 tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(10)
+    q = _rand(rng, (b, hq, sq, d), torch.float32, cuda)
+    k = _rand(rng, (b, hkv, skv, d), torch.float32, cuda)
+    v = _rand(rng, (b, hkv, skv, d), torch.float32, cuda)
+    before = fa.flash_attention.by_version["tf32x3"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_version["tf32x3"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert (got - want).abs().max() <= 2e-5
 
 
 @pytest.mark.gpu

@@ -23,7 +23,9 @@ SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
     (BF16, 136, 72, 8, True, "wgmma"),
     (BF16, 520, 264, 64, True, "wgmma"),
     (BF16, 2048, 2048, 16, False, "simt"),   # a pointer off 16 bytes
-    (F32, 2048, 2048, 16, True, "simt"),     # f32 stays on the SIMT kernel
+    (F32, 2048, 2048, 16, True, "tf32x3"),   # f32: three tf32 products
+    (F32, 2048, 2048, 16, False, "simt"),    # f32, a pointer off 16 bytes
+    (F32, 2048, 2048, 6, True, "simt"),      # f32, r not a multiple of 4
     (BF16, 53, 48, 16, True, "simt"),        # K not whole 16-byte chunks
     (BF16, 64, 41, 16, True, "simt"),        # N ragged
     (BF16, 64, 64, 4, True, "simt"),         # r not a multiple of 8
@@ -36,7 +38,7 @@ def test_lora_matmul_version(dtype, k, n, r, aligned, want):
 @pytest.mark.parametrize("dtype,d,aligned,want", [
     (BF16, 16, True, "wgmma"), (BF16, 32, True, "wgmma"),
     (BF16, 64, True, "wgmma"), (BF16, 128, True, "wgmma"),
-    (BF16, 64, False, "simt"), (F32, 64, True, "simt"),
+    (BF16, 64, False, "simt"), (F32, 64, True, "tf32x3"),
     (F32, 128, False, "simt"),
 ])
 def test_flash_attention_version(dtype, d, aligned, want):
@@ -80,8 +82,9 @@ def test_by_version_counts_reset_with_the_launch_counts():
     t_lm.lora_matmul.by_version["wgmma"] = 3
     t_fa.flash_attention.by_version["simt"] = 2
     reset_launch_counts()
-    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "simt": 0}
-    assert t_fa.flash_attention.by_version == {"wgmma": 0, "simt": 0}
+    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert t_fa.flash_attention.by_version == {"wgmma": 0, "tf32x3": 0,
+                                               "simt": 0}
 
 
 def test_cpu_calls_take_the_plain_version_and_count_no_version():
@@ -92,11 +95,12 @@ def test_cpu_calls_take_the_plain_version_and_count_no_version():
                      torch.randn(16, 64, dtype=BF16))
     q = torch.randn(1, 2, 70, 64, dtype=BF16)
     t_fa.flash_attention(q, q, q)
-    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "simt": 0}
-    assert t_fa.flash_attention.by_version == {"wgmma": 0, "simt": 0}
+    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert t_fa.flash_attention.by_version == {"wgmma": 0, "tf32x3": 0,
+                                               "simt": 0}
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh", "tf32x3.cuh"])
 def test_editing_any_header_renames_every_library(tmp_path, monkeypatch,
                                                   header):
     """A library is named by a hash of its source and of every header in
