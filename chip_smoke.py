@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only families  # build + the families phase
     python3 chip_smoke.py --only fleet     # build + smoke calibrate + fleet
     python3 chip_smoke.py --only calibrate # the calibrate phase alone
+    python3 chip_smoke.py --only registry  # build + the registry phase
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -75,6 +76,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
            ``impl="chunked"`` (``ssd_intra_chunk`` on its model path, its
            share of the step's device time); split == unsplit grads in f32
            and a falling bf16 train step, no kernel
+  registry qwen3-0.6b, qwen3-4b, qwen2-7b, phi3-medium-14b, internvl2-26b
+           and musicgen-large at their full published configs (bf16,
+           random weights from a seed, four non-zero adapters): the bf16
+           kernels against their plain versions at every shape the path
+           hands them (head dim 128 and 64, GQA groups 1-7), timing rows at
+           qwen2-7b's and internvl2-26b's attention and qwen2-7b's down
+           projection; ``ServingEngine`` with the fused kernels on 8
+           requests (token configs) or ``generate`` from an embeddings
+           prompt (embeds configs); ``make_prefill_step(impl="flash")`` on
+           (4, 1024) with the bf16 logits against f32 (full depth, or the
+           first 4 layers where an f32 copy does not fit); split == unsplit
+           in f32 over 4 layers at full width and one bf16 ``SplitFineTuner``
+           epoch at a CARD cut where the full-depth step fits the card (its
+           memory predicted from 2 and 4 layers), no kernel
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line; the line before the last holds the card's name and
@@ -912,6 +927,11 @@ def phase_kernels(seed: int):
         rows["lora_matmul"].append(time_lora_matmul(rng, 64, k, n, 16, bf16))
         rows["lora_matmul_grouped"].append(
             time_grouped(rng, 8, k, n, 16, 4, bf16))
+    # f32 lora_matmul_grouped (SIMT; on no path) at the bf16 rows' first two
+    # shapes, after the headline rows
+    for k, n in KN_SHAPES[:2]:
+        rows["lora_matmul_grouped"].append(
+            time_grouped(rng, 8, k, n, 16, 4, f32))
     rows["flash_attention"].append(time_flash(rng, 4, 1024, 32, 8, 64, bf16))
     # the f32 tensor-core versions at the calibrate path's probe shapes
     rows["lora_matmul_tf32x3"] = [time_lora_matmul(rng, *shape, f32)
@@ -1995,10 +2015,11 @@ def prefill_ssd_share(fn):
             "ssd_intra_chunk_share": ssd / total if total else 0.0}
 
 
-def family_serve(cfg, frozen, bank, seed, gpu):
+def family_serve(cfg, frozen, bank, seed, gpu, chunk=FAMILY_CHUNK,
+                 phase="families_serve"):
     """(a) ``ServingEngine`` with the fused kernels on ``FAMILY_REQUESTS``
-    requests; its launch counts read around the run. Returns (counts,
-    versions)."""
+    requests, prefill chunks of ``chunk`` tokens; its launch counts read
+    around the run. Returns (counts, versions)."""
     from repro_torch import kernels
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.serving import Request, ServingEngine
@@ -2010,7 +2031,7 @@ def family_serve(cfg, frozen, bank, seed, gpu):
                                         dtype=np.int64).astype(np.int32),
                     max_new=16, adapter_id=i % 4) for i in range(n_requests)]
     eng = ServingEngine(cfg, frozen, bank, slots=8, max_len=512,
-                        prefill_chunk=FAMILY_CHUNK, use_lora_kernel=True)
+                        prefill_chunk=chunk, use_lora_kernel=True)
     # ---- the main path: counts set to 0 just before, read just after ----
     kernels.reset_launch_counts()
     for r in reqs:
@@ -2023,9 +2044,9 @@ def family_serve(cfg, frozen, bank, seed, gpu):
     # ----------------------------------------------------------------------
     per_layer = lora_projections(cfg) * cfg.n_layers
     scan = cfg.has_ssm         # the engine prefills SSM state by decode_scan
-    emit({"phase": "families_serve", "gpu": gpu, "arch": cfg.name,
+    emit({"phase": phase, "gpu": gpu, "arch": cfg.name,
           "requests": n_requests, "slots": 8, "max_len": 512,
-          "prefill_chunk": FAMILY_CHUNK,
+          "prefill_chunk": chunk,
           "prefill_mode": "scan" if scan else "parallel",
           "max_new": 16, "prompt_lens": [int(n) for n in lens],
           **{k: stats[k] for k in ("completed", "ticks", "prefills", "tokens",
@@ -2036,14 +2057,14 @@ def family_serve(cfg, frozen, bank, seed, gpu):
     for r in reqs:
         assert len(r.output) == 16, (r.uid, len(r.output))
         assert all(0 <= t < cfg.vocab_size for t in r.output), r.uid
-    assert stats["prefills"] == sum(int(n) // FAMILY_CHUNK for n in lens)
+    assert stats["prefills"] == sum(int(n) // chunk for n in lens)
     # a tick: every projection of every layer through the grouped kernel
     # (per-row adapters); a prefill chunk: through lora_matmul (one
     # adapter), once per chunk in parallel mode, once per token of it in
     # scan mode (decode_scan is one decode_step a token)
     assert counts["lora_matmul_grouped"] == per_layer * stats["ticks"], counts
     assert counts["lora_matmul"] == per_layer * stats["prefills"] * (
-        FAMILY_CHUNK if scan else 1), counts
+        chunk if scan else 1), counts
     for name in ("flash_attention", "flash_decode", "ssd_intra_chunk"):
         assert counts[name] == 0, counts
     for name, by in versions.items():      # bf16: tensor cores only
@@ -2347,6 +2368,377 @@ def phase_families(seed: int):
     assert total["ssd_intra_chunk"] > 0 and total["flash_attention"] > 0
     return total, dict(total), versions
 
+
+# ---------------------------------------------------------------------------
+# registry phase
+# ---------------------------------------------------------------------------
+
+REGISTRY_ARCHS = ("qwen3-0.6b", "qwen3-4b", "qwen2-7b", "phi3-medium-14b",
+                  "internvl2-26b", "musicgen-large")
+REGISTRY_CHUNK = 64        # the engine's prefill chunk
+REGISTRY_NEW = 16          # new tokens of a generate row
+# depth of the bf16-vs-f32 logits check: the whole model where its f32 copy
+# fits beside the bf16 one, else its first 4 layers at full width (f32
+# copies of phi3-medium-14b and internvl2-26b would take ~59 and ~79 GB)
+REGISTRY_F32_DEPTH = {"phi3-medium-14b": 4, "internvl2-26b": 4}
+# musicgen-large at full depth (48 layers): the plain bf16 path alone is 2.45
+# from the f32 logits (|logit| <= 3.3) and the flash path 2.10 from the
+# plain one (the H100, seed 0), so the families phase's 1.0 between the two
+# bf16 paths is held over its first 4 layers; at full depth the f32 check
+# and the flash-no-further-from-f32 rule are held, and the gap is printed
+REGISTRY_BF16_CAP_DEPTH = {"musicgen-large": 4}
+SPLIT_LAYERS = 4           # the f32 split == unsplit check at full width
+FIT_SHARE = 0.92           # of the card's memory a full-depth step may plan
+# timing rows at model-path shapes: bf16 flash_attention (B, S, Hq, Hkv, D)
+# of qwen2-7b and internvl2-26b, and lora_matmul (M, K, N, r) at qwen2-7b's
+# down projection over a (4, 1024) batch
+REGISTRY_FLASH_TIMES = ((4, 1024, 28, 4, 128), (4, 1024, 48, 8, 128))
+REGISTRY_LORA_TIMES = ((4096, 18944, 3584, 16),)
+
+
+def first_layers(cfg, frozen, lora, n: int):
+    """The model cut to its first ``n`` layers at full width: (config,
+    frozen, lora), the layers as views of the full stacks."""
+    from repro_torch.models import model as M
+    fz = dict(frozen, layers=M.slice_layers(frozen["layers"], 0, n))
+    lo = {"layers": M.slice_layers(lora["layers"], 0, n)}
+    return dataclasses.replace(cfg, n_layers=n), fz, lo
+
+
+def model_inputs(cfg, shape, seed: int):
+    """Tokens (B, S) on the card, or for an embeds-mode config (B, S, d)
+    f32 embeddings at the data pipeline's scale (0.02)."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        return randn(rng, shape + (cfg.d_model,), torch.float32, 0.02)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                           device="cuda")
+
+
+def lora_shapes(cfg):
+    """(K, N) of every LoRA projection of a layer of a dense config."""
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    return list(dict.fromkeys(((d, q), (d, kv), (q, d), (d, ff), (ff, d))))
+
+
+def registry_kernels(seed: int, gpu: str):
+    """The bf16 kernels against their plain versions at the shapes the
+    registry path hands them, through the version the wrapper picks (all
+    ``wgmma``, asserted), at the kernels phase's tolerances: every LoRA
+    projection of each config at M = ``REGISTRY_CHUNK`` (a prefill chunk of
+    the engine) and at a tick's 8 rows (each its own adapter of a strided
+    bank), and the attention of the flash prefill step on (4, 1024); then
+    the timing rows at ``REGISTRY_FLASH_TIMES`` and ``REGISTRY_LORA_TIMES``
+    beside the bound, the plain version and one PyTorch call. Launches made
+    here precede the registry path's counts. Returns the timing rows."""
+    from repro_torch.configs.base import get_config
+    rng = np.random.default_rng(seed + 400)
+    bf16 = torch.bfloat16
+    out = []
+    for arch in REGISTRY_ARCHS:
+        cfg = get_config(arch)
+        r, scale = cfg.lora.rank, cfg.lora.scale
+        for k, n in lora_shapes(cfg):
+            res = check_lora_matmul(rng, REGISTRY_CHUNK, k, n, r, bf16, scale)
+            out.append(("lora_matmul", arch, (REGISTRY_CHUNK, k, n, r), res))
+            res = check_grouped(rng, 8, 1, k, n, r, 8, bf16,
+                                ids=list(range(8)), scale=scale, strided=True)
+            out.append(("lora_matmul_grouped", arch, (8, 1, k, n, r), res))
+        shape = (4, 1024, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        out.append(("flash_attention", arch, shape,
+                    check_flash(rng, *shape, bf16, causal=True)))
+    emit({"phase": "registry_kernels", "gpu": gpu,
+          "checked": [{"name": name, "arch": arch, "shape": list(shape),
+                       "max_abs_err": err, "tol": tol, "version": version}
+                      for name, arch, shape, (err, tol, version) in out]})
+    for name, arch, shape, (err, tol, version) in out:
+        assert version == "wgmma", (name, arch, shape, version)
+    rows = {"flash_attention": [time_flash(rng, *s, bf16)
+                                for s in REGISTRY_FLASH_TIMES],
+            "lora_matmul": [time_lora_matmul(rng, *s, bf16)
+                            for s in REGISTRY_LORA_TIMES]}
+    emit({"phase": "registry_kernel_times", "gpu": gpu, "by_shape": rows})
+    for name, by_shape in rows.items():
+        for row in by_shape:
+            assert row["version"] == "wgmma", (name, row)
+    return rows
+
+
+def registry_generate(cfg, frozen, lora, seed, gpu):
+    """(a) for an embeds-mode config: ``generate`` from a (2, 16, d)
+    embeddings prompt, ``REGISTRY_NEW`` greedy tokens (the engine's chunked
+    prefill is for token configs only, as in the reference). TTFT is a
+    ``max_new=1`` call. Returns (counts, versions)."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate
+    prompt = model_inputs(cfg, (2, 16), seed)
+    t0 = time.time()
+    first = generate(cfg, frozen, lora, prompt, 1)
+    torch.cuda.synchronize()
+    ttft_s = time.time() - t0
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    toks = generate(cfg, frozen, lora, prompt, REGISTRY_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts = kernels.launch_counts()
+    # ----------------------------------------------------------------------
+    emit({"phase": "registry_serve", "gpu": gpu, "arch": cfg.name,
+          "mode": "generate", "prompt": [2, 16, cfg.d_model],
+          "max_new": REGISTRY_NEW, "tokens": int(toks.numel()),
+          "wall_s": wall_s, "tokens_per_sec": toks.numel() / wall_s,
+          "ttft_s": ttft_s, "sample": toks[0, :8].tolist(),
+          "launches": counts})
+    assert toks.shape == (2, REGISTRY_NEW) and toks.dtype == torch.int32
+    # the padded vocabulary's columns are masked, so never generated
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size, toks
+    assert torch.equal(toks[:, :1], first), (toks[:, :1], first)
+    # generate decodes through the plain LoRA path, as the reference's does
+    assert all(n == 0 for n in counts.values()), counts
+    return counts, {}
+
+
+def registry_prefill(cfg, frozen, lora, seed, gpu):
+    """(b) ``make_prefill_step(impl="flash")`` on (4, 1024) tokens or
+    embeddings, its launches read around one call; then bf16 against f32
+    logits at ``REGISTRY_F32_DEPTH``: flash and chunked in both dtypes.
+    Returns (counts, versions)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.common import tree_map
+    inputs = model_inputs(cfg, (4, 1024), seed + 100)
+    flash = make_prefill_step(cfg, impl="flash")
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    logits_flash = flash(frozen, lora, inputs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    versions = {"flash_attention": dict(fa.flash_attention.by_version)}
+    # ----------------------------------------------------------------------
+    t0 = time.time()
+    flash(frozen, lora, inputs)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+
+    depth = REGISTRY_F32_DEPTH.get(cfg.name, cfg.n_layers)
+    if depth < cfg.n_layers:
+        c, fz, lo = first_layers(cfg, frozen, lora, depth)
+        bf_flash = make_prefill_step(c, impl="flash")(fz, lo, inputs)
+    else:
+        c, fz, lo, bf_flash = cfg, frozen, lora, logits_flash
+    c32 = dataclasses.replace(c, dtype="float32")
+    fz32 = tree_map(lambda v: v.float(), fz)
+    flash32 = make_prefill_step(c32, impl="flash")(fz32, lo, inputs)
+    chunked32 = make_prefill_step(c32, impl="chunked")(fz32, lo, inputs)
+    del fz32
+    chunked_bf = make_prefill_step(c, impl="chunked")(fz, lo, inputs)
+    torch.cuda.synchronize()
+
+    def err(x, y):
+        return (x - y).abs().max().item()
+    f32_tol, bf16_tol = 2e-3, 1.0
+    pre = {"f32_flash_vs_chunked": err(flash32, chunked32),
+           "bf16_flash_vs_chunked": err(bf_flash, chunked_bf),
+           "bf16_flash_vs_f32": err(bf_flash, chunked32),
+           "bf16_chunked_vs_f32": err(chunked_bf, chunked32),
+           "logit_abs_max": chunked32[:, :cfg.vocab_size].abs().max().item()}
+    cap_depth = REGISTRY_BF16_CAP_DEPTH.get(cfg.name, depth)
+    if cap_depth < depth:
+        c, fz, lo = first_layers(cfg, frozen, lora, cap_depth)
+        pre["bf16_flash_vs_chunked_capped_layers"] = err(
+            make_prefill_step(c, impl="flash")(fz, lo, inputs),
+            make_prefill_step(c, impl="chunked")(fz, lo, inputs))
+    emit({"phase": "registry_prefill", "gpu": gpu, "arch": cfg.name,
+          "input": cfg.input_mode, "batch": 4, "seq": 1024, "impl": "flash",
+          "step_s": step_s, "logits_check_layers": depth,
+          "bf16_cap_layers": cap_depth,
+          "logits_check": ("full depth" if depth == cfg.n_layers else
+                           f"first {depth} of {cfg.n_layers} layers, full "
+                           "width, sliced weights (an f32 copy of the whole "
+                           "model does not fit beside the bf16 one)"),
+          "f32_tol": f32_tol, "bf16_tol": bf16_tol, **pre,
+          "launches": counts, "launches_by_version": versions})
+    assert logits_flash.shape == (4, cfg.padded_vocab)
+    assert torch.isfinite(logits_flash[:, :cfg.vocab_size]).all()
+    assert all(math.isfinite(v) for v in pre.values()), pre
+    assert pre["f32_flash_vs_chunked"] <= f32_tol, pre
+    assert pre["bf16_flash_vs_chunked" if cap_depth == depth else
+               "bf16_flash_vs_chunked_capped_layers"] <= bf16_tol, pre
+    assert (pre["bf16_flash_vs_f32"]
+            <= 2.0 * pre["bf16_chunked_vs_f32"] + 0.05), pre
+    # one attention a layer; the LoRA goes the plain way in a prefill step
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    for name in ("lora_matmul", "lora_matmul_grouped", "flash_decode",
+                 "ssd_intra_chunk"):
+        assert counts[name] == 0, counts
+    assert versions["flash_attention"] == {
+        "wgmma": cfg.n_layers, "tf32x3": 0, "simt": 0}, versions
+    return counts, versions
+
+
+def registry_train(cfg, frozen, lora, seed, gpu):
+    """(c) split == unsplit in f32 over the first ``SPLIT_LAYERS`` layers at
+    full width, cut 2 (2 x 256, channel off); then one bf16 ``SplitFineTuner``
+    epoch at a CARD cut on 2 x 512 at full depth, where its step fits the
+    card. The fit is predicted from the peak memory of the same
+    ``split_grads`` call on the first 2 and first 4 layers (the step keeps
+    every layer's activations); a config that does not fit prints the
+    predicted bytes and runs no epoch. 0 kernel launches on the path.
+    Returns whether the epoch ran."""
+    from repro_torch import kernels
+    from repro_torch.core import splitting as S
+    from repro_torch.core.channel import WirelessChannel
+    from repro_torch.core.hardware import (EDGE_FLEET, SERVER_RTX4060TI,
+                                           SimParams)
+    from repro_torch.core.protocol import SplitFineTuner
+    from repro_torch.data import make_fleet_datasets
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.models.common import batch_to_device, tree_map
+    from repro_torch.optim import adamw, constant_schedule
+    dev = frozen["embed"].device
+    key = "embeds" if cfg.input_mode == "embeds" else "tokens"
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    c, fz, lo = first_layers(cfg, frozen, lora, SPLIT_LAYERS)
+    c32 = dataclasses.replace(c, dtype="float32")
+    fz32 = tree_map(lambda v: v.float(), fz)
+    inputs = model_inputs(cfg, (2, 256), seed + 200)
+    labels = torch.as_tensor(np.random.default_rng(seed + 201).integers(
+        0, cfg.vocab_size, (2, 256)), device=dev)
+    ref_loss, ref = value_and_grad(
+        lambda l: M.forward_loss(fz32, l, {key: inputs, "labels": labels},
+                                 c32, impl="naive", remat=False), lo)
+    cut = SPLIT_LAYERS // 2
+    d, s_ = S.split_lora(lo, cut)
+    loss, gd, gs = S.split_grads(fz32, d, s_, inputs, labels, cfg=c32,
+                                 cut=cut, compress=False)
+    split = {"layers": SPLIT_LAYERS, "cut": cut, "batch": [2, 256],
+             "dtype": "float32", "tol": SPLIT_TOL, "loss": ref_loss.item(),
+             "loss_rel_err": abs(loss.item() / ref_loss.item() - 1),
+             "worst_leaf_rel_err": _tree_err(S.merge_lora(gd, gs), ref)}
+    del fz32, ref, gd, gs
+    torch.cuda.empty_cache()
+
+    # the full-depth step's memory, from its first 2 and first 4 layers
+    mb = batch_to_device(make_fleet_datasets(cfg, 1, seed=1)[0].minibatch(
+        2, 512), dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks = {}
+    for n in (2, 4):
+        c, fz, lo = first_layers(cfg, frozen, lora, n)
+        d, s_ = S.split_lora(lo, n // 2)
+        torch.cuda.reset_peak_memory_stats()
+        S.split_grads(fz, d, s_, mb[key], mb["labels"], cfg=c, cut=n // 2)
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() - base
+    per_layer = (peaks[4] - peaks[2]) / 2
+    lora_bytes = sum(x.numel() * x.element_size() for x in _leaves(lora))
+    # + AdamW's two moments, the grads and the updates of the adapters
+    predicted = base + peaks[2] + (cfg.n_layers - 2) * per_layer \
+        + 4 * lora_bytes
+    card = torch.cuda.get_device_properties(0).total_memory
+    fit = {"predicted_peak_bytes": int(predicted),
+           "activation_bytes_per_layer": int(per_layer),
+           "card_bytes": card, "fits": predicted <= FIT_SHARE * card}
+    epoch = None
+    if fit["fits"]:
+        sim = SimParams(local_epochs=1, mini_batch=2, seq_len=512)
+        ft = SplitFineTuner(
+            cfg, frozen, lora, adamw(constant_schedule(3e-3)),
+            devices=[EDGE_FLEET[0]], server=SERVER_RTX4060TI,
+            channels=[WirelessChannel("normal", seed=seed)],
+            datasets=make_fleet_datasets(cfg, 1, seed=1), sim=sim,
+            policy="card", cost_cfg=cfg)
+        clock = StageClock()
+        ft.executor.mark = clock
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = ft.run(1)
+        torch.cuda.synchronize()
+        log = dataclasses.asdict(res.logs[0])
+        epoch = {"wall_s": time.perf_counter() - t0,
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                 "committed": res.rounds_committed(), "log": log,
+                 "epochs_ms": clock.epochs()}
+        del ft, res
+    counts = kernels.launch_counts()
+    # ----------------------------------------------------------------------
+    emit({"phase": "registry_train", "gpu": gpu, "arch": cfg.name,
+          "split": split, "fit": fit, "epoch": epoch,
+          "epoch_batch": [2, 512], "epoch_dtype": cfg.dtype,
+          "launches": counts})
+    assert split["loss_rel_err"] <= SPLIT_TOL, split
+    assert split["worst_leaf_rel_err"] <= SPLIT_TOL, split
+    if epoch is not None:
+        assert epoch["committed"] == 1, epoch
+        assert (epoch["log"]["status"] == "ok"
+                and math.isfinite(epoch["log"]["loss"])), epoch
+    assert all(n == 0 for n in counts.values()), counts
+    return fit["fits"]
+
+
+def phase_registry(seed: int):
+    """The rest of the model registry at its full published configs, bf16,
+    random weights from ``seed``, four adapters with non-zero B: the kernels
+    at the shapes the path hands them and the timing rows, then for each
+    config (a) serve (``ServingEngine`` for token configs, ``generate`` for
+    embeds configs), (b) the flash prefill step on (4, 1024) with the bf16
+    logits against f32, (c) split training. The path's launches are (a)'s
+    and (b)'s, summed over the six configs. Returns (counts, runs,
+    versions, timing rows)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterBank
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full f32
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    rows = registry_kernels(seed, gpu)
+    total, versions, fits = {}, {}, {}
+    for i, arch in enumerate(REGISTRY_ARCHS):
+        t0 = time.time()
+        cfg = get_config(arch)
+        frozen = M.init_params(seed, cfg)["frozen"]   # device=None: the card
+        adapters = [make_adapter(cfg, seed + 1 + j, dev) for j in range(4)]
+        torch.cuda.synchronize()
+        emit({"phase": "registry_init", "arch": arch, "family": cfg.family,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+              "vocab": [cfg.vocab_size, cfg.padded_vocab],
+              "param_bytes": sum(x.numel() * x.element_size()
+                                 for x in _leaves(frozen)),
+              "seconds": time.time() - t0})
+        if cfg.input_mode == "tokens":
+            counts, by = family_serve(cfg, frozen, AdapterBank(adapters),
+                                      seed + i, gpu, chunk=REGISTRY_CHUNK,
+                                      phase="registry_serve")
+        else:
+            counts, by = registry_generate(cfg, frozen, adapters[0], seed + i,
+                                           gpu)
+        lora = adapters[0]
+        del adapters
+        pc, pby = registry_prefill(cfg, frozen, lora, seed + i, gpu)
+        for c in (counts, pc):
+            for name, n in c.items():
+                total[name] = total.get(name, 0) + n
+        for b in (by, pby):
+            for name, v in b.items():
+                acc = versions.setdefault(name, {})
+                for ver, n in v.items():
+                    acc[ver] = acc.get(ver, 0) + n
+        fits[arch] = registry_train(cfg, frozen, lora, seed + i, gpu)
+        del frozen, lora
+        torch.cuda.empty_cache()
+    emit({"phase": "registry", "gpu": gpu, "archs": list(REGISTRY_ARCHS),
+          "epoch_fits": fits, "launches": total,
+          "launches_by_version": versions, "seconds": time.time() - t_phase})
+    assert total["flash_attention"] > 0 and total["lora_matmul"] > 0
+    return total, dict(total), versions, rows
+
 # ---------------------------------------------------------------------------
 
 
@@ -2399,7 +2791,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--only", choices=("kernels", "train", "families",
-                                       "fleet", "calibrate"),
+                                       "fleet", "calibrate", "registry"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -2408,7 +2800,8 @@ def main() -> int:
                          "calibrate pipeline's smoke probes for the "
                          "measured tables, then the fleet phase; "
                          "calibrate: the calibrate phase alone (its first "
-                         "launch builds the kernels)")
+                         "launch builds the kernels); registry: build, then "
+                         "the registry phase alone")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -2462,6 +2855,11 @@ def main() -> int:
         emit({"phase": "done", "only": "families",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "registry":
+        phase_registry(args.seed)
+        emit({"phase": "done", "only": "registry",
+              "seconds": time.time() - t_start})
+        return 0
     if args.only == "fleet":
         from repro_torch.core.measured_cost import LatencyTable
         from repro_torch.launch import calibrate
@@ -2487,6 +2885,10 @@ def main() -> int:
     by_path["fleet"] = phase_fleet(args.seed, tables)
     by_path["train"] = phase_train(args.seed, args.profile)
     by_path["families"] = phase_families(args.seed)
+    *registry, registry_rows = phase_registry(args.seed)
+    by_path["registry"] = tuple(registry)
+    for name, extra in registry_rows.items():     # after the headline rows
+        rows[name] += extra
 
     kernels_line = []
     for name, by_shape in rows.items():

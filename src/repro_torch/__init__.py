@@ -6,5 +6,6 @@ Ported so far: the multi-tenant LoRA serving path of the dense families
 (configs, model, KV cache, ``generate``, ``ServingEngine``, admission), the
 decision stack and its measured-cost calibration, split LoRA fine-tuning
 (splitting, optimizer, train step, trainer, checkpoints, faults, the SL
-protocol), and five hand-written CUDA kernels under ``csrc/``.
+protocol), the fleet simulator, the command line (``python -m
+repro_torch``), and five hand-written CUDA kernels under ``csrc/``.
 """

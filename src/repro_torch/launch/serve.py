@@ -52,7 +52,12 @@ def generate(cfg: ModelConfig, frozen: Params, lora: Optional[Params],
 
     prompt: (B, S0) tokens (or (B, S0, d) embeds). Returns (B, max_new)
     int32. Sampling (``temperature > 0``) draws from ``generator``, which
-    must live on the device."""
+    must live on the device.
+
+    An embeds-mode decoder (the audio and vlm families) reads the tokens it
+    generates through its own embedding table: the frontend provides the
+    prompt only. (The reference's ``generate`` feeds the raw tokens back
+    and raises at the first generated token there.)"""
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device)
     b = prompt.shape[0]
@@ -70,7 +75,9 @@ def generate(cfg: ModelConfig, frozen: Params, lora: Optional[Params],
         generator = torch.Generator(device=device).manual_seed(0)
     for i in range(max_new):
         out.append(tok)
-        logits, cache = serve_step(frozen, lora, cache, tok, s0 + i)
+        inp = (frozen["embed"][tok.to(torch.long)]
+               if cfg.input_mode == "embeds" else tok)
+        logits, cache = serve_step(frozen, lora, cache, inp, s0 + i)
         if temperature > 0:
             probs = torch.softmax(logits / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator

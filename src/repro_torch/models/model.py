@@ -50,10 +50,10 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig,
     head = None
     if not cfg.tie_embeddings:
         head = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device).T
-    layers = _stack([blocks.init_layer(gen, cfg, dtype, device)
-                     for _ in range(cfg.n_layers)])
-    lora_layers = _stack([blocks.init_layer_lora(gen, cfg, device)
-                          for _ in range(cfg.n_layers)])
+    layers = _stack_layers(lambda: blocks.init_layer(gen, cfg, dtype, device),
+                           cfg.n_layers)
+    lora_layers = _stack_layers(lambda: blocks.init_layer_lora(gen, cfg, device),
+                                cfg.n_layers)
     frozen: Params = {
         "embed": embed,
         "layers": layers,
@@ -64,8 +64,16 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig,
     return {"frozen": frozen, "lora": {"layers": lora_layers}}
 
 
-def _stack(trees) -> Params:
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+def _stack_layers(make_layer, n: int) -> Params:
+    """``n`` calls of ``make_layer`` stacked along a new leading axis, each
+    copied into its slot as it is made: the peak is the stack and one layer,
+    not two stacks (internvl2-26b's layers take 37.5 GB in bf16)."""
+    first = make_layer()
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else make_layer()
+        tree_map(lambda dst, x: dst[i].copy_(x), out, layer)
+    return out
 
 
 def slice_layers(tree: Params, lo: int, hi: int) -> Params:

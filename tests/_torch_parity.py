@@ -44,11 +44,14 @@ def nonzero_b(lora, seed, std=0.02):
     return jax.tree_util.tree_map_with_path(fix, lora)
 
 
-def make_pair(arch, seed=0, **overrides):
-    """(jax cfg, torch cfg, jax params, torch params) at the reduced size,
-    adapters with non-zero B, same weights on both sides."""
-    jcfg = jax_get_config(arch).reduced()
-    tcfg = torch_get_config(arch).reduced()
+def make_pair(arch, seed=0, reduced=True, **overrides):
+    """(jax cfg, torch cfg, jax params, torch params) at the reduced size
+    (``reduced=False``: the published config; either with ``overrides``
+    applied), adapters with non-zero B, same weights on both sides."""
+    jcfg = jax_get_config(arch)
+    tcfg = torch_get_config(arch)
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
     if overrides:
         jcfg = dataclasses.replace(jcfg, **overrides)
         tcfg = dataclasses.replace(tcfg, **overrides)

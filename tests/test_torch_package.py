@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "launch.mesh", "launch.fig4_comparison",
                  "launch.fig3_decisions", "launch.fleet_scale_bench",
                  "launch.hierarchy_bench", "launch.churn_bench",
-                 "launch.fleet_sweep", "launch.quickstart"):
+                 "launch.fleet_sweep", "launch.quickstart", "__main__",
+                 "launch.serve_multiarch", "launch.edge_finetune"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -135,13 +136,17 @@ def no_gpu():
                                    "simulate_hierarchical_fleet",
                                    "TieredRoundContext.build",
                                    "make_fleet_mesh", "fig4_comparison.run",
-                                   "quickstart.run"])
+                                   "quickstart.run", "python -m repro_torch",
+                                   "serve_multiarch.main",
+                                   "edge_finetune.run"])
 def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
     from repro_torch.configs.base import get_config
     from repro_torch.core import (channel, cost_model, hardware, measured_cost,
                                   scheduler)
-    from repro_torch.launch import (calibrate, fig4_comparison, mesh,
-                                    quickstart, serve, train)
+    from repro_torch import __main__ as cli
+    from repro_torch.launch import (calibrate, edge_finetune, fig4_comparison,
+                                    mesh, quickstart, serve, serve_multiarch,
+                                    train)
     from repro_torch.models import model as M
     from repro_torch.serving import ServingEngine
     cfg = get_config("llama32-1b").reduced()
@@ -185,6 +190,10 @@ def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
         "make_fleet_mesh": lambda: mesh.make_fleet_mesh(2),
         "fig4_comparison.run": lambda: fig4_comparison.run(rounds=1),
         "quickstart.run": lambda: quickstart.run(pretrain_steps=0, rounds=1),
+        "python -m repro_torch": lambda: cli.main(["sweep", "--rounds", "1"]),
+        "serve_multiarch.main": lambda: serve_multiarch.main([]),
+        "edge_finetune.run": lambda: edge_finetune.run(rounds=1,
+                                                       pretrain_steps=0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
