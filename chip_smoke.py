@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only fleet     # build + smoke calibrate + fleet
     python3 chip_smoke.py --only calibrate # the calibrate phase alone
     python3 chip_smoke.py --only registry  # build + the registry phase
+    python3 chip_smoke.py --only dryrun    # the dryrun phase alone
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -89,7 +90,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
            first 4 layers where an f32 copy does not fit); split == unsplit
            in f32 over 4 layers at full width and one bf16 ``SplitFineTuner``
            epoch at a CARD cut where the full-depth step fits the card (its
-           memory predicted from 2 and 4 layers), no kernel
+           memory predicted from 2 and 4 layers, and traced at full
+           depth on ``meta`` by the analysis layer), no kernel
+  dryrun   ``launch/dryrun``: every (arch x input shape) combo of the
+           reference's dry run traced on ``meta`` at full published width
+           (40, kimi-k2-1t-a32b included; FLOPs, HBM bytes, peak bytes,
+           roofline terms against the H100), in worker processes, beside
+           the card check: the same train / prefill / decode programs of
+           qwen3-0.6b, qwen2-7b, mamba2-370m and granite-moe-3b-a800m run
+           on the card at full width and depth (the batch cut), their
+           FLOP count equal to the meta record's, the meta peak within
+           10 % of ``max_memory_allocated``, CUDA-event time beside the
+           record's bound; no kernel
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line; the line before the last holds the card's name and
@@ -2578,6 +2590,27 @@ def registry_prefill(cfg, frozen, lora, seed, gpu):
     return counts, versions
 
 
+def dryrun_split_peak(cfg, mb, key) -> int:
+    """The analysis layer's peak for the ``split_grads`` call that
+    ``registry_train`` measures on 2 and 4 layers, at full depth (cut in
+    the middle, the batch ``mb``'s shapes and dtypes), traced on ``meta``,
+    plus the same 4 x the adapters' bytes (AdamW's two moments, the grads,
+    the updates)."""
+    from repro_torch.core import splitting as S
+    from repro_torch.launch.analysis import analyze_step
+    from repro_torch.models import model as M
+    params = M.abstract_params(cfg)
+    d, s_ = S.split_lora(params["lora"], cfg.n_layers // 2)
+    inputs, labels = (torch.empty_like(mb[k], device="meta")
+                      for k in (key, "labels"))
+    _, _, mem = analyze_step(
+        lambda *a: S.split_grads(*a, cfg=cfg, cut=cfg.n_layers // 2),
+        params["frozen"], d, s_, inputs, labels)
+    lora_bytes = sum(x.numel() * x.element_size()
+                     for x in _leaves(params["lora"]))
+    return int(mem["peak_bytes"] + 4 * lora_bytes)
+
+
 def registry_train(cfg, frozen, lora, seed, gpu):
     """(c) split == unsplit in f32 over the first ``SPLIT_LAYERS`` layers at
     full width, cut 2 (2 x 256, channel off); then one bf16 ``SplitFineTuner``
@@ -2642,6 +2675,7 @@ def registry_train(cfg, frozen, lora, seed, gpu):
         + 4 * lora_bytes
     card = torch.cuda.get_device_properties(0).total_memory
     fit = {"predicted_peak_bytes": int(predicted),
+           "dryrun_predicted_peak_bytes": dryrun_split_peak(cfg, mb, key),
            "activation_bytes_per_layer": int(per_layer),
            "card_bytes": card, "fits": predicted <= FIT_SHARE * card}
     epoch = None
@@ -2740,6 +2774,187 @@ def phase_registry(seed: int):
     return total, dict(total), versions, rows
 
 # ---------------------------------------------------------------------------
+# The dry run: meta-device records, held against the same steps on the card
+# ---------------------------------------------------------------------------
+
+#: the card check: arch -> {shape: the global batch run on one card}. Only
+#: the batch is cut: to what one card holds (the matrix's peaks) and, where
+#: a call takes seconds (the trains, and the 32k prefills at 15-25 s a row:
+#: the chunked path's f32 attention, memory-bound), to one or two rows
+DRYRUN_CARD = {
+    "qwen3-0.6b": {"train_4k": 2, "prefill_32k": 1, "decode_32k": 8},
+    "qwen2-7b": {"train_4k": 2, "prefill_32k": 1, "decode_32k": 16,
+                 "long_500k": 1},
+    "mamba2-370m": {"train_4k": 2, "prefill_32k": 1, "decode_32k": 128,
+                    "long_500k": 1},
+    "granite-moe-3b-a800m": {"train_4k": 2, "prefill_32k": 1,
+                             "decode_32k": 16},
+}
+DRYRUN_WORKERS = 6          # processes tracing on meta beside the card check
+PEAK_TOL = 0.10             # meta peak vs max_memory_allocated, relative
+DRYRUN_REPS = 3             # timed calls after the warm-up, median
+
+
+def _finite(tree) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in _leaves(tree)
+               if x.is_floating_point())
+
+
+def dryrun_card_run(arch: str, shape_name: str, batch: int, dev):
+    """One dry-run program on the card at its full published width and
+    depth, the global batch cut to ``batch``: the warm-up under
+    ``FlopCounterMode`` (the card's FLOP count) with the peak memory above
+    what was allocated before the arguments were made, then
+    ``DRYRUN_REPS`` calls timed with CUDA events. Returns the measurements;
+    asserts the output is finite and of its shape."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch.dryrun import build_step, combo_config
+    cfg = combo_config(arch, shape_name)
+    shape = dataclasses.replace(INPUT_SHAPES[shape_name], global_batch=batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    step, args = build_step(cfg, shape, device=dev)
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if shape.kind == "train":
+        loss, new_lora, _ = out
+        assert loss.dim() == 0 and _finite(loss) and _finite(new_lora), arch
+    else:
+        logits = out[0] if shape.kind == "decode" else out
+        assert tuple(logits.shape) == (batch, cfg.padded_vocab), logits.shape
+        assert _finite(logits), (arch, shape_name)
+    del out
+    times = []
+    for _ in range(DRYRUN_REPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / 1e3)
+        del out
+    del step, args
+    return {"flops": float(fc.get_total_flops()), "peak_bytes": peak,
+            "argument_bytes": arg_bytes, "times_s": times,
+            "median_s": float(np.median(times))}
+
+
+def phase_dryrun(seed: int):
+    """(a) ``launch/dryrun.lower_combo`` over DRYRUN_ARCHS x INPUT_SHAPES on
+    ``meta`` at full published width (40 combos, kimi-k2-1t-a32b included),
+    in ``DRYRUN_WORKERS`` processes, beside (b) the card check: the same
+    three programs run on the card for the archs of ``DRYRUN_CARD`` at
+    full width and depth, the batch cut, each held against its own meta
+    record at that batch: the FLOP count equal, the meta peak within
+    ``PEAK_TOL`` of the card's. No kernel launches on this path."""
+    del seed                        # weights from seed 0, as ``build_step``
+    from repro_torch import kernels
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.core.hardware import H100_PEAK_FLOPS
+    from repro_torch.launch import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = False   # the programs' f32
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    matrix = [(a, s, {}) for a in dryrun.DRYRUN_ARCHS for s in INPUT_SHAPES]
+    card_jobs = [(a, s, {"batch": b}) for a, by in DRYRUN_CARD.items()
+                 for s, b in by.items()]
+    done = []
+    pool, result = dryrun.start_matrix(
+        matrix + card_jobs, DRYRUN_WORKERS,
+        callback=lambda _: done.append(time.time() - t_phase))
+    with pool:
+        # ---- the main path: counts set to 0 just before, read just after --
+        kernels.reset_launch_counts()
+        card = {(a, s): dryrun_card_run(a, s, kw["batch"], dev)
+                for a, s, kw in card_jobs}
+        counts = kernels.launch_counts()
+        # ------------------------------------------------------------------
+        t_card = time.time() - t_phase
+        records = result.get()
+    t_matrix = time.time() - t_phase
+    failed = []
+    for rec in records[:len(matrix)]:
+        r = rec.get("roofline", {})
+        line = {"phase": "dryrun_combo", "arch": rec["arch"],
+                "shape": rec["shape"], "ok": rec["ok"]}
+        if rec["ok"]:
+            raw = rec["raw_scan_costs"]
+            line.update({
+                "flops": r["flops"], "hbm_bytes": r["hbm_bytes"],
+                "peak_bytes": rec["memory"]["peak_bytes"],
+                "argument_bytes": rec["memory"]["argument_bytes"],
+                "fits": rec["fits"], "dominant": r["dominant"],
+                "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                "bound_s": r["bound_s"],
+                "useful_flops_ratio": rec["useful_flops_ratio"],
+                "probe_flops_equal": r["flops"] == raw["flops"],
+                "probe_hbm_rel_gap": abs(r["hbm_bytes"] / raw["hbm_bytes"]
+                                         - 1),
+                "trace_s": rec["lower_compile_s"],
+                "probe_s": rec.get("probe_s")})
+            if not (line["probe_flops_equal"] and r["compute_s"] > 0
+                    and r["memory_s"] > 0 and line["peak_bytes"] > 0):
+                failed.append(line)
+        else:
+            line["error"] = rec["error"]
+            failed.append(line)
+        emit(line)
+    checks = []
+    for (a, s, kw), rec in zip(card_jobs, records[len(matrix):]):
+        got = card[(a, s)]
+        line = {"phase": "dryrun_card", "gpu": gpu, "arch": a, "shape": s,
+                "batch": kw["batch"], "ok": rec["ok"], **got}
+        if rec["ok"]:
+            meta_peak = rec["memory"]["peak_bytes"]
+            line.update({
+                "reduced": rec.get("reduced"), "meta_flops":
+                    rec["raw_scan_costs"]["flops"],
+                "meta_peak_bytes": meta_peak,
+                "meta_argument_bytes": rec["memory"]["argument_bytes"],
+                "peak_rel_err": abs(meta_peak / got["peak_bytes"] - 1),
+                "bound_s": rec["roofline"]["bound_s"],
+                "dominant": rec["roofline"]["dominant"],
+                "achieved_flops_per_s": got["flops"] / got["median_s"],
+                "share_of_bf16_peak": got["flops"] / got["median_s"]
+                / H100_PEAK_FLOPS["bfloat16"]})
+            line["flops_equal"] = got["flops"] == line["meta_flops"]
+        else:
+            line["error"] = rec["error"]
+        checks.append(line)
+        emit(line)
+    # the bf16 logits' product, mm's out_dtype overload, counted on the card
+    from torch.utils.flop_counter import FlopCounterMode
+    x = torch.ones(64, 128, dtype=torch.bfloat16, device=dev)
+    with FlopCounterMode(display=False) as fc:
+        torch.mm(x, x.t(), out_dtype=torch.float32)
+    mm_out_dtype_flops = fc.get_total_flops()
+    emit({"phase": "dryrun", "gpu": gpu, "combos": len(matrix),
+          "mm_out_dtype_flops": [mm_out_dtype_flops, 2 * 64 * 128 * 64],
+          "combos_ok": sum(r["ok"] for r in records[:len(matrix)]),
+          "fit_one_card": sorted(f"{r['arch']} x {r['shape']}"
+                                 for r in records[:len(matrix)]
+                                 if r.get("fits")),
+          "card_runs": len(card_jobs), "launches": counts,
+          "workers": DRYRUN_WORKERS, "matrix_s": done[0], "card_s": t_card,
+          "seconds": t_matrix})
+    assert not failed, failed
+    assert mm_out_dtype_flops == 2 * 64 * 128 * 64, mm_out_dtype_flops
+    for line in checks:
+        assert line["ok"] and line["flops_equal"], line
+        assert line["peak_rel_err"] <= PEAK_TOL, line
+    assert all(n == 0 for n in counts.values()), counts
+    return counts
+
+# ---------------------------------------------------------------------------
 
 
 # the source of the version the main path runs; the redesigned kernels keep
@@ -2791,7 +3006,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--only", choices=("kernels", "train", "families",
-                                       "fleet", "calibrate", "registry"),
+                                       "fleet", "calibrate", "registry",
+                                       "dryrun"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -2801,7 +3017,8 @@ def main() -> int:
                          "measured tables, then the fleet phase; "
                          "calibrate: the calibrate phase alone (its first "
                          "launch builds the kernels); registry: build, then "
-                         "the registry phase alone")
+                         "the registry phase alone; dryrun: the dryrun "
+                         "phase alone (no kernel is built)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -2828,6 +3045,11 @@ def main() -> int:
     if args.only == "calibrate":
         phase_calibrate(args.seed)
         emit({"phase": "done", "only": "calibrate",
+              "seconds": time.time() - t_start})
+        return 0
+    if args.only == "dryrun":
+        phase_dryrun(args.seed)
+        emit({"phase": "done", "only": "dryrun",
               "seconds": time.time() - t_start})
         return 0
 
@@ -2887,6 +3109,7 @@ def main() -> int:
     by_path["families"] = phase_families(args.seed)
     *registry, registry_rows = phase_registry(args.seed)
     by_path["registry"] = tuple(registry)
+    phase_dryrun(args.seed)
     for name, extra in registry_rows.items():     # after the headline rows
         rows[name] += extra
 

@@ -1,7 +1,10 @@
 """Hardware profiles: the paper's edge fleet (Table I), the server tier and
 the simulation constants (Table II). A copy of the reference's
 ``core/hardware.py`` (numpy only, bit-identical) without its TPU server
-profile, which only the TPU lowering/analysis layer uses.
+profile, which only the TPU lowering/analysis layer uses: it describes a
+TPU v5e chip, and the port's analysis layer (``launch/analysis.py``) and
+kernel bounds (``launch/calibrate.py``) read the H100's constants below in
+its place.
 
 The paper's throughput model: a processor sustains ``f * delta * sigma``
 FLOP/s (GPU frequency x FLOPs/core/cycle x cores), Eq. (7)-(8). Server power
@@ -200,3 +203,19 @@ class SimParams:
 
 
 DEFAULT_SIM = SimParams()
+
+
+# --- NVIDIA H100 SXM (the port's card) -------------------------------------
+# Published peaks of one H100 SXM, dense (NVIDIA's data sheet), at its full
+# 700 W power limit: the counterpart of the reference's TPU v5e constants.
+
+H100_HBM_BYTES_PER_S = 3.35e12        # HBM3, bytes/s
+H100_HBM_BYTES = 80e9                 # device memory, 80 GB
+#: FLOP/s by operand type: bf16 on the tensor cores, f32 on the CUDA cores
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: the dense TF32 tensor-core rate: an f32 product taken as three tf32
+#: products (the "tf32x3" kernels and ssd_intra_chunk's "tc") costs 3 of them
+H100_TF32_FLOPS = 495e12
+H100_NVLINK_LINKS = 18                # NVLink 4 links of one H100 SXM
+H100_NVLINK_BYTES_PER_S = 25e9        # per link and direction (900 GB/s
+                                      # both ways over 18 links)

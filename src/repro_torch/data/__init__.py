@@ -1,2 +1,2 @@
 from repro_torch.data.pipeline import (DeviceDataset, make_fleet_datasets,
-                                       synthetic_lm_task)  # noqa: F401
+                                       synthetic_lm_task, batch_specs)  # noqa: F401

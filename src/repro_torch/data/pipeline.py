@@ -7,9 +7,10 @@ is measurable: loss under the fine-tuned adapters must drop below the
 frozen-backbone loss. For the 'embeds' frontends (audio/VLM) the pipeline
 emits precomputed frame/patch embeddings per DESIGN.md.
 
-Numpy only, and a near-verbatim copy of the JAX package's pipeline, so the
+A near-verbatim copy of the JAX package's pipeline in numpy, so the
 batches of a seed are bit-identical to the reference's. Batches are numpy;
-``models.common.batch_to_device`` moves them to the card.
+``models.common.batch_to_device`` moves them to the card. ``batch_specs``
+gives the dry run's stand-ins: tensors on ``meta``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 
 
 def synthetic_lm_task(vocab: int, *, seed: int = 0, order_bias: float = 9.0
@@ -92,3 +94,31 @@ def make_fleet_datasets(cfg: ModelConfig, n_devices: int, *, vocab: int = 0,
                           size=sizes[m], seed=seed + 101 * (m + 1),
                           noise=0.05 + 0.03 * m)
             for m in range(n_devices)]
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape, cut: int = 0
+                ) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input (the reference's
+    ShapeDtypeStructs; nothing allocated). ``cut > 0`` (train): the job is
+    the SL *server side* — its input is the phi-compressed smashed data at
+    the cut, not raw tokens."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "train" and cut > 0:
+        return {"smashed": spec((b, s, cfg.d_model), torch.bfloat16),
+                "labels": spec((b, s), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        if cfg.input_mode == "embeds":
+            inputs = {"embeds": spec((b, s, cfg.d_model), torch.bfloat16)}
+        else:
+            inputs = {"tokens": spec((b, s), torch.int32)}
+        if shape.kind == "train":
+            inputs["labels"] = spec((b, s), torch.int32)
+        return inputs
+    # decode: one new token against a cache of seq_len
+    if cfg.input_mode == "embeds":
+        return {"embeds": spec((b, 1, cfg.d_model), torch.bfloat16)}
+    return {"tokens": spec((b, 1), torch.int32)}

@@ -38,7 +38,9 @@ from repro_torch.core import card as C
 from repro_torch.core.channel import draw_channel_matrix
 from repro_torch.core.cost_model import (BatchedRoundContext, RoundContext,
                                          Workload, resolve_compute)
-from repro_torch.core.hardware import (DEFAULT_SIM, SERVER_RTX4060TI,
+from repro_torch.core.hardware import (DEFAULT_SIM, H100_HBM_BYTES_PER_S,
+                                       H100_PEAK_FLOPS, H100_TF32_FLOPS,
+                                       SERVER_RTX4060TI,
                                        make_heterogeneous_fleet,
                                        profile_from_throughput)
 from repro_torch.core.measured_cost import (LatencyTable, RooflineFit,
@@ -52,13 +54,6 @@ from repro_torch.models.common import describe_device, resolve_device
 SCHEMA = "torch-calibrate/v1"
 DEFAULT_TABLE_BATCH = 4     # SimParams.mini_batch — the fleet workload shape
 DEFAULT_TABLE_SEQ = 512     # SimParams.seq_len
-
-# published peaks of one H100 SXM (dense): bytes/s of HBM3, FLOP/s by type
-H100_HBM_BYTES_PER_S = 3.35e12
-H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-#: the dense TF32 tensor-core rate: an f32 product taken as three tf32
-#: products (the "tf32x3" kernels and ssd_intra_chunk's "tc") costs 3 of them
-H100_TF32_FLOPS = 495e12
 
 #: the kernel benches' shapes (the reference's): lora_matmul (M, K, N, r);
 #: flash_attention (B, S, Hq, Hkv, D), causal; ssd_scan (B, L, nh, hp, ns,
@@ -76,7 +71,7 @@ NEAR_TIE_REL = 1e-5
 def h100_bound_s(hbm_bytes: float, flops: float, dtype=torch.float32):
     """(least seconds an H100 could take, "bytes" | "operations")."""
     t_bytes = hbm_bytes / H100_HBM_BYTES_PER_S
-    t_ops = flops / H100_PEAK_FLOPS[dtype]
+    t_ops = flops / H100_PEAK_FLOPS[str(dtype).removeprefix("torch.")]
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 

@@ -1,0 +1,304 @@
+"""Dry run: trace every (architecture x input shape) step program on the
+``meta`` device at full published width — nothing allocated, nothing
+computed — and record its FLOPs, HBM bytes, argument / output / peak bytes
+and roofline terms against one NVIDIA H100.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out dryrun.jsonl
+
+The counterpart of the JAX package's ``launch/dryrun.py``, which lowers and
+compiles each combo onto a forced 512-device host mesh and reads XLA's cost
+and memory analyses. Here one card is the mesh (``"mesh": "1"``): the
+step's parameters, optimizer state, cache and batch are ``meta`` tensors
+(``models.model.abstract_params``, ``data.batch_specs``,
+``models.model.init_cache(..., device="meta")``) and ``launch.analysis``
+counts the aten ops of one traced call. A record holds the whole global
+batch of its ``InputShape`` (the reference's holds one chip's share) and
+says whether its peak ``fits`` one H100's 80 GB. The whole matrix of 40
+combos runs on the CPU too (``--all``; seconds a combo, no allocation).
+``chip_smoke.py --only dryrun`` runs it and holds the records against the
+same steps run on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses as _dc
+import json
+import sys
+import time
+import traceback
+from typing import Dict, Optional
+
+from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
+                                      ModelConfig, get_config,
+                                      long_context_variant)
+from repro_torch.core.hardware import H100_HBM_BYTES
+from repro_torch.data.pipeline import batch_specs
+from repro_torch.launch.analysis import Roofline, analyze_step, model_flops
+from repro_torch.launch.serve import make_prefill_step, make_serve_step
+from repro_torch.launch.train import make_train_step
+from repro_torch.models import model as model_lib
+from repro_torch.optim import adamw, constant_schedule
+
+DRYRUN_ARCHS = tuple(a for a in ARCH_IDS if a != "llama32-1b")
+META = "meta"
+
+
+def combo_config(arch: str, shape_name: str) -> Optional[ModelConfig]:
+    """Config for (arch, shape): ``long_500k`` runs the long-context
+    variant (SWA for attention archs, the native config for SSMs)."""
+    cfg = get_config(arch)
+    if shape_name == "long_500k":
+        return long_context_variant(cfg)
+    return cfg
+
+
+def build_step(cfg: ModelConfig, shape: InputShape, *, cut: int = 0,
+               microbatches: int = 1, remat: bool = True, device=META):
+    """One step program of the reference's dry run and its arguments on
+    ``device`` (``meta``: shapes only): ``(step, args)``.
+
+      * train: ``make_train_step`` (AdamW at 1e-4) over the LoRA tree's
+        optimizer state and ``batch_specs(cfg, shape, cut)``;
+      * prefill: ``make_prefill_step`` (chunked attention) on the tokens or
+        embeds;
+      * decode: ``make_serve_step`` (the naive decode) on one token against
+        a cache of ``seq_len`` at ``t = seq_len - 1``. The reference lowers
+        ``t`` as an abstract scalar; on ``meta`` only shapes matter.
+
+    None of the three reaches a kernel, as in the reference. For a ``cuda``
+    device the parameters are drawn from seed 0 and the inputs are zeros
+    (the card check runs these same programs)."""
+    import torch
+    params = model_lib.init_params(0, cfg, device=device)
+    key = "embeds" if cfg.input_mode == "embeds" else "tokens"
+    specs = batch_specs(cfg, shape, cut if shape.kind == "train" else 0)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+             for k, v in specs.items()}
+    if shape.kind == "train":
+        optimizer = adamw(constant_schedule(1e-4))
+        opt_state = optimizer.init(params["lora"])
+        step = make_train_step(cfg, optimizer, cut=cut,
+                               microbatches=microbatches, remat=remat)
+        return step, (params["frozen"], params["lora"], opt_state, batch)
+    if shape.kind == "prefill":
+        step = make_prefill_step(cfg, device=device)
+        return step, (params["frozen"], params["lora"], batch[key])
+    cache = model_lib.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device=device)
+    step = make_serve_step(cfg, device=device)
+    return step, (params["frozen"], params["lora"], cache, batch[key],
+                  shape.seq_len - 1)
+
+
+def _cost_triple(cfg, shape, *, remat) -> Dict:
+    step, args = build_step(cfg, shape, remat=remat)
+    roof, coll, _mem = analyze_step(step, *args)
+    return {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
+            "collective_bytes": float(coll.total_bytes),
+            "counts": coll.counts, "bytes_by_kind": coll.bytes_by_kind}
+
+
+def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
+                cut: int = 0, compile_: bool = True, unroll: bool = False,
+                roofline_probe: bool = True, microbatches: int = 1,
+                remat: bool = True, capacity_factor: float = 0.0,
+                kv_int8: bool = False,
+                batch: Optional[int] = None) -> Dict:
+    """Full-depth trace (peak memory, raw counts) plus a depth-1/depth-2
+    probe pair for the roofline terms, as in the reference:
+
+      term(L) = term(1) + (L - 1) * (term(2) - term(1))
+
+    The reference needs the pair because XLA counts a scan body once; the
+    port's layer loop is unrolled, so its full-depth counts are exact and
+    the extrapolated terms must agree with them for a uniform layer stack
+    (``raw_scan_costs`` holds the full-depth ones). ``compile_=False``
+    traces the step without counting. ``batch`` replaces the shape's global
+    batch (the card check's cut; the record lists it under ``reduced``).
+    ``multi_pod=True`` raises: the sharded path is not ported."""
+    if multi_pod:
+        raise NotImplementedError(
+            "multi_pod: the sharded dry run needs several cards and is not "
+            "ported (ROADMAP Queue 1 item 9(b)); this dry run is one H100")
+    cfg = combo_config(arch, shape_name)
+    if capacity_factor:
+        cfg = _dc.replace(cfg, capacity_factor=capacity_factor)
+    if kv_int8:
+        cfg = _dc.replace(cfg, kv_cache_dtype="int8")
+    shape = INPUT_SHAPES[shape_name]
+    if batch is not None and batch != shape.global_batch:
+        reduced = {"global_batch": [shape.global_batch, batch]}
+        shape = _dc.replace(shape, global_batch=batch)
+    else:
+        reduced = None
+    chips = 1
+    rec: Dict = {"arch": arch, "shape": shape_name, "unroll": unroll,
+                 "mesh": "1", "chips": chips, "device": META,
+                 "cut": cut, "microbatches": microbatches, "remat": remat,
+                 "capacity_factor": capacity_factor or None,
+                 "kv_int8": kv_int8, "ok": False}
+    if reduced:
+        rec["reduced"] = reduced
+
+    t0 = time.time()
+    step, args = build_step(cfg, shape, cut=cut, microbatches=microbatches,
+                            remat=remat)
+    if not compile_:
+        step(*args)
+        rec["lower_compile_s"] = round(time.time() - t0, 1)
+        rec["ok"] = True
+        return rec
+    roof_raw, coll_raw, mem = analyze_step(step, *args, chips=chips)
+    del step, args
+    rec["lower_compile_s"] = round(time.time() - t0, 1)
+    rec["memory"] = mem
+    rec["fits"] = mem["peak_bytes"] <= H100_HBM_BYTES
+    rec["raw_scan_costs"] = {"flops": roof_raw.flops,
+                             "hbm_bytes": roof_raw.hbm_bytes,
+                             "collective_bytes": float(coll_raw.total_bytes)}
+
+    n_layers_eff = cfg.n_layers - cut
+    if roofline_probe and not unroll and n_layers_eff >= 2:
+        t1 = time.time()
+        # probes run microbatches=1 and cut=0: total FLOPs/bytes per step
+        # are mb-invariant (only the peak changes, and that comes from the
+        # full-depth trace)
+        probes = [_cost_triple(_dc.replace(cfg, n_layers=depth), shape,
+                               remat=remat) for depth in (1, 2)]
+        rec["probe_s"] = round(time.time() - t1, 1)
+        p1, p2 = probes
+        L = n_layers_eff
+
+        def extrap(key):
+            return p1[key] + (L - 1) * (p2[key] - p1[key])
+
+        coll_b = extrap("collective_bytes")
+        counts = {k: p1["counts"].get(k, 0)
+                  + (L - 1) * (p2["counts"].get(k, 0)
+                               - p1["counts"].get(k, 0))
+                  for k in set(p1["counts"]) | set(p2["counts"])}
+        roof = Roofline(flops=extrap("flops"), hbm_bytes=extrap("hbm_bytes"),
+                        collective_bytes=coll_b, chips=chips)
+        rec["collectives"] = {"counts": counts, "total_bytes": coll_b,
+                              "per_layer_bytes":
+                                  p2["collective_bytes"]
+                                  - p1["collective_bytes"]}
+    else:
+        roof = roof_raw
+        rec["collectives"] = {"counts": coll_raw.counts,
+                              "bytes_by_kind": coll_raw.bytes_by_kind,
+                              "total_bytes": float(coll_raw.total_bytes)}
+
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    mf = model_flops(cfg, tokens,
+                     "train" if shape.kind == "train" else "inference")
+    rec.update({
+        "ok": True,
+        "roofline": {**roof.as_dict(), "bound_s": roof.bound_s},
+        "model_flops_global": mf,
+        "model_flops_per_chip": mf / chips,
+        "useful_flops_ratio": (mf / chips) / roof.flops if roof.flops else None,
+        "tokens": tokens,
+    })
+    return rec
+
+
+def lower_record(arch: str, shape_name: str, kwargs: Optional[Dict] = None
+                 ) -> Dict:
+    """``lower_combo``'s record, or a failed record with the error: the
+    boundary that lets a matrix report every combo."""
+    try:
+        return lower_combo(arch, shape_name, **(kwargs or {}))
+    except Exception as e:  # noqa: BLE001 -- recorded and reported
+        return {"arch": arch, "shape": shape_name, "mesh": "1", "ok": False,
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": traceback.format_exc()[-2000:]}
+
+
+def _lower_star(job):
+    return lower_record(*job)
+
+
+def _one_thread() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def start_matrix(jobs, workers: int, callback=None):
+    """Run ``lower_record`` over ``jobs`` ((arch, shape, kwargs) triples) in
+    ``workers`` spawned processes of one thread each; returns (pool,
+    AsyncResult of the records in order). ``callback`` is called with the
+    records once all are done. The caller closes the pool."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        workers, initializer=_one_thread)
+    return pool, pool.map_async(_lower_star, list(jobs), chunksize=1,
+                                callback=callback)
+
+
+def summary_line(rec: Dict) -> str:
+    label = f"{rec['arch']} x {rec['shape']} x 1"
+    if not rec["ok"]:
+        return f"[FAIL] {label}: {rec['error'][:500]}"
+    r = rec.get("roofline", {})
+    return (f"[OK]   {label}: trace {rec['lower_compile_s']}s "
+            f"probes {rec.get('probe_s', '-')}s "
+            f"dominant={r.get('dominant', '-')} "
+            f"compute={r.get('compute_s', 0):.4g}s "
+            f"memory={r.get('memory_s', 0):.4g}s "
+            f"coll={r.get('collective_s', 0):.4g}s "
+            f"peak={rec.get('memory', {}).get('peak_bytes', 0):.4g}B "
+            f"fits={rec.get('fits', '-')}")
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default=None)
+    p.add_argument("--shape", default=None)
+    p.add_argument("--all", action="store_true")
+    p.add_argument("--mesh", choices=["single"], default="single",
+                   help="one H100 (the sharded meshes are not ported)")
+    p.add_argument("--cut", type=int, default=0)
+    p.add_argument("--no-compile", action="store_true",
+                   help="trace only, count nothing")
+    p.add_argument("--unroll", action="store_true",
+                   help="take the full-depth counts, no probe pair (the "
+                        "port's layer loop is always unrolled)")
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--no-remat", action="store_true")
+    p.add_argument("--capacity-factor", type=float, default=0.0)
+    p.add_argument("--kv-int8", action="store_true")
+    p.add_argument("--workers", type=int, default=1,
+                   help="processes tracing combos at once")
+    p.add_argument("--out", default=None, help="append JSONL records here")
+    args = p.parse_args(argv)
+
+    archs = list(DRYRUN_ARCHS) if (args.all or args.arch in (None, "all")) \
+        else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or args.shape in (None, "all")) \
+        else [args.shape]
+    kw = {"cut": args.cut, "compile_": not args.no_compile,
+          "unroll": args.unroll, "microbatches": args.microbatches,
+          "remat": not args.no_remat,
+          "capacity_factor": args.capacity_factor, "kv_int8": args.kv_int8}
+    jobs = [(a, s, kw) for a in archs for s in shapes]
+    if args.workers > 1:
+        pool, result = start_matrix(jobs, args.workers)
+        with pool:
+            records = result.get()
+    else:
+        records = (lower_record(*job) for job in jobs)
+    n_fail = 0
+    for rec in records:
+        n_fail += not rec["ok"]
+        print(summary_line(rec), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    sys.exit(1 if n_fail else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@
 Three score paths:
   * ``naive``   — full (Sq, Skv) score matrix; oracle for tests, and the path
                   of every cached step (decode, chunked prefill).
-  * ``chunked`` — same signature; delegates to ``naive`` (see its docstring).
+  * ``chunked`` — same signature and result; the queries in blocks, so a
+                  long sequence never holds its whole score matrix.
   * ``flash``   — the CUDA kernel in ``repro_torch.kernels.flash_attention``
                   (the counterpart of the reference's ``pallas``, a name
                   taken here for the same route). It has no backward.
@@ -105,13 +106,32 @@ def naive_attention(q, k, v, *, causal: bool, window: int,
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+#: the reference's block sizes: inputs within one block take the naive path
+BLOCK_Q, BLOCK_K = 512, 1024
+
+
 def chunked_attention(q, k, v, *, causal: bool, window: int,
                       q_positions, k_positions) -> torch.Tensor:
-    """Same signature and result as ``naive_attention``, to which it
-    delegates: the reference's chunked path exists to bound the memory of a
-    lowered graph; here the bounded-memory path is ``impl="flash"``."""
-    return naive_attention(q, k, v, causal=causal, window=window,
-                           q_positions=q_positions, k_positions=k_positions)
+    """Same signature and result as ``naive_attention``, with the memory of
+    the reference's chunked path: the queries in blocks of ``BLOCK_Q``, each
+    block against every key as ``naive_attention`` does it (the same
+    products, the same softmax row by row), so the f32 scores of a long
+    sequence take ``BLOCK_Q x Skv`` at a time, not ``Sq x Skv`` (a 32k
+    prompt's would take 120 GB a row at qwen2-7b's 28 heads). The products
+    are the reference's: its online softmax also takes every (query block,
+    key block) pair. Inputs within one block of each take the naive path
+    whole, as in the reference."""
+    sq = q.shape[1]
+    if sq <= BLOCK_Q and k.shape[1] <= BLOCK_K:
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_positions=q_positions,
+                               k_positions=k_positions)
+    return torch.cat([
+        naive_attention(q[:, i:i + BLOCK_Q], k, v, causal=causal,
+                        window=window,
+                        q_positions=q_positions[:, i:i + BLOCK_Q],
+                        k_positions=k_positions)
+        for i in range(0, sq, BLOCK_Q)], dim=1)
 
 
 def attention_scores(q, k, v, *, impl: str, causal: bool, window: int,

@@ -46,9 +46,13 @@ def describe_device(device: torch.device) -> str:
 
 def make_generator(seed: Union[int, torch.Generator],
                    device: torch.device) -> torch.Generator:
-    """An int seed becomes a generator on ``device``; a generator passes."""
+    """An int seed becomes a generator on ``device``; a generator passes.
+    On ``meta`` nothing is drawn, and a generator cannot live there: it is
+    a CPU one."""
     if isinstance(seed, torch.Generator):
         return seed
+    if torch.device(device).type == "meta":
+        device = "cpu"
     return torch.Generator(device=device).manual_seed(int(seed))
 
 

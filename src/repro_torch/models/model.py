@@ -64,6 +64,12 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig,
     return {"frozen": frozen, "lora": {"layers": lora_layers}}
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The full tree on ``meta``: shapes and dtypes, nothing allocated (the
+    dry run's path for kimi-k2-1t-a32b, which fits no card)."""
+    return init_params(0, cfg, device="meta")
+
+
 def _stack_layers(make_layer, n: int) -> Params:
     """``n`` calls of ``make_layer`` stacked along a new leading axis, each
     copied into its slot as it is made: the peak is the stack and one layer,
@@ -173,10 +179,11 @@ class _MmF32Out(torch.autograd.Function):
 
 def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an f32 result that was never rounded to a narrower type.
-    x: (..., K); w: (K, N)."""
+    x: (..., K); w: (K, N). A ``meta`` trace takes the card's branch, so the
+    dry run counts the bytes the card moves."""
     if x.dtype == ACC_DTYPE:
         return torch.matmul(x, w)
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         x2 = x.reshape(-1, x.shape[-1])
         return _MmF32Out.apply(x2, w).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(ACC_DTYPE), w.to(ACC_DTYPE))

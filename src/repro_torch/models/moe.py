@@ -72,13 +72,24 @@ def group_capacity(n_items: int, n_groups: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def group_counts(groups: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """(n_groups,) int64 count of each id in ``groups`` (n,): the integers
+    ``torch.bincount(groups, minlength=n_groups)`` gives, at a length fixed
+    by ``n_groups`` and not by the data, so the count also traces on the
+    ``meta`` device (where ``bincount`` has no kernel)."""
+    groups = groups.to(torch.long)
+    return torch.zeros(n_groups, dtype=torch.long,
+                       device=groups.device).scatter_add_(
+        0, groups, torch.ones_like(groups))
+
+
 def ranks_within_groups(groups: torch.Tensor, n_groups: int) -> torch.Tensor:
     """groups: (n,) int group ids -> within-group rank (original order),
     via a stable sort: O(n log n), no (n, G) one-hot cumsum."""
     n = groups.shape[0]
     groups = groups.to(torch.long)
     order = torch.argsort(groups, stable=True)
-    counts = torch.bincount(groups, minlength=n_groups)
+    counts = group_counts(groups, n_groups)
     offsets = torch.cumsum(counts, dim=0) - counts
     rank_sorted = (torch.arange(n, dtype=torch.long, device=groups.device)
                    - offsets[groups[order]])
@@ -112,7 +123,7 @@ def moe_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
 
     # Load-balancing aux loss (Switch eq. 4): E * sum_e f_e * P_e
     me = torch.mean(probs, dim=0)                            # (E,)
-    ce = torch.bincount(idx[:, 0], minlength=e).to(torch.float32) / t
+    ce = group_counts(idx[:, 0], e).to(torch.float32) / t
     aux = e * torch.sum(me * ce) * cfg.router_aux_coef
 
     # --- dispatch: sort-based position assignment (within-expert rank) -----

@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "launch.fig3_decisions", "launch.fleet_scale_bench",
                  "launch.hierarchy_bench", "launch.churn_bench",
                  "launch.fleet_sweep", "launch.quickstart", "__main__",
-                 "launch.serve_multiarch", "launch.edge_finetune"):
+                 "launch.serve_multiarch", "launch.edge_finetune",
+                 "launch.dryrun", "launch.analysis"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
