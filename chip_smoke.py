@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only calibrate # the calibrate phase alone
     python3 chip_smoke.py --only registry  # build + the registry phase
     python3 chip_smoke.py --only dryrun    # the dryrun phase alone
+    python3 chip_smoke.py --only bench     # build + the bench phase, full grid
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -102,10 +103,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
            FLOP count equal to the meta record's, the meta peak within
            10 % of ``max_memory_allocated``, CUDA-event time beside the
            record's bound; no kernel
+  bench    the benchmark twins of ``launch/``: ``serving_bench`` at
+           qwen3-0.6b's full published width (28 layers, bf16, eight
+           non-zero adapters) on the reference's smoke grid (``--only
+           bench``: its full grid), the fused LoRA kernels on, every row
+           drained, ``lora_matmul`` and ``lora_matmul_grouped`` launched
+           (all ``wgmma``), the warm decode tick's wall and device time per
+           slot count, the admission run; ``kernel_bench`` and
+           ``cost_model_calibration`` payloads from the calibrate phase's
+           payload and the dryrun phase's records, the ``roofline`` table;
+           ``ablation_pareto`` on the card held to the same run on the CPU;
+           ``check_regression.validate`` on every payload built, the fleet
+           twins' smoke payloads included
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
-one JSON object per line; the line before the last holds the card's name and
-power limit, the last line is ``{"ok": true, "device": {...}}``.
+one JSON object per line (and, in the bench phase, the serving twin's CSV
+table, the fleet twins' lines and the roofline table); the line before the
+last holds the card's name and power limit, the last line is ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1316,7 +1331,7 @@ def phase_calibrate(seed: int):
           "fig3_moved_share": fig3["frac_decisions_moved_overall"],
           "fig3_moved": {f"{c['arch']}/{c['channel_state']}":
                          c["frac_decisions_moved"] for c in fig3["cells"]}})
-    return calibrate_result, tables
+    return calibrate_result, tables, payload
 
 
 # ---------------------------------------------------------------------------
@@ -2084,22 +2099,29 @@ def family_serve(cfg, frozen, bank, seed, gpu, chunk=FAMILY_CHUNK,
     return counts, versions
 
 
-def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu):
-    """(a) continued: one tick (per-row adapters) and one prompt of
-    ``LOGIT_TOKENS`` tokens through the engine's prefill function (one
+def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu,
+                        ids=(0, 1, 2, 3, 0, 1, 2, 3),
+                        prompt_tokens=LOGIT_TOKENS,
+                        phase="families_serve_logits"):
+    """(a) continued: one tick (per-row adapters ``ids``) and one prompt of
+    ``prompt_tokens`` tokens through the engine's prefill function (one
     adapter), with the fused kernels and with the plain LoRA path, in bf16
     and in f32, on fresh caches; held as the dense serve_logits phase
-    holds them."""
+    holds them (rows 0 and 1 must differ where their adapters do, a row
+    repeating row 0's adapter must not)."""
     from repro_torch.models import model as M
     from repro_torch.models.common import tree_map
     from repro_torch.serving import AdapterBank
     dev = frozen["embed"].device
-    ids = torch.as_tensor([0, 1, 2, 3, 0, 1, 2, 3], device=dev)
-    tok = torch.full((8, 1), 1234 % cfg.vocab_size, dtype=torch.int32,
+    rows = len(ids)
+    differ = rows > 1 and ids[1] != ids[0]
+    repeat = next((j for j in range(1, rows) if ids[j] == ids[0]), None)
+    ids = torch.as_tensor(ids, device=dev)
+    tok = torch.full((rows, 1), 1234 % cfg.vocab_size, dtype=torch.int32,
                      device=dev)
-    ts = torch.zeros((8,), dtype=torch.int32, device=dev)
+    ts = torch.zeros((rows,), dtype=torch.int32, device=dev)
     ptoks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (1, LOGIT_TOKENS)), device=dev)
+        0, cfg.vocab_size, (1, prompt_tokens)), device=dev)
     chunk_fn = M.decode_scan if cfg.has_ssm else M.prefill_chunk
     f32_tol, bf16_tol = 2e-3, 1.0
 
@@ -2108,8 +2130,9 @@ def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu):
         lora_b = AdapterBank.gather(stacked, ids)
         one = {"layers": tree_map(lambda v: v[1], stacked["layers"])}
         with torch.no_grad():
-            tick, _ = M.decode_step(fz, lora_b, M.init_cache(c, 8, 64, dev),
-                                    tok, ts, c, use_lora_kernel=use_kernel)
+            tick, _ = M.decode_step(fz, lora_b,
+                                    M.init_cache(c, rows, 64, dev), tok, ts,
+                                    c, use_lora_kernel=use_kernel)
             prompt, _ = chunk_fn(fz, one, M.init_cache(c, 1, 64, dev), ptoks,
                                  0, c, use_lora_kernel=use_kernel)
         return tick, prompt
@@ -2121,9 +2144,9 @@ def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu):
     p32 = tick_and_prompt(frozen32, cfg32, torch.float32, False)
     kbf = tick_and_prompt(frozen, cfg, torch.bfloat16, True)
     pbf = tick_and_prompt(frozen, cfg, torch.bfloat16, False)
-    report = {"phase": "families_serve_logits", "gpu": gpu, "arch": cfg.name,
-              "prompt_tokens": LOGIT_TOKENS, "f32_tol": f32_tol,
-              "bf16_tol": bf16_tol,
+    report = {"phase": phase, "gpu": gpu, "arch": cfg.name,
+              "ids": ids.tolist(), "prompt_tokens": prompt_tokens,
+              "f32_tol": f32_tol, "bf16_tol": bf16_tol,
               "logit_abs_max": p32[0][..., :cfg.vocab_size].abs().max().item()}
     for i, what in enumerate(("tick", "prompt")):
         report[what] = {
@@ -2131,8 +2154,10 @@ def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu):
             "bf16_kernel_vs_plain": err(kbf[i], pbf[i]),
             "bf16_kernel_vs_f32": err(kbf[i], p32[i]),
             "bf16_plain_vs_f32": err(pbf[i], p32[i])}
-    report["diff_between_adapters"] = err(kbf[0][0], kbf[0][1])
-    report["diff_same_adapter"] = err(kbf[0][0], kbf[0][4])
+    if differ:
+        report["diff_between_adapters"] = err(kbf[0][0], kbf[0][1])
+    if repeat is not None:
+        report["diff_same_adapter"] = err(kbf[0][0], kbf[0][repeat])
     emit(report)
     for what in ("tick", "prompt"):
         r = report[what]
@@ -2141,9 +2166,11 @@ def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu):
         assert r["bf16_kernel_vs_plain"] <= bf16_tol, r
         assert (r["bf16_kernel_vs_f32"]
                 <= 2.0 * r["bf16_plain_vs_f32"] + 0.05), r
-    assert report["diff_between_adapters"] > bf16_tol, report
-    assert (report["diff_same_adapter"]
-            <= 0.1 * report["diff_between_adapters"]), report
+    if differ:
+        assert report["diff_between_adapters"] > bf16_tol, report
+        if repeat is not None:
+            assert (report["diff_same_adapter"]
+                    <= 0.1 * report["diff_between_adapters"]), report
 
 
 class RoutingLog:
@@ -2952,7 +2979,211 @@ def phase_dryrun(seed: int):
         assert line["ok"] and line["flops_equal"], line
         assert line["peak_rel_err"] <= PEAK_TOL, line
     assert all(n == 0 for n in counts.values()), counts
-    return counts
+    return counts, records[:len(matrix)]
+
+
+# ---------------------------------------------------------------------------
+# bench phase
+# ---------------------------------------------------------------------------
+
+ABLATION_TOL = 1e-4         # the ablation's reductions, card vs CPU, abs
+BENCH_PREFILL_ROWS = 4      # serving_bench.run's prefill chunk: lora_matmul's M
+
+
+def bench_kernel_checks(seed: int, gpu: str):
+    """The bf16 LoRA kernels against their plain versions at the shapes the
+    serving sweep of either grid hands them, through the version the wrapper
+    picks (all ``wgmma``, asserted), at the kernels phase's tolerances:
+    ``lora_matmul`` at every projection of qwen3-0.6b over a prefill chunk
+    of ``BENCH_PREFILL_ROWS`` rows (60 of the 64-row tile masked), and
+    ``lora_matmul_grouped`` over ticks of 2, 4 and 8 rows, each row's
+    adapter ``i % e`` from a strided bank of e = 1, 2, 4, 8 (the engine
+    hands it e = rows, ids ``0..rows-1``, of a gathered bank; repeated ids
+    are the sweep's adapter pattern). Then ``lora_matmul`` timed at M = 4
+    beside its bound, the plain version and ``addmm``. Launches made here
+    precede the bench path's counts. Returns the timing rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serving_bench
+    rng = np.random.default_rng(seed + 500)
+    bf16 = torch.bfloat16
+    cfg = get_config(serving_bench.ARCH)
+    r, scale = cfg.lora.rank, cfg.lora.scale
+    grids = (serving_bench.SMOKE_GRID, serving_bench.FULL_GRID)
+    rows = sorted({g for grid in grids for g in grid["slot_counts"]})
+    banks = sorted({e for grid in grids for e in grid["adapter_counts"]})
+    m = BENCH_PREFILL_ROWS
+    out = []
+    for k, n in lora_shapes(cfg):
+        out.append(("lora_matmul", (m, k, n, r),
+                    check_lora_matmul(rng, m, k, n, r, bf16, scale)))
+        for g in rows:
+            for e in banks:
+                res = check_grouped(rng, g, 1, k, n, r, e, bf16,
+                                    ids=[i % e for i in range(g)],
+                                    scale=scale, strided=e > 1)
+                out.append(("lora_matmul_grouped", (g, 1, k, n, r, e), res))
+    emit({"phase": "bench_kernels", "gpu": gpu, "arch": cfg.name,
+          "checked": [{"name": name, "shape": list(shape),
+                       "max_abs_err": err, "tol": tol, "version": version}
+                      for name, shape, (err, tol, version) in out]})
+    for name, shape, (err, tol, version) in out:
+        assert version == "wgmma", (name, shape, version)
+    times = [time_lora_matmul(rng, m, k, n, r, bf16)
+             for k, n in lora_shapes(cfg)]
+    emit({"phase": "bench_kernel_times", "gpu": gpu,
+          "lora_matmul": times})
+    for row in times:
+        assert row["version"] == "wgmma", row
+    return {"lora_matmul": times}
+
+
+def phase_bench(seed: int, full: bool, calibration=None,
+                dryrun_records=None):
+    """The benchmark twins of ``launch/``: (a) the serving sweep at
+    qwen3-0.6b's published width (``serving_bench.SMOKE_GRID``, or the
+    reference's full grid ``FULL_GRID``), the fused LoRA kernels on, every
+    row drained, both LoRA kernels launched, all ``wgmma``, the warm tick's
+    wall and device time per slot count; before it, the LoRA kernels
+    against their plain versions at the sweep's shapes
+    (``bench_kernel_checks``) and the served weights' logits, kernels
+    against the plain path, for one tick per slot count (the gate timer's
+    adapter ids) and one prefill chunk (``family_serve_logits``); (b) the
+    kernel and card-calibration
+    payloads from ``calibration`` (the calibrate phase's payload; without
+    it a smoke calibrate) and ``dryrun_records`` (the dryrun phase's
+    matrix; without them the payload says ``missing``), the roofline
+    summary of the same records; (c) the ablation frontier on the card,
+    held to the same run on the CPU; (d) ``check_regression.validate`` on
+    every payload built here, the fleet twins' smoke payloads included.
+    Returns the main path's counts and ``bench_kernel_checks``' rows."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.measured_cost import RooflineFit
+    from repro_torch.launch import (ablation_pareto, calibrate,
+                                    check_regression, churn_bench,
+                                    cost_model_calibration, fleet_scale_bench,
+                                    hierarchy_bench, kernel_bench, roofline,
+                                    serving_bench, write_payload)
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    grid = serving_bench.FULL_GRID if full else serving_bench.SMOKE_GRID
+    kernel_rows = bench_kernel_checks(seed, gpu)
+    # the weights serving_bench.run makes from the seed, made here so that
+    # their logits are checked first
+    cfg = get_config(serving_bench.ARCH)
+    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
+    adapters = [serving_bench.make_adapter(cfg, s, dev) for s in
+                serving_bench.ADAPTER_SEEDS[:max(grid["adapter_counts"])]]
+    bank = AdapterBank(adapters)
+    frozen32 = tree_map(lambda v: v.float(), frozen)
+    for slots in grid["slot_counts"]:
+        family_serve_logits(
+            cfg, dataclasses.replace(cfg, dtype="float32"), frozen, frozen32,
+            bank, gpu, ids=[i % bank.n for i in range(slots)],
+            prompt_tokens=BENCH_PREFILL_ROWS, phase="bench_serve_logits")
+    del frozen32, bank
+    torch.cuda.empty_cache()
+    t_checks = time.time() - t_phase
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    serving = serving_bench.run(**grid, seed=seed, frozen=frozen,
+                                adapters=adapters)   # device=None: the card
+    counts = kernels.launch_counts()
+    runs = kernels.runs_on_card()
+    versions = kernels.version_counts()
+    # ----------------------------------------------------------------------
+    t_serving = time.time() - t_phase - t_checks
+    del frozen, adapters
+    serving.update(schema=serving_bench.SCHEMA,
+                   mode="full" if full else "smoke")
+    serving_bench.print_table(serving)
+    emit({"phase": "bench_serving", "gpu": gpu, "grid": grid,
+          **{k: serving[k] for k in ("arch", "reduced", "device", "engine",
+                                     "sweep", "admission", "gates",
+                                     "decode_tick_device_s", "launches",
+                                     "launches_by_version")},
+          "seconds": t_serving, "checks_seconds": t_checks})
+    lora = ("lora_matmul", "lora_matmul_grouped")
+    for row in serving["sweep"]:
+        assert row["drained"] and row["completed"] == grid["requests"], row
+    assert not serving["reduced"], serving["reduced"]
+    for name in lora:
+        assert counts[name] > 0 and serving["launches"][name] == counts[name]
+        assert versions[name]["wgmma"] == counts[name], (name, versions)
+    assert all(counts[k] == 0 for k in counts if k not in lora), counts
+    for key, wall_s in serving["gates"].items():
+        device_s = serving["decode_tick_device_s"][key.rsplit("_", 1)[-1]]
+        assert 0 < device_s <= wall_s and math.isfinite(wall_s), (key, wall_s,
+                                                                  device_s)
+
+    t0 = time.time()
+    if calibration is None:
+        calibration = calibrate.run(smoke=True)      # device=None: the card
+    kern = kernel_bench.build_payload(calibration)
+    payloads = {"kernels": kern, "serving": serving}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dryrun.jsonl")
+        with open(path, "w") as f:
+            for rec in dryrun_records or ():
+                f.write(json.dumps(rec) + "\n")
+        payloads["card_calibration"] = cost_model_calibration.build_payload(
+            smoke=kern["mode"] == "smoke", path=path,
+            fit=RooflineFit.from_dict(kern["roofline_fit"]))
+        recs = roofline.load(path)
+        roof = roofline.summary(recs)
+        for name, mod in (("fleet_scale", fleet_scale_bench),
+                          ("churn", churn_bench),
+                          ("hierarchy", hierarchy_bench)):
+            payloads[name] = mod.main(["--smoke"])
+        validated = {}
+        for name, payload in payloads.items():
+            out = os.path.join(tmp, f"BENCH_torch_{name}.json")
+            write_payload(out, payload)
+            validated[name] = check_regression.validate(out)
+    t_payloads = time.time() - t0
+    calib = payloads["card_calibration"]
+    emit({"phase": "bench_payloads", "gpu": gpu,
+          "kernel_gates": kern["gates"],
+          "kernels": kern.get("kernels", []),
+          "card_calibration": {k: calib[k] for k in ("dryrun_status",
+                                                     "dryrun_rows")},
+          "inflation": {r["arch"]: r["inflation"]
+                        for r in calib["measured"]["rows"]},
+          "roofline_summary": roof, "validate_errors": validated,
+          "seconds": t_payloads})
+    print(roofline.table(recs), flush=True)
+    assert all(not e for e in validated.values()), validated
+    assert len(kern["gates"]) == len(calibration["probes"]) > 0, kern["gates"]
+    if dryrun_records:
+        assert calib["dryrun_status"] == "ok", calib["dryrun_status"]
+        assert [r["arch"] for r in calib["dryrun_rows"]] == sorted(
+            r["arch"] for r in dryrun_records if r["shape"] == "train_4k")
+        assert roof["ok"] == roof["total"] == len(dryrun_records), roof
+    else:
+        assert calib["dryrun_status"] == "missing", calib["dryrun_status"]
+
+    t0 = time.time()
+    ab = ablation_pareto.run(seed=seed)              # device=None: the card
+    ab_cpu = ablation_pareto.run(seed=seed, device="cpu")
+    diffs = [abs(g[k] - w[k]) for g, w in zip(ab["frontier"],
+                                              ab_cpu["frontier"])
+             for k in ("delay_reduction", "energy_reduction")]
+    emit({"phase": "bench_ablation", "gpu": gpu, "frontier": ab["frontier"],
+          "baselines": ab["baselines"], "card_dominates": ab["card_dominates"],
+          "cpu_card_dominates": ab_cpu["card_dominates"],
+          "paper_point": ab["paper_point"], "max_abs_diff_vs_cpu": max(diffs),
+          "tol": ABLATION_TOL, "seconds": time.time() - t0})
+    assert len(diffs) == 2 * len(ablation_pareto.WEIGHTS), diffs
+    assert max(diffs) <= ABLATION_TOL, diffs
+    assert ab["card_dominates"] == ab_cpu["card_dominates"], (ab, ab_cpu)
+    emit({"phase": "bench", "gpu": gpu, "full": full, "launches": counts,
+          "runs_on_card": runs, "seconds": time.time() - t_phase})
+    return counts, runs, versions, kernel_rows
 
 # ---------------------------------------------------------------------------
 
@@ -3007,7 +3238,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--only", choices=("kernels", "train", "families",
                                        "fleet", "calibrate", "registry",
-                                       "dryrun"),
+                                       "dryrun", "bench"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -3018,7 +3249,9 @@ def main() -> int:
                          "calibrate: the calibrate phase alone (its first "
                          "launch builds the kernels); registry: build, then "
                          "the registry phase alone; dryrun: the dryrun "
-                         "phase alone (no kernel is built)")
+                         "phase alone (no kernel is built); bench: build, "
+                         "then the bench phase alone with the serving "
+                         "twin's full grid")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -3082,6 +3315,11 @@ def main() -> int:
         emit({"phase": "done", "only": "registry",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "bench":
+        phase_bench(args.seed, True)
+        emit({"phase": "done", "only": "bench",
+              "seconds": time.time() - t_start})
+        return 0
     if args.only == "fleet":
         from repro_torch.core.measured_cost import LatencyTable
         from repro_torch.launch import calibrate
@@ -3103,15 +3341,19 @@ def main() -> int:
 
     by_path = {"serve": phase_serve_and_prefill(args.seed, args.requests,
                                                 args.profile)}
-    by_path["calibrate"], tables = phase_calibrate(args.seed)
+    by_path["calibrate"], tables, calibration = phase_calibrate(args.seed)
     by_path["fleet"] = phase_fleet(args.seed, tables)
     by_path["train"] = phase_train(args.seed, args.profile)
     by_path["families"] = phase_families(args.seed)
     *registry, registry_rows = phase_registry(args.seed)
     by_path["registry"] = tuple(registry)
-    phase_dryrun(args.seed)
-    for name, extra in registry_rows.items():     # after the headline rows
-        rows[name] += extra
+    _, dryrun_records = phase_dryrun(args.seed)
+    *bench, bench_rows = phase_bench(args.seed, False, calibration,
+                                     dryrun_records)
+    by_path["bench"] = tuple(bench)
+    for extra_rows in (registry_rows, bench_rows):  # after the headline rows
+        for name, extra in extra_rows.items():
+            rows[name] += extra
 
     kernels_line = []
     for name, by_shape in rows.items():

@@ -6,7 +6,8 @@ engine.
 
 Times ``simulate_fleet`` end-to-end (channel draws on the host + decisions
 on the card + the host copy of the log) for growing heterogeneous fleets
-and reports decisions/second for both engines. The vectorized engine runs
+and reports decisions/second for both engines; the vectorized engine's
+walls are the gates (``batched_card_round_s_<D>dev[_big]``). The vectorized engine runs
 once at the same shape before it is timed (the allocator's first use). A
 1000-device round must complete end-to-end. The twin of the reference's
 ``benchmarks/fleet_scale_bench.py``, same sizes (``--smoke``: 5 and 20
@@ -82,6 +83,12 @@ def run(*, sizes=(10, 100), big: int = 1000, rounds: int = 5,
         "parallel_exact_s": stats["parallel_exact_s"],
         "parallel_speedup": stats["speedup_exact"],
     }
+    # the vectorized engine's round times are the gated hot path (the
+    # scalar oracle's are the comparison subject, not a hot path)
+    out["gates"] = {
+        f"batched_card_round_s_{row['devices']}dev": row["vectorized_s"]
+        for row in out["scaling"]}
+    out["gates"][f"batched_card_round_s_{big}dev_big"] = t_big
     return out
 
 

@@ -9,8 +9,9 @@ round — the (S, R, D, C) tiered grid on the card, the capacity-constrained
 device->server assignment on the host, and the per-server backhaul
 aggregation — and reports mean per-device delay/energy, the fleet round
 time (slowest server including its backhaul push), server load imbalance,
-and the warm wall time of the round (run once at the same shape first).
-One server is the paper's single-server baseline. The twin of the
+and the warm wall time of the round (run once at the same shape first);
+the largest fleet's walls are the gates
+(``hierarchical_card_round_s_<S>srv_<D>dev``). One server is the paper's single-server baseline. The twin of the
 reference's ``benchmarks/hierarchy_bench.py``, same grid (``--smoke``: 50
 and 100 devices x 1 and 2 servers, 3 rounds).
 
@@ -39,7 +40,7 @@ def run(*, fleet_sizes=(100, 1000), tier_sizes=(1, 2, 4, 8),
     dev = resolve_device(device)
     cfg = get_config("llama32-1b")
     out: Dict = {"arch": "llama32-1b", "rounds": rounds,
-                 "device": describe_device(dev), "sweep": []}
+                 "device": describe_device(dev), "sweep": [], "gates": {}}
     for n_dev in fleet_sizes:
         fleet = make_heterogeneous_fleet(n_dev, seed=seed)
         for n_srv in tier_sizes:
@@ -61,6 +62,9 @@ def run(*, fleet_sizes=(100, 1000), tier_sizes=(1, 2, 4, 8),
                     log.decision.aggregation_s.mean()),
                 "load_imbalance": float(load.max() / max(1, load.min())),
             })
+            if n_dev == max(fleet_sizes):
+                out["gates"][
+                    f"hierarchical_card_round_s_{n_srv}srv_{n_dev}dev"] = wall_s
     return out
 
 

@@ -192,20 +192,28 @@ class ServingEngine:
                 c.masked_fill_(~keep.reshape(shape), 0)
         return cache
 
-    @torch.no_grad()
     def _step(self, toks: np.ndarray, ts: np.ndarray, ids: np.ndarray
               ) -> torch.Tensor:
         """One decode step over all slots; returns the logits on the card."""
         dev = self.device
-        ts_d = torch.as_tensor(ts, device=dev)
+        return self._step_on_device(torch.as_tensor(toks, device=dev),
+                                    torch.as_tensor(ts, device=dev),
+                                    torch.as_tensor(ids, device=dev))
+
+    @torch.no_grad()
+    def _step_on_device(self, toks: torch.Tensor, ts: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+        """``_step`` on inputs already on the engine's device: the host
+        copies (each of which waits for the stream) are done, so on the card
+        the tick makes no synchronisation and can be captured into a CUDA
+        graph."""
         lora_b = None
         if self._stacked is not None:
-            lora_b = AdapterBank.gather(self._stacked,
-                                        torch.as_tensor(ids, device=dev))
-        self.cache = self._lazy_ssm_reset(self.cache, ts_d != 0)
+            lora_b = AdapterBank.gather(self._stacked, ids)
+        self.cache = self._lazy_ssm_reset(self.cache, ts != 0)
         logits, self.cache = model_lib.decode_step(
-            self.frozen, lora_b, self.cache, torch.as_tensor(toks, device=dev),
-            ts_d, self.cfg, use_lora_kernel=self.use_lora_kernel)
+            self.frozen, lora_b, self.cache, toks, ts, self.cfg,
+            use_lora_kernel=self.use_lora_kernel)
         return logits
 
     @torch.no_grad()

@@ -643,3 +643,33 @@ def test_gpu_ssd_scan_at_the_model_path_shapes(cuda, arch, nc):
     torch.cuda.synchronize()
     assert ss.ssd_intra_chunk.by_version["tc"] == before["tc"] + 2
     assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_gpu_serving_twin_launches_both_lora_kernels(cuda):
+    """The serving twin (``launch/serving_bench.py``) at the reference's
+    reduced width on the card, with the fused LoRA kernels: every row
+    drained, both kernels launched through the version their rules pick,
+    each gate's device time taken."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.launch import run as t_run
+    from repro_torch.launch import serving_bench
+    cfg = get_config(serving_bench.ARCH).reduced()
+    dtype, r = getattr(torch, cfg.dtype), cfg.lora.rank
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    shapes = ((d, q), (d, kv), (q, d), (d, ff), (ff, d))
+    # the reduced width is f32: tf32x3 prefill chunks, SIMT ticks
+    want = {name: {fn(dtype, k, n, r, True) for k, n in shapes}
+            for name, fn in (("lora_matmul", lm.lora_matmul_version),
+                             ("lora_matmul_grouped",
+                              lm.lora_matmul_grouped_version))}
+    res = serving_bench.run(**t_run.SERVING_SMOKE, reduced=True)
+    assert all(row["drained"] for row in res["sweep"])
+    for name, versions in want.items():
+        assert len(versions) == 1, (name, versions)
+        assert res["launches"][name] > 0, res["launches"]
+        assert res["launches_by_version"][name][versions.pop()] \
+            == res["launches"][name], (name, res["launches_by_version"])
+    assert all(v is not None and v > 0
+               for v in res["decode_tick_device_s"].values())
