@@ -10,18 +10,24 @@
     python3 chip_smoke.py --only registry  # build + the registry phase
     python3 chip_smoke.py --only dryrun    # the dryrun phase alone
     python3 chip_smoke.py --only bench     # build + the bench phase, full grid
+    python3 chip_smoke.py --only flash     # bf16 flash_attention timing rows
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
   device   the card's name and power limit, torch and CUDA versions
   build    nvcc builds ``src/repro_torch/csrc/*.cu`` from the checkout; the
-           count of tensor-core instructions (HGMMA, HMMA) in each
-           library's SASS (``cuobjdump -sass``)
+           count of tensor-core instructions (HGMMA, HMMA) and TMA loads
+           (UTMALDG) in each library's SASS (``cuobjdump -sass``); the
+           warp-specialised ``flash_attention_ws`` must show both HGMMA and
+           UTMALDG
   kernels  every hand-written kernel against its plain PyTorch version on
            the card (main-path shapes and ragged ones, bf16 and f32; every
            version of ``lora_matmul``, ``lora_matmul_grouped``,
            ``flash_attention`` and ``ssd_intra_chunk``: the tensor-core ones
-           (bf16 ``wgmma``, f32 ``tf32x3``) and the SIMT one, the f32
+           (bf16 ``wgmma``; bf16 ``flash_attention`` at head dims 64 and 128
+           ``wgmma_ws``, also at GQA groups 1-8, one query, windows past S
+           and ~8x more work items than SMs; f32 ``tf32x3``) and the SIMT
+           one, the f32
            tensor-core ones at every probe shape of the calibrate path;
            ``ssd_intra_chunk`` also at hymba-1.5b's
            width and under steep decay;
@@ -225,8 +231,9 @@ def run_version(fn, call):
 
 
 def tensor_core_sass():
-    """Per source: the HGMMA (wgmma) and HMMA (mma.sync) instructions in the
-    SASS of its built library (``cuobjdump -sass``)."""
+    """Per source: the HGMMA (wgmma) and HMMA (mma.sync) instructions and
+    the UTMALDG (TMA tile loads) in the SASS of its built library
+    (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -235,7 +242,7 @@ def tensor_core_sass():
         sass = subprocess.run([tool, "-sass", str(_build._target(name))],
                               capture_output=True, text=True, check=True).stdout
         out[name] = {op: len(re.findall(rf"\b{op}\.", sass))
-                     for op in ("HGMMA", "HMMA")}
+                     for op in ("HGMMA", "HMMA", "UTMALDG")}
     return out
 
 
@@ -485,10 +492,38 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
                      "causal": True, "window": 0},
            "dtype": str(dtype), "version": timed, "max_abs_err": err,
            "tol": tol, "ms": ms, "simt_ms": simt_ms, "plain_ms": plain,
-           "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+           "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+           "host_us": host_us(lambda: ops.flash_attention(q, k, v,
+                                                          causal=True))}
+    if timed == "wgmma_ws":
+        # what the schedule's Python mirror (kernels/flash_attention.py)
+        # gives at this shape: counts of the plan, not of the kernel's run,
+        # so a line of their own beside the measured row
+        n_items = b * hq * -(-s // fa.WS_QUERIES)
+        emit({"phase": "flash_schedule_mirror", "shape": out["shape"],
+              "work_items": n_items,
+              "blocks": fa.ws_blocks(n_items, fa.sm_count(q.device.index)),
+              # (128-query tile, 128-key tile) pairs the schedule visits
+              "visited_tile_pairs": b * hq * sum(
+                  len(fa.ws_tiles(t, s, s, True, 0))
+                  for t in fa.ws_qtile_order(s, s, True, 0))})
     if timed == "tf32x3":
         out.update(bound_3xtf32(bytes_moved, flops))
     return out
+
+
+def phase_flash(seed: int):
+    """bf16 ``flash_attention`` timed at the model-path shapes alone (the
+    rows of the kernels and registry phases: ``FLASH_TIMES``), each beside
+    its check, the SIMT version, the plain version, SDPA and its bound.
+    Copied into a ``git archive`` of an earlier commit, it gives that
+    commit's kernel at the same shapes for a before/after comparison on
+    one machine."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 700)
+    rows = [time_flash(rng, *shape, torch.bfloat16) for shape in FLASH_TIMES]
+    emit({"phase": "flash_times", "gpu": gpu_line(), "by_shape": rows})
+    return rows
 
 
 def check_ssd(rng, b, nc, cl, nh, hp, ns, simt=False, steep=False):
@@ -892,6 +927,15 @@ def phase_kernels(seed: int):
                          ((1, 200, 200, 4, 2, 128), {"window": 64}),
                          ((1, 90, 90, 2, 2, 16), {"window": 20}),
                          ((1, 1024, 1024, 32, 8, 64), {}),
+                         # wgmma_ws (bf16, head dims 64 and 128): one
+                         # query, GQA groups 6-8, a window past S, Sq > Skv
+                         # non-causal, ~8x more work items than SMs
+                         ((1, 1, 1, 8, 2, 128), {}),
+                         ((1, 1000, 1000, 12, 2, 128), {"window": 64}),
+                         ((1, 300, 300, 7, 1, 128), {"window": 1024}),
+                         ((2, 200, 200, 8, 1, 128), {}),
+                         ((2, 300, 70, 4, 2, 128), {"causal": False}),
+                         ((8, 1024, 1024, 16, 8, 128), {}),
                          *(((b, s, s, hq, hkv, d), {})
                            for b, s, hq, hkv, d in F32_FLASH_SHAPES)):
             for simt in simts:
@@ -1073,7 +1117,8 @@ def phase_serve_and_prefill(seed: int, n_requests: int, profile: bool):
     assert counts["lora_matmul"] == n_proj * stats["prefills"], counts
     assert counts["flash_attention"] == cfg.n_layers, counts
     for name, by in versions.items():      # bf16 main path: tensor cores
-        assert by["wgmma"] == counts[name] and by["simt"] == 0, versions
+        want = "wgmma_ws" if name == "flash_attention" else "wgmma"
+        assert by[want] == counts[name] and by["simt"] == 0, versions
     emit({"phase": "serve", "gpu": gpu_line(), "requests": n_requests,
           "slots": 8, "max_len": 512, "prefill_chunk": 64, "max_new": 32,
           "prompt_lens": [int(n) for n in lens],
@@ -1973,7 +2018,8 @@ def lora_projections(cfg) -> int:
 def family_kernel_checks(seed: int, gpu: str):
     """The kernels of the families path against their plain versions at
     the shapes that path hands them, through the version the wrapper picks
-    (``wgmma`` and ``tc``, asserted), at the kernels phase's tolerances
+    (``wgmma``, ``wgmma_ws`` and ``tc``, asserted), at the kernels phase's
+    tolerances
     (``LORA_TOL``, ``ATTN_TOL``, ``SSD_TOL``). hymba-1.5b and granite, bf16:
     every LoRA projection (K, N) of a layer; ``lora_matmul`` at M = 1
     (hymba's scan prefill: a decode step a token) and M = ``FAMILY_CHUNK``
@@ -2021,7 +2067,8 @@ def family_kernel_checks(seed: int, gpu: str):
                        "max_abs_err": err, "tol": tol, "version": version}
                       for name, arch, shape, (err, tol, version) in out]})
     for name, arch, shape, (err, tol, version) in out:
-        assert version == ("tc" if name == "ssd_intra_chunk" else "wgmma"), (
+        assert version == {"ssd_intra_chunk": "tc",
+                           "flash_attention": "wgmma_ws"}.get(name, "wgmma"), (
             name, arch, shape, version)
 
 
@@ -2279,7 +2326,8 @@ def family_prefill(cfg, cfg32, frozen, frozen32, lora, seed, gpu):
     assert versions["ssd_intra_chunk"] == {
         "tc": counts["ssd_intra_chunk"], "simt": 0}, versions
     assert versions["flash_attention"] == {
-        "wgmma": counts["flash_attention"], "tf32x3": 0, "simt": 0}, versions
+        "wgmma_ws": counts["flash_attention"], "wgmma": 0, "tf32x3": 0,
+        "simt": 0}, versions
     if cfg.has_ssm:
         assert share["ssd_intra_chunk_device_us"] > 0, share
     return counts, versions
@@ -2433,6 +2481,8 @@ FIT_SHARE = 0.92           # of the card's memory a full-depth step may plan
 # down projection over a (4, 1024) batch
 REGISTRY_FLASH_TIMES = ((4, 1024, 28, 4, 128), (4, 1024, 48, 8, 128))
 REGISTRY_LORA_TIMES = ((4096, 18944, 3584, 16),)
+# every bf16 flash_attention timing row: the registry's and llama32-1b's
+FLASH_TIMES = REGISTRY_FLASH_TIMES + ((4, 1024, 32, 8, 64),)
 
 
 def first_layers(cfg, frozen, lora, n: int):
@@ -2463,7 +2513,8 @@ def lora_shapes(cfg):
 def registry_kernels(seed: int, gpu: str):
     """The bf16 kernels against their plain versions at the shapes the
     registry path hands them, through the version the wrapper picks (all
-    ``wgmma``, asserted), at the kernels phase's tolerances: every LoRA
+    ``wgmma``, ``flash_attention`` ``wgmma_ws``, asserted), at the kernels
+    phase's tolerances: every LoRA
     projection of each config at M = ``REGISTRY_CHUNK`` (a prefill chunk of
     the engine) and at a tick's 8 rows (each its own adapter of a strided
     bank), and the attention of the flash prefill step on (4, 1024); then
@@ -2490,8 +2541,10 @@ def registry_kernels(seed: int, gpu: str):
           "checked": [{"name": name, "arch": arch, "shape": list(shape),
                        "max_abs_err": err, "tol": tol, "version": version}
                       for name, arch, shape, (err, tol, version) in out]})
+    want = {"flash_attention": "wgmma_ws"}       # head dims 128 and 64
     for name, arch, shape, (err, tol, version) in out:
-        assert version == "wgmma", (name, arch, shape, version)
+        assert version == want.get(name, "wgmma"), (name, arch, shape,
+                                                    version)
     rows = {"flash_attention": [time_flash(rng, *s, bf16)
                                 for s in REGISTRY_FLASH_TIMES],
             "lora_matmul": [time_lora_matmul(rng, *s, bf16)
@@ -2499,7 +2552,7 @@ def registry_kernels(seed: int, gpu: str):
     emit({"phase": "registry_kernel_times", "gpu": gpu, "by_shape": rows})
     for name, by_shape in rows.items():
         for row in by_shape:
-            assert row["version"] == "wgmma", (name, row)
+            assert row["version"] == want.get(name, "wgmma"), (name, row)
     return rows
 
 
@@ -2613,7 +2666,7 @@ def registry_prefill(cfg, frozen, lora, seed, gpu):
                  "ssd_intra_chunk"):
         assert counts[name] == 0, counts
     assert versions["flash_attention"] == {
-        "wgmma": cfg.n_layers, "tf32x3": 0, "simt": 0}, versions
+        "wgmma_ws": cfg.n_layers, "wgmma": 0, "tf32x3": 0, "simt": 0}, versions
     return counts, versions
 
 
@@ -3195,7 +3248,9 @@ SOURCES = {
                     "src/repro/kernels/lora_matmul.py:73"),
     "lora_matmul_grouped": ("src/repro_torch/csrc/lora_matmul_grouped_tc.cu",
                             "src/repro/kernels/lora_matmul.py:170"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
+    # bf16 at head dims 64 and 128, every model path's (the earlier kernel,
+    # csrc/flash_attention_tc.cu, keeps head dims 16 and 32, on no path)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_ws.cu",
                         "src/repro/kernels/flash_attention.py:107"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:109"),
@@ -3238,7 +3293,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--only", choices=("kernels", "train", "families",
                                        "fleet", "calibrate", "registry",
-                                       "dryrun", "bench"),
+                                       "dryrun", "bench", "flash"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -3251,7 +3306,9 @@ def main() -> int:
                          "the registry phase alone; dryrun: the dryrun "
                          "phase alone (no kernel is built); bench: build, "
                          "then the bench phase alone with the serving "
-                         "twin's full grid")
+                         "twin's full grid; flash: the bf16 "
+                         "flash_attention timing rows alone (the first "
+                         "launch builds the kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -3285,6 +3342,11 @@ def main() -> int:
         emit({"phase": "done", "only": "dryrun",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "flash":
+        phase_flash(args.seed)
+        emit({"phase": "done", "only": "flash",
+              "seconds": time.time() - t_start})
+        return 0
 
     from repro_torch.kernels import _build
     seconds = _build.build_all(force=True)
@@ -3300,8 +3362,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES),
           "ptxas": usage, "sass_tensor_core_instructions": sass})
     for name in ("lora_matmul_tc", "lora_matmul_grouped_tc",
-                 "flash_attention_tc"):
+                 "flash_attention_tc", "flash_attention_ws"):
         assert sass[name]["HGMMA"] > 0, (name, sass)
+    # the warp-specialised kernel's copies are TMA loads
+    assert sass["flash_attention_ws"]["UTMALDG"] > 0, sass
+    emit({"phase": "build_flash_attention_ws",
+          "ptxas": usage["flash_attention_ws"],
+          "sass": sass["flash_attention_ws"]})
     for name in ("ssd_scan_tc", "lora_matmul_tf32", "flash_attention_tf32"):
         assert sass[name]["HMMA"] > 0, (name, sass)  # mma.sync, tf32
 

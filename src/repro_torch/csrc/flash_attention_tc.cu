@@ -1,21 +1,23 @@
 // Flash attention on the tensor cores of Hopper (sm_90a), bf16, written by
 // hand. It takes the place of the Pallas TPU kernel flash_attention of
-// src/repro/kernels/flash_attention.py for bf16 inputs whose head dim is 16,
-// 32, 64 or 128 and whose pointers and strides allow 16-byte copies; f32
-// and every other shape stay on the SIMT kernel of flash_attention.cu (the
-// wrapper chooses by shape, dtype and alignment, never by failure).
+// src/repro/kernels/flash_attention.py for bf16 inputs whose head dim is 16
+// or 32 (no model path at full width) and whose pointers and strides allow
+// 16-byte copies; head dims 64 and 128 go to the warp-specialised kernel of
+// flash_attention_ws.cu, f32 to flash_attention_tf32.cu, and every other
+// shape to the SIMT kernel of flash_attention.cu (the wrapper chooses by
+// shape, dtype and alignment, never by failure).
 //
-// What bounds it on this card: at the prefill shape (S = 1024, D = 64,
-// causal) attention does ~1000 FLOP per byte it must move, so it is bound by
-// operations, and only the tensor cores (wgmma) reach the card's bf16 rate.
-// The design:
+// What bounds it on this card: attention at prefill shapes does hundreds
+// of FLOP per byte it must move, so it is bound by operations, and only the
+// tensor cores (wgmma) reach the card's bf16 rate. The design:
 //
 //   * a block of two warpgroups owns 128 queries of one head (64 each) and
 //     walks the KV tiles of 64 keys that its mask leaves, so every K and V
 //     tile read from L2 serves 128 queries (with 64, the re-reads of K and
 //     V from L2 set the pace); a warpgroup skips the work of a tile that
-//     lies wholly outside its own rows' mask; at D <= 64 two blocks share
-//     an SM, so one warpgroup's softmax overlaps another's products;
+//     lies wholly outside its own rows' mask; at these head dims two or
+//     more blocks share an SM, so one warpgroup's softmax overlaps
+//     another's products;
 //   * Q, K and V tiles in shared memory as 128-byte-swizzled panels, filled
 //     by 16-byte cp.async (zero-filled past the ragged ends); K and V in a
 //     two-stage ring, the next tile's copies in flight during this tile's
@@ -313,7 +315,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 // Logical shapes q, o: (B, Hq, Sq, D) and k, v: (B, Hkv, Skv, D), bf16,
 // each addressed through its (batch, head, seq) strides in elements with
 // the last dim contiguous; pointers 16-byte aligned, strides multiples of
-// 8; head dims 16, 32, 64, 128.
+// 8; head dims 16 and 32.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
@@ -335,10 +337,6 @@ extern "C" int flash_attention_tc_launch(
       return launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
     case 32:
       return launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
-    case 64:
-      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
-    case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
     default:
       return -1;
   }

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // 16-byte asynchronous copies into shared memory, the 128-byte swizzle,
-// wgmma matrix descriptors, and the warpgroup products themselves.
+// wgmma matrix descriptors, the warpgroup products themselves, and for the
+// warp-specialised kernels mbarriers, TMA tile loads and stores, named
+// barriers and setmaxnreg.
 //
 // Shared-memory tiles all have one shape here: rows of 128 bytes (64 bf16),
 // eight rows to a 1024-byte swizzle atom, the 16-byte chunk c of row r
@@ -156,7 +158,6 @@ __device__ __forceinline__ void wgmma_ss_set(float (&d)[32], uint64_t da,
       : REPRO_W8(0), REPRO_W8(8), REPRO_W8(16), REPRO_W8(24)
       : "l"(da), "l"(db), "r"(0), "n"(TB));
 }
-#undef REPRO_W8
 
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
@@ -168,6 +169,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : REPRO_F64
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
+
+// D (64 x 128, f32) = A * B, without reading D first.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_set(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_R64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : REPRO_W8(0), REPRO_W8(8), REPRO_W8(16), REPRO_W8(24), REPRO_W8(32),
+        REPRO_W8(40), REPRO_W8(48), REPRO_W8(56)
+      : "l"(da), "l"(db), "r"(0), "n"(TB));
+}
+#undef REPRO_W8
 
 // D (64 x N, f32) += A (64 x 16, bf16 in registers, the mma fragment
 // layout) * B (16 x N, shared, MN-major). N = 64 or 128.
@@ -201,6 +216,132 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // launch asks for 1 KB more than the tiles need).
 __device__ __forceinline__ uint32_t smem_base_1k(const void* raw) {
   return (smem_u32(raw) + 1023u) & ~1023u;
+}
+
+// ---- mbarriers: a 64-bit word in shared memory that counts arrivals and,
+// for TMA, the bytes still to land; a phase completes when both reach zero,
+// and waiters poll the parity of the phase they wait for.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the other threads and to the
+// TMA unit (call once after the inits, before a block-wide barrier).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Whether the phase of parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// ---- TMA: one thread asks for a box of a tensor (described by a
+// CUtensorMap in kernel parameter space) to be copied into shared memory;
+// the bytes are counted down on `bar`. Coordinates are in elements,
+// innermost first; parts of the box outside the tensor are written as
+// zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The reverse: a box of shared memory written to the tensor (parts of the
+// box outside the tensor are not written), in a bulk group of this thread.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N bulk groups of this thread still read shared
+// memory (the source may be written again)...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// ... or are still in flight at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- named barriers (ids 1..15; 0 is __syncthreads): `threads` of the
+// block, a multiple of 32, meet; bar_arrive counts in without waiting.
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t id, uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- register budgets of a warp-specialised block: a warpgroup gives up
+// (dec) or takes (inc) registers; all four of its warps execute it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 }  // namespace sm90

@@ -25,7 +25,8 @@ from typing import Dict, List, Tuple
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_tf32",
            "lora_matmul_grouped_tc", "flash_attention", "flash_attention_tc",
-           "flash_attention_tf32", "flash_decode", "ssd_scan", "ssd_scan_tc")
+           "flash_attention_ws", "flash_attention_tf32", "flash_decode",
+           "ssd_scan", "ssd_scan_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,6 +74,12 @@ _SIGNATURES = {
         # stream
         "flash_attention_tc_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
                                      + [_I, _I, _P],
+    },
+    "flash_attention_ws": {
+        # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides, causal, window,
+        # blocks (the persistent grid), stream
+        "flash_attention_ws_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
+                                     + [_I, _I, _I, _P],
     },
     "flash_attention_tf32": {
         # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides, causal, window,

@@ -3,19 +3,27 @@ masks, grouped-query heads.
 
 Replaces: the Pallas TPU kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py``. CUDA sources (built and bound by
-``_build``): ``csrc/flash_attention_tc.cu`` (bf16 on the tensor cores,
-``wgmma``), ``csrc/flash_attention_tf32.cu`` (f32 on the tensor cores,
-``mma.sync``, every product as three tf32 products) and
+``_build``): ``csrc/flash_attention_ws.cu`` (bf16 at head dims in
+``WS_HEAD_DIMS``: a warp-specialised persistent kernel, TMA producer and two
+ping-pong ``wgmma`` consumers), ``csrc/flash_attention_tc.cu`` (bf16 at the
+other head dims, ``wgmma``), ``csrc/flash_attention_tf32.cu`` (f32 on the
+tensor cores, ``mma.sync``, every product as three tf32 products) and
 ``csrc/flash_attention.cu`` (the SIMT kernel: the calls whose pointers or
 strides do not allow 16-byte copies). ``flash_attention_version`` names the
 one a call takes, by dtype, head dim and alignment alone (never by
 failure).
 
-Bound on this card: at the prefill shape (sequence 1024, head dim 64) the
-work is bound by operations; the (Sq, Skv) score matrix never reaches device
-memory, K and V are read through ``kv_head = q_head // group`` instead of a
-copy broadcast over the group, and the tensors are addressed through their
+Bound on this card: a causal prefill on (4, 1024) tokens does ~1000 (head
+dim 64) to ~2000 (head dim 128) FLOP per byte it must move, so it is bound
+by operations; the (Sq, Skv) score matrix never reaches device memory, K
+and V are read through ``kv_head = q_head // group`` instead of a copy
+broadcast over the group, and the tensors are addressed through their
 strides, so the model's (batch, seq, head, dim) layout is used in place.
+The ``"wgmma_ws"`` kernel keeps the tensor cores busy during the softmax:
+one warpgroup only copies (TMA, a ring of K/V stages under mbarriers), two
+consumer warpgroups take turns at the tensor cores (one's softmax runs
+while the other's products do), and one block per SM walks the work items
+heaviest first (``ws_qtile_order``, ``ws_items``, ``ws_block_items``).
 
 Positions are ``0..S-1`` on both sides, masked scores are ``-1e30``, and the
 softmax denominator is clamped at ``1e-20``, as in the TPU kernel.
@@ -26,8 +34,9 @@ plain version only for a CPU tensor. ``flash_attention.launches`` counts,
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -35,6 +44,7 @@ from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
+WS_HEAD_DIMS = (64, 128)     # bf16 head dims of the "wgmma_ws" kernel
 NEG_INF = -1e30
 
 
@@ -65,12 +75,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_version(dtype: torch.dtype, d: int, aligned: bool) -> str:
     """The kernel a CUDA call takes when the head dim is 16, 32, 64 or 128,
     every pointer is 16-byte aligned and every stride a whole number of
-    16-byte steps (``aligned``): ``"wgmma"`` (``csrc/flash_attention_tc.cu``)
-    for bf16, ``"tf32x3"`` (``csrc/flash_attention_tf32.cu``) for f32;
-    otherwise ``"simt"``."""
+    16-byte steps (``aligned``): for bf16 ``"wgmma_ws"``
+    (``csrc/flash_attention_ws.cu``) at the head dims of ``WS_HEAD_DIMS``,
+    else ``"wgmma"`` (``csrc/flash_attention_tc.cu``); ``"tf32x3"``
+    (``csrc/flash_attention_tf32.cu``) for f32; otherwise ``"simt"``."""
     if d in HEAD_DIMS and aligned:
         if dtype == torch.bfloat16:
-            return "wgmma"
+            return "wgmma_ws" if d in WS_HEAD_DIMS else "wgmma"
         if dtype == torch.float32:
             return "tf32x3"
     return "simt"
@@ -104,6 +115,86 @@ def tf32_block(bx: int, by: int, hq: int, sq: int) -> Tuple[int, int, range]:
     n_tiles = -(-sq // TF32_QUERIES)
     q0 = (n_tiles - 1 - by) * TF32_QUERIES
     return bx // hq, bx % hq, range(q0, min(q0 + TF32_QUERIES, sq))
+
+
+WS_QUERIES = 128            # queries of a work item of the "wgmma_ws" kernel
+WS_KEYS = 128               # keys of its K / V tiles
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ws_tiles(qt: int, sq: int, skv: int, causal: bool, window: int) -> range:
+    """The KV tiles (of ``WS_KEYS`` keys) that query tile ``qt`` (of
+    ``WS_QUERIES`` queries) of the ``"wgmma_ws"`` kernel visits: those with
+    at least one key that a query of the tile may see."""
+    nkb = -(-skv // WS_KEYS)
+    begin = 0
+    if window:
+        first = qt * WS_QUERIES - window + 1     # the first query's first key
+        begin = nkb if first >= skv else max(0, first) // WS_KEYS
+    end = min(nkb, qt + 1) if causal else nkb
+    return range(begin, max(begin, end))
+
+
+def ws_qtile_order(sq: int, skv: int, causal: bool,
+                   window: int) -> List[int]:
+    """The query tiles in the order the ``"wgmma_ws"`` kernel takes them,
+    heaviest (most KV tiles) first, as the kernel computes it: the weight
+    rises strictly up to a peak tile and never rises after it, and the
+    order merges tiles peak, peak-1, ..., 0 with tiles peak+1, ..., the
+    first list winning ties."""
+    nqt = -(-sq // WS_QUERIES)
+    w = [len(ws_tiles(t, sq, skv, causal, window)) for t in range(nqt)]
+    peak = 0
+    while peak + 1 < nqt and w[peak + 1] > w[peak]:
+        peak += 1
+    rising, rest = list(range(peak, -1, -1)), list(range(peak + 1, nqt))
+    order = []
+    a = c = 0
+    while a < len(rising) or c < len(rest):
+        if a < len(rising) and (c == len(rest) or w[rising[a]] >= w[rest[c]]):
+            order.append(rising[a])
+            a += 1
+        else:
+            order.append(rest[c])
+            c += 1
+    return order
+
+
+def ws_items(b: int, hq: int, sq: int, skv: int, causal: bool,
+             window: int) -> List[Tuple[int, int, int]]:
+    """The work items ``(batch, head, query tile)`` of the ``"wgmma_ws"``
+    kernel in the order it takes them: query tiles by ``ws_qtile_order``,
+    then batch, then head (fastest, so the heads of a GQA group, which
+    share their K and V tiles, run side by side). ``ws_block_items`` says
+    which of them each block of the persistent grid takes."""
+    return [(bi, h, qt) for qt in ws_qtile_order(sq, skv, causal, window)
+            for bi in range(b) for h in range(hq)]
+
+
+def ws_block_items(n_items: int, blocks: int, block: int) -> List[int]:
+    """The indices (into ``ws_items``) of the work items that block
+    ``block`` of a persistent grid of ``blocks`` takes, in its order: one
+    item a round of ``blocks`` items, counted from the front of the round
+    in even rounds and from its back in odd ones, so that a block that took
+    one of the heaviest items of a round takes one of the lightest of the
+    next."""
+    out = []
+    for r in range(-(-n_items // blocks)):
+        item = r * blocks + (blocks - 1 - block if r % 2 else block)
+        if item < n_items:
+            out.append(item)
+    return out
+
+
+def ws_blocks(n_items: int, sms: int) -> int:
+    """The persistent grid of the ``"wgmma_ws"`` kernel: one block an SM,
+    never more blocks than work items."""
+    return max(1, min(n_items, sms))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -145,7 +236,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if 0 in (bsz, hq, sq, skv):
         raise ValueError("flash_attention takes no empty q, k or v")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    # a contiguous last dim, and no stride 0 across a dim of several rows
+    # (TMA takes none)
+    q, k, v = (t if t.stride(-1) == 1 and all(
+        st or n == 1 for st, n in zip(t.stride(), t.shape)) else t.contiguous()
+        for t in (q, k, v))
     out = torch.empty_like(q)          # keeps q's strides when q is dense
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     version = flash_attention_version(q.dtype, d,
@@ -153,7 +248,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if version == "wgmma":
+        if version == "wgmma_ws":
+            blocks = ws_blocks(bsz * hq * -(-sq // WS_QUERIES),
+                               sm_count(q.device.index))
+            code = _build.load("flash_attention_ws").flash_attention_ws_launch(
+                *ptrs, bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)),
+                window, blocks, stream)
+        elif version == "wgmma":
             code = _build.load("flash_attention_tc").flash_attention_tc_launch(
                 *ptrs, bsz, hq, hkv, sq, skv, d, *strides, int(bool(causal)),
                 window, stream)
@@ -173,4 +274,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.by_version = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+flash_attention.by_version = {"wgmma_ws": 0, "wgmma": 0, "tf32x3": 0,
+                              "simt": 0}

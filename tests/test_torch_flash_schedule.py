@@ -1,0 +1,125 @@
+"""The schedule of the warp-specialised bf16 ``flash_attention`` kernel
+(``csrc/flash_attention_ws.cu``), on the CPU through its Python mirror in
+``repro_torch.kernels.flash_attention``: the work items (batch, head, query
+tile of 128) in the order the persistent blocks take them, and the KV tiles
+(of 128 keys) each one visits. The kernel computes the same order on the
+card; ``chip_smoke.py`` counts the visited tile pairs from this mirror.
+"""
+import numpy as np
+import pytest
+
+from repro_torch.kernels import flash_attention as fa
+
+Q_TILE, K_TILE = fa.WS_QUERIES, fa.WS_KEYS
+
+
+def _seen(sq, skv, causal, window):
+    """(Sq, Skv) bool: may query q see key k (positions 0..S-1)."""
+    q = np.arange(sq)[:, None]
+    k = np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), dtype=bool)
+    if causal:
+        ok &= k <= q
+    if window:
+        ok &= k > q - window
+    return ok
+
+
+def _want_tiles(seen, qt):
+    """The KV tiles with at least one (query, key) pair of query tile qt
+    left unmasked, by brute force over the mask."""
+    rows = seen[qt * Q_TILE:(qt + 1) * Q_TILE]
+    n_kt = -(-seen.shape[1] // K_TILE)
+    return [kt for kt in range(n_kt)
+            if rows[:, kt * K_TILE:(kt + 1) * K_TILE].any()]
+
+
+def _check(b, hq, hkv, sq, skv, causal, window):
+    items = fa.ws_items(b, hq, sq, skv, causal, window)
+    nqt = -(-sq // Q_TILE)
+    # every (batch, head, query tile) exactly once
+    assert sorted(items) == sorted((bi, h, qt) for bi in range(b)
+                                   for h in range(hq) for qt in range(nqt))
+    seen = _seen(sq, skv, causal, window)
+    weight = {}
+    for qt in range(nqt):
+        tiles = fa.ws_tiles(qt, sq, skv, causal, window)
+        # exactly the tiles with an unmasked pair, and never past the keys
+        assert list(tiles) == _want_tiles(seen, qt), (qt, tiles)
+        weight[qt] = len(tiles)
+    # heavier items never follow lighter ones
+    w = [weight[qt] for _, _, qt in items]
+    assert all(a >= c for a, c in zip(w, w[1:])), w
+    # the heads of a query tile and batch are consecutive and in order, so
+    # the heads of a GQA group (which read one KV head) run side by side
+    group = hq // hkv
+    for i in range(0, len(items), hq):
+        run = items[i:i + hq]
+        assert len({(bi, qt) for bi, _, qt in run}) == 1
+        assert [h for _, h, _ in run] == list(range(hq))
+        assert [h // group for _, h, _ in run] == sorted(
+            h // group for _, h, _ in run)
+    return items, weight
+
+
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 127, 1024])
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (28, 4), (48, 8), (4, 1)])
+@pytest.mark.parametrize("b", [1, 4])
+def test_ws_schedule_covers_each_item_once_heaviest_first(b, hq, hkv, s,
+                                                          causal, window):
+    _check(b, hq, hkv, s, s, causal, window)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (70, 300, False, 0), (300, 70, False, 0), (150, 300, False, 64),
+    (1000, 1000, True, 1024), (1000, 1000, True, 64), (300, 1000, True, 0),
+    (1000, 300, True, 0), (1000, 300, True, 64), (2000, 500, False, 300)])
+def test_ws_schedule_ragged_and_sq_not_skv(sq, skv, causal, window):
+    """Ragged lengths, Sq != Skv, windows past S; with a window and more
+    queries than keys the weight rises, stays, then falls (some tiles visit
+    nothing), and the order still never puts a lighter item first."""
+    _check(2, 6, 2, sq, skv, causal, window)
+
+
+def test_ws_order_examples():
+    """Causal, Sq == Skv, no window: the weight of tile t is t + 1, so the
+    order is the last tile first, as the grid of csrc/flash_attention_tc.cu
+    runs them."""
+    assert fa.ws_qtile_order(1024, 1024, True, 0) == list(range(7, -1, -1))
+    # a window of 64: every tile but the first sees two KV tiles; ties keep
+    # the rising side first, then the tiles after the peak in order
+    assert fa.ws_qtile_order(1000, 1000, True, 64) == [1, 2, 3, 4, 5, 6, 7, 0]
+    # non-causal with a window: the first tiles see the most keys
+    assert fa.ws_qtile_order(2000, 500, False, 300)[:3] == [0, 1, 2]
+
+
+@pytest.mark.parametrize("n_items,blocks", [(896, 132), (1536, 132),
+                                            (1024, 114), (7, 132), (1, 1),
+                                            (265, 132), (500, 7)])
+def test_ws_block_items_split_the_items(n_items, blocks):
+    """The persistent grid: every item to exactly one block, each block's
+    items in increasing order (the kernel walks the order forward), and no
+    block more than one item ahead of another."""
+    blocks = fa.ws_blocks(n_items, blocks)
+    assert blocks == min(n_items, blocks)
+    per = [fa.ws_block_items(n_items, blocks, i) for i in range(blocks)]
+    assert sorted(i for p in per for i in p) == list(range(n_items))
+    for p in per:
+        assert p == sorted(p)
+    counts = [len(p) for p in per]
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("b,hq,hkv", [(4, 28, 4), (4, 48, 8), (4, 32, 8)])
+def test_ws_blocks_balance_at_the_model_shapes(b, hq, hkv):
+    """At the (4, 1024) causal shapes of qwen2-7b, internvl2-26b and
+    llama32-1b on 132 SMs, the rounds that run forward and backward in turn
+    leave no block more than two KV tiles of work above the mean."""
+    items, weight = _check(b, hq, hkv, 1024, 1024, True, 0)
+    blocks = fa.ws_blocks(len(items), 132)
+    work = [sum(weight[items[i][2]] for i in
+                fa.ws_block_items(len(items), blocks, blk))
+            for blk in range(blocks)]
+    assert max(work) - sum(work) / blocks <= 2.0, (max(work), sum(work))

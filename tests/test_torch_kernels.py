@@ -198,6 +198,10 @@ def _check_attention(q, k, v, window, atol):
     (128, 8, 2, 32),     # GQA
     (200, 4, 2, 64),     # non-multiple seq
     (96, 25, 5, 16),     # hymba-style head count
+    (128, 7, 1, 128),    # head dim 128, GQA group 7 (qwen2-7b's)
+    (200, 7, 1, 128),
+    (128, 12, 2, 128),   # head dim 128, GQA group 6 (internvl2-26b's)
+    (200, 12, 2, 128),
 ])
 @pytest.mark.parametrize("window", [0, 64])
 def test_flash_attention_plain_vs_pallas_sweep(s, hq, hkv, d, window):

@@ -79,13 +79,16 @@ def test_csrc_holds_the_three_kernels():
     ``lora_matmul_grouped`` and ``flash_attention`` also on the tensor cores
     (``wgmma``), ``ssd_intra_chunk`` too (``mma.sync`` with tf32), and the
     f32 ``lora_matmul`` and ``flash_attention`` on ``mma.sync`` with tf32,
-    the shared three-product helpers in ``tf32x3.cuh``."""
+    the shared three-product helpers in ``tf32x3.cuh``; bf16
+    ``flash_attention`` at head dims 64 and 128 also warp-specialised (TMA,
+    mbarriers, named barriers, ``setmaxnreg``)."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
             for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
                       "lora_matmul_tf32.cu", "lora_matmul_grouped_tc.cu",
                       "flash_attention.cu", "flash_attention_tc.cu",
-                      "flash_attention_tf32.cu", "flash_decode.cu",
+                      "flash_attention_ws.cu", "flash_attention_tf32.cu",
+                      "flash_decode.cu",
                       "ssd_scan.cu", "ssd_scan_tc.cu", "common.cuh",
                       "hopper.cuh", "tf32x3.cuh")}
     assert "lora_matmul_kernel" in text["lora_matmul.cu"]
@@ -93,6 +96,14 @@ def test_csrc_holds_the_three_kernels():
     assert ("lora_matmul_grouped_tc_split_kernel"
             in text["lora_matmul_grouped_tc.cu"])
     assert "flash_attention_tc_kernel" in text["flash_attention_tc.cu"]
+    # the warp-specialised bf16 kernel: TMA producer, ping-pong consumers
+    ws = text["flash_attention_ws.cu"]
+    assert "flash_attention_ws_kernel" in ws
+    assert '#include "hopper.cuh"' in ws
+    for helper in ("tma_load_4d", "mbar_wait", "bar_sync", "setmaxnreg_dec",
+                   "setmaxnreg_inc"):
+        assert helper in ws, helper
+    assert "cp.async.bulk.tensor.4d" in text["hopper.cuh"]
     assert "wgmma.mma_async" in text["hopper.cuh"]
     assert "lora_matmul_grouped_kernel" in text["lora_matmul.cu"]
     assert "flash_attention_kernel" in text["flash_attention.cu"]
@@ -111,6 +122,7 @@ def test_csrc_holds_the_three_kernels():
                                    "lora_matmul_tf32",
                                    "lora_matmul_grouped_tc",
                                    "flash_attention", "flash_attention_tc",
+                                   "flash_attention_ws",
                                    "flash_attention_tf32", "flash_decode",
                                    "ssd_scan", "ssd_scan_tc"}
     assert set(launch_counts()) == {"lora_matmul", "lora_matmul_grouped",
@@ -296,16 +308,17 @@ def test_gpu_lora_matmul_grouped_kernel(cuda, dtype, c):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_gpu_flash_attention_kernel(cuda, dtype, atol):
-    """bf16 through the wgmma version; f32 through the SIMT version, which
+    """bf16 through the tensor-core version the wrapper picks for the head
+    dim (``wgmma`` or ``wgmma_ws``); f32 through the SIMT version, which
     misaligned inputs take (aligned f32 takes tf32x3, tested below)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     rng = np.random.default_rng(2)
     f32 = dtype == torch.float32
-    version = "simt" if f32 else "wgmma"
     for b, s, hq, hkv, d, window in ((2, 65, 4, 4, 16, 0),
                                      (2, 130, 8, 2, 32, 64),
                                      (1, 200, 4, 2, 64, 0)):
+        version = fa.flash_attention_version(dtype, d, not f32)
         q = _rand(rng, (b, s, hq, d), dtype, cuda)
         k = _rand(rng, (b, s, hkv, d), dtype, cuda)
         v = _rand(rng, (b, s, hkv, d), dtype, cuda)
@@ -405,18 +418,100 @@ def test_gpu_flash_decode_one_piece_and_most_pieces(cuda, dtype, atol, b, s,
 def test_gpu_flash_attention_tensor_core_kernel(cuda, b, sq, skv, hq, hkv, d,
                                                 causal, window):
     """bf16 head dims 16/32/64/128, windows, GQA groups 1-5 and non-causal
-    Sq != Skv: the wgmma version, at the bf16 tolerance."""
+    Sq != Skv: the tensor-core version the wrapper picks for the head dim
+    (``wgmma`` at 16 and 32, ``wgmma_ws`` at ``WS_HEAD_DIMS``), at the bf16
+    tolerance."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(6)
     q = _rand(rng, (b, hq, sq, d), torch.bfloat16, cuda)
     k = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
     v = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
-    before = fa.flash_attention.by_version["wgmma"]
+    version = fa.flash_attention_version(torch.bfloat16, d, True)
+    assert version == ("wgmma_ws" if d in fa.WS_HEAD_DIMS else "wgmma")
+    before = fa.flash_attention.by_version[version]
     got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
     torch.cuda.synchronize()
-    assert fa.flash_attention.by_version["wgmma"] == before + 1
+    assert fa.flash_attention.by_version[version] == before + 1
     want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert (got - want.float()).abs().max() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
+    (1, 130, 130, 4, 4, 128, True, 0),       # group 1, ragged Sq
+    (2, 65, 65, 4, 2, 128, True, 0),         # group 2
+    (1, 1, 1, 8, 2, 128, True, 0),           # group 4, one query
+    (1, 1000, 1000, 12, 2, 128, True, 64),   # group 6, window 64
+    (1, 300, 300, 7, 1, 128, True, 1024),    # group 7, window past S
+    (2, 200, 200, 8, 1, 128, True, 0),       # group 8
+    (2, 70, 300, 4, 2, 128, False, 0),       # non-causal, Sq < Skv
+    (2, 300, 70, 4, 2, 128, False, 0),       # non-causal, Sq > Skv
+    (1, 150, 300, 4, 1, 128, False, 64),     # non-causal window
+    (8, 1024, 1024, 16, 8, 128, True, 0),    # ~8x more work items than SMs
+    (1, 1000, 1000, 32, 8, 64, True, 0),     # head dim 64
+    (2, 200, 200, 8, 2, 64, True, 64),
+    (2, 70, 150, 4, 2, 64, False, 0)])
+def test_gpu_flash_attention_ws_kernel(cuda, b, sq, skv, hq, hkv, d, causal,
+                                       window):
+    """bf16 through ``wgmma_ws`` (the warp-specialised persistent kernel):
+    GQA groups 1-8, ragged Sq (1, 65, 130, 1000), non-causal Sq != Skv,
+    windows 64 and 1024, fewer work items than SMs and many times more, at
+    the bf16 tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(11)
+    q = _rand(rng, (b, hq, sq, d), torch.bfloat16, cuda)
+    k = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
+    v = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
+    before = fa.flash_attention.by_version["wgmma_ws"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_version["wgmma_ws"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert (got - want.float()).abs().max() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_ws_permuted_view_and_graph(cuda):
+    """``wgmma_ws`` on the model's permuted (B, S, H, D) view (through
+    ``ops.flash_attention``), and one call captured into a CUDA graph and
+    replayed on new inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(12)
+    b, s, hq, hkv, d = 2, 300, 14, 2, 128
+
+    def inputs():
+        return (_rand(rng, (b, s, hq, d), torch.bfloat16, cuda),
+                _rand(rng, (b, s, hkv, d), torch.bfloat16, cuda),
+                _rand(rng, (b, s, hkv, d), torch.bfloat16, cuda))
+
+    def want(q, k, v):
+        return fa.flash_attention_ref(
+            *(t.permute(0, 2, 1, 3) for t in (q, k, v)), causal=True
+        ).permute(0, 2, 1, 3).float()
+
+    q, k, v = inputs()
+    before = fa.flash_attention.by_version["wgmma_ws"]
+    got = ops.flash_attention(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_version["wgmma_ws"] == before + 1
+    assert (got - want(q, k, v)).abs().max() <= 2e-2
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.flash_attention(q, k, v, causal=True)      # warm-up off-graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_attention(q, k, v, causal=True)
+    for _ in range(2):
+        new = inputs()
+        for dst, src in zip((q, k, v), new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out.float() - want(*new)).abs().max() <= 2e-2
 
 
 @pytest.mark.gpu

@@ -287,7 +287,8 @@ def test_grouped_plan_deals_every_k_step_once_at_full_width(arch):
 def test_flash_attention_version_at_the_model_head_dim(arch):
     cfg = get_config(arch)
     assert cfg.resolved_head_dim in t_fa.HEAD_DIMS
+    # head dims 128 and 64: the warp-specialised kernel
     assert t_fa.flash_attention_version(torch.bfloat16, cfg.resolved_head_dim,
-                                        True) == "wgmma"
+                                        True) == "wgmma_ws"
     assert t_fa.flash_attention_version(torch.float32, cfg.resolved_head_dim,
                                         True) == "tf32x3"

@@ -37,12 +37,23 @@ def test_lora_matmul_version(dtype, k, n, r, aligned, want):
 
 @pytest.mark.parametrize("dtype,d,aligned,want", [
     (BF16, 16, True, "wgmma"), (BF16, 32, True, "wgmma"),
-    (BF16, 64, True, "wgmma"), (BF16, 128, True, "wgmma"),
+    (BF16, 64, True, "wgmma_ws"), (BF16, 128, True, "wgmma_ws"),
     (BF16, 64, False, "simt"), (F32, 64, True, "tf32x3"),
     (F32, 128, False, "simt"),
+    # the warp-specialised kernel: bf16, head dims 64 and 128, TMA-aligned
+    (BF16, 128, False, "simt"), (F32, 128, True, "tf32x3"),
+    (BF16, 96, True, "simt"), (BF16, 256, True, "simt"),
 ])
 def test_flash_attention_version(dtype, d, aligned, want):
     assert t_fa.flash_attention_version(dtype, d, aligned) == want
+
+
+def test_ws_head_dims_are_the_model_paths():
+    """The head dims every model path hands bf16 ``flash_attention`` at
+    full width (128: the qwen, phi3 and internvl configs; 64: llama32-1b,
+    musicgen-large, hymba, granite) take the warp-specialised kernel."""
+    assert t_fa.WS_HEAD_DIMS == (64, 128)
+    assert set(t_fa.WS_HEAD_DIMS) <= set(t_fa.HEAD_DIMS)
 
 
 def _covered(k, splits, ips):
@@ -81,10 +92,11 @@ def test_tc_plan_fills_the_card_at_the_serving_shapes(k, n, sms):
 def test_by_version_counts_reset_with_the_launch_counts():
     t_lm.lora_matmul.by_version["wgmma"] = 3
     t_fa.flash_attention.by_version["simt"] = 2
+    t_fa.flash_attention.by_version["wgmma_ws"] = 4
     reset_launch_counts()
     assert t_lm.lora_matmul.by_version == {"wgmma": 0, "tf32x3": 0, "simt": 0}
-    assert t_fa.flash_attention.by_version == {"wgmma": 0, "tf32x3": 0,
-                                               "simt": 0}
+    assert t_fa.flash_attention.by_version == {"wgmma_ws": 0, "wgmma": 0,
+                                               "tf32x3": 0, "simt": 0}
 
 
 def test_cpu_calls_take_the_plain_version_and_count_no_version():
@@ -95,9 +107,12 @@ def test_cpu_calls_take_the_plain_version_and_count_no_version():
                      torch.randn(16, 64, dtype=BF16))
     q = torch.randn(1, 2, 70, 64, dtype=BF16)
     t_fa.flash_attention(q, q, q)
+    t_fa.flash_attention(torch.randn(1, 4, 70, 128, dtype=BF16),
+                         torch.randn(1, 2, 70, 128, dtype=BF16),
+                         torch.randn(1, 2, 70, 128, dtype=BF16))
     assert t_lm.lora_matmul.by_version == {"wgmma": 0, "tf32x3": 0, "simt": 0}
-    assert t_fa.flash_attention.by_version == {"wgmma": 0, "tf32x3": 0,
-                                               "simt": 0}
+    assert t_fa.flash_attention.by_version == {"wgmma_ws": 0, "wgmma": 0,
+                                               "tf32x3": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh", "tf32x3.cuh"])
