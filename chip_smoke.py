@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only dryrun    # the dryrun phase alone
     python3 chip_smoke.py --only bench     # build + the bench phase, full grid
     python3 chip_smoke.py --only flash     # bf16 flash_attention timing rows
+    python3 chip_smoke.py --only serve32   # build + the serve32 phase
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -26,8 +27,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
            ``flash_attention`` and ``ssd_intra_chunk``: the tensor-core ones
            (bf16 ``wgmma``; bf16 ``flash_attention`` at head dims 64 and 128
            ``wgmma_ws``, also at GQA groups 1-8, one query, windows past S
-           and ~8x more work items than SMs; f32 ``tf32x3``) and the SIMT
-           one, the f32
+           and ~8x more work items than SMs; f32 ``tf32x3``, also
+           ``lora_matmul_grouped``'s) and the SIMT one, the f32
            tensor-core ones at every probe shape of the calibrate path;
            ``ssd_intra_chunk`` also at hymba-1.5b's
            width and under steep decay;
@@ -35,8 +36,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
            linear and ring; every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
            timed with CUDA events beside the plain version, one PyTorch
-           library call for the same function, and the card's bound; the
-           library calls for the calibrate path's f32 kernel benches
+           library call for the same function, and the card's bound (f32
+           ``lora_matmul_grouped`` at G = 8 from a strided bank of 8 at
+           llama32-1b's and qwen3-0.6b's decode shapes, beside the SIMT
+           kernel it replaced); the library calls for the calibrate path's
+           f32 kernel benches
   serve    full-width llama32-1b (32 layers, random weights from a seed),
            four non-zero LoRA adapters, ``ServingEngine`` with the fused
            kernels answering 16 requests; launch counts, tokens, logits
@@ -112,15 +116,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
   bench    the benchmark twins of ``launch/``: ``serving_bench`` at
            qwen3-0.6b's full published width (28 layers, bf16, eight
            non-zero adapters) on the reference's smoke grid (``--only
-           bench``: its full grid), the fused LoRA kernels on, every row
-           drained, ``lora_matmul`` and ``lora_matmul_grouped`` launched
-           (all ``wgmma``), the warm decode tick's wall and device time per
-           slot count, the admission run; ``kernel_bench`` and
+           bench``: its full grid, and the served weights' logits, kernels
+           against plain, which the default run takes in serve32), the
+           fused LoRA kernels on, every row drained, ``lora_matmul`` and
+           ``lora_matmul_grouped`` launched (all ``wgmma``), the warm
+           decode tick's wall and device time per slot count, the
+           admission run; ``kernel_bench`` and
            ``cost_model_calibration`` payloads from the calibrate phase's
            payload and the dryrun phase's records, the ``roofline`` table;
            ``ablation_pareto`` on the card held to the same run on the CPU;
            ``check_regression.validate`` on every payload built, the fleet
            twins' smoke payloads included
+  serve32  the f32 serve path (the reference serves every f32 config, its
+           reduced ones included, through the fused kernels): the
+           reference's serving benchmark configuration
+           (``serving_bench.run(reduced=True)``: qwen3-0.6b reduced, f32,
+           r = 4) on the smoke grid; then qwen3-0.6b at its published width
+           in f32 (28 layers, eight seeded non-zero adapters): the bench
+           phase's logits check (kernels against plain, f32 within 2e-3),
+           ``ServingEngine`` with the fused kernels answering the twin's
+           smoke requests and the warm decode tick at 2, 4 and 8 slots
+           (wall, and device time from a CUDA graph); every
+           ``lora_matmul_grouped`` and ``lora_matmul`` launch ``tf32x3``;
+           the 8-slot tick's device time by kernel (the grouped kernels'
+           share) beside the grouped work's bound, and that tick with the
+           grouped calls on the SIMT kernel, in turns
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line (and, in the bench phase, the serving twin's CSV
@@ -161,6 +181,9 @@ F32_LORA_SHAPES = ((128, 128, 128, 8), (256, 256, 256, 8), (512, 512, 512, 16),
 F32_FLASH_SHAPES = ((1, 128, 4, 2, 32), (1, 256, 4, 2, 32), (1, 512, 4, 2, 32),
                     (1, 512, 8, 4, 64))
 KN_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+# (K, N) of qwen3-0.6b's LoRA projections (q; k, v; o; gate, up; down)
+QWEN3_KN = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+            (3072, 1024))
 
 
 def emit(obj) -> None:
@@ -279,11 +302,11 @@ def check_lora_matmul(rng, m, k, n, r, dtype, scale=0.5, simt=False):
 
 def check_grouped(rng, g, m, k, n, r, e, dtype, ids=None, scale=0.5,
                   strided=False, simt=None):
-    """Kernel against plain version; ``simt="w"`` hands the kernel a
-    misaligned copy of W (the SIMT kernel's 2-byte-load variant runs),
-    ``simt="x"`` one of x (its 16-byte-load variant, where the shape allows
-    it: the tensor-core version's predecessor on the main path). Returns
-    (err, tol, version)."""
+    """Kernel against plain version, through the version the wrapper's rule
+    picks (asserted); ``simt="w"`` hands the kernel a misaligned copy of W
+    (the SIMT kernel's first variant runs), ``simt="x"`` one of x (its
+    16-byte-load variant, where the shape allows it: the tensor-core
+    versions' predecessor on the main path). Returns (err, tol, version)."""
     from repro_torch.kernels import lora_matmul as lm
     x = randn(rng, (g, m, k), dtype)
     w = randn(rng, (k, n), dtype)
@@ -301,7 +324,11 @@ def check_grouped(rng, g, m, k, n, r, e, dtype, ids=None, scale=0.5,
     got, version = run_version(
         lm.lora_matmul_grouped,
         lambda: lm.lora_matmul_grouped(x_in, w_in, a, b, ids, scale))
-    assert simt is None or version == "simt", (simt, version)
+    es = x.element_size()
+    want_version = "simt" if simt else lm.lora_matmul_grouped_version(
+        dtype, k, n, r, e == 1 or (a.stride(0) * es % 16 == 0
+                                   and b.stride(0) * es % 16 == 0))
+    assert version == want_version, (simt, version, want_version)
     torch.cuda.synchronize()
     want = lm.lora_matmul_grouped_ref(x, w, a, b, ids, scale).float()
     err = (got.float() - want).abs().max().item()
@@ -407,7 +434,11 @@ def bound_3xtf32(bytes_moved: float, flops: float):
     return {"bound_3xtf32_ms": seconds * 1e3, "bound_3xtf32_by": by}
 
 
-def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
+def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0, strided=False):
+    """One row of timings: the version the wrapper picks, the SIMT kernel
+    (x, then W one element off 16-byte alignment), the plain version,
+    ``baddbmm`` and the bound; ``strided`` banks lie as in
+    ``AdapterBank.gather``'s in-place view."""
     from repro_torch.kernels import lora_matmul as lm
     es = torch.finfo(dtype).bits // 8
     copies = n_copies(k * n * es)
@@ -415,11 +446,14 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
     ws = [randn(rng, (k, n), dtype) for _ in range(copies)]
     a = randn(rng, (e, k, r), dtype, 0.25)
     b = randn(rng, (e, r, n), dtype, 0.02)
+    if strided:
+        a = torch.stack([a, a], dim=1)[:, 1]
+        b = torch.stack([b, b], dim=1)[:, 0]
     ids_np = np.arange(g) % e
     ids = torch.as_tensor(ids_np, dtype=torch.int32, device="cuda")
     idl = ids.long()
     err, tol, _ = check_grouped(rng, g, 1, k, n, r, e, dtype, ids=ids_np,
-                                scale=scale)
+                                scale=scale, strided=strided)
     _, timed = run_version(lm.lora_matmul_grouped,
                            lambda: lm.lora_matmul_grouped(x, ws[0], a, b, ids,
                                                           scale))
@@ -452,11 +486,16 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0):
     bytes_moved = es * (g * k + k * n + used * (k * r + r * n) + g * n) + 4 * g
     flops = g * (2.0 * k * n + 2.0 * k * r + 2.0 * r * n)
     b_ms, by = bound(bytes_moved, flops, dtype)
-    return {"shape": {"G": g, "M": 1, "K": k, "N": n, "r": r, "E": e},
-            "dtype": str(dtype), "version": timed, "max_abs_err": err,
-            "tol": tol, "ms": ms, "simt_ms": simt_ms,
-            "first_version_ms": first_ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+    out = {"shape": {"G": g, "M": 1, "K": k, "N": n, "r": r, "E": e,
+                     "strided": strided},
+           "dtype": str(dtype), "version": timed, "max_abs_err": err,
+           "tol": tol, "ms": ms, "simt_ms": simt_ms,
+           "first_version_ms": first_ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+           "host_us": host_us(calls[0])}
+    if timed == "tf32x3":
+        out.update(bound_3xtf32(bytes_moved, flops))
+    return out
 
 
 def time_flash(rng, b, s, hq, hkv, d, dtype):
@@ -754,8 +793,10 @@ def ssd_scan_library(xt, a, B, C, chunk):
 def time_benches(rng):
     """The calibrate path's f32 kernel benches at their shapes
     (``calibrate.BENCH_SHAPES``): the kernel as the bench calls it and one
-    PyTorch library call for the same function, by graph replay; the
-    library's result is held to the kernel's plain version first."""
+    PyTorch library call for the same function, by graph replay, beside
+    the bound of the bytes and operations the bench counts
+    (``launch/calibrate.py``'s ``bench_*``); the library's result is held
+    to the kernel's plain version first."""
     import torch.nn.functional as F
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ops
@@ -764,15 +805,17 @@ def time_benches(rng):
     f32 = torch.float32
     out = []
 
-    def row(name, shape, kernel, plain, library, tol):
+    def row(name, shape, kernel, plain, library, tol, bytes_moved, flops):
         want, lib = plain(), library()
         if torch.is_tensor(want):
             want, lib = (want,), (lib,)
         err = max((x - y).abs().max().item() for x, y in zip(lib, want))
         assert err <= tol, (name, err, tol)       # the same function
+        b_ms, by = bound(bytes_moved, flops, f32)
         out.append({"name": name, "shape": shape, "dtype": str(f32),
                     "ms": time_ms([kernel]), "library_ms": time_ms([library]),
-                    "library_max_abs_err": err})
+                    "library_max_abs_err": err, "bound_ms": b_ms,
+                    "bound_by": by})
 
     m, k, n, r = BENCH_SHAPES["lora_matmul"]
     x, w, a, b = (randn(rng, sh, f32) for sh in ((m, k), (k, n), (k, r),
@@ -782,7 +825,9 @@ def time_benches(rng):
         lambda: ops.lora_matmul(x, w, a, b, 2.0),
         lambda: lm.lora_matmul_ref(x, w, a, b, 2.0),
         lambda: torch.addmm(x @ w, x @ a, b, alpha=2.0),
-        LORA_TOL[f32] * want_max)
+        LORA_TOL[f32] * want_max,
+        4.0 * (m * k + k * n + k * r + r * n + m * n),
+        2.0 * m * k * n + 2.0 * m * k * r + 2.0 * m * r * n)
     bsz, s, hq, hkv, d = BENCH_SHAPES["flash_attention"]
     q, kk, v = (randn(rng, (bsz, s, h, d), f32) for h in (hq, hkv, hkv))
     qp, kp, vp = (t.permute(0, 2, 1, 3) for t in (q, kk, v))
@@ -793,7 +838,8 @@ def time_benches(rng):
         lambda: fa.flash_attention_ref(qp, kp, vp, causal=True),
         lambda: F.scaled_dot_product_attention(qp, kp, vp, is_causal=True,
                                                enable_gqa=True),
-        ATTN_TOL[f32])
+        ATTN_TOL[f32], 4.0 * (2 * bsz * s * hq * d + 2 * bsz * s * hkv * d),
+        4.0 * d * (s * (s + 1) // 2) * bsz * hq)
     bsz, length, nh, hp, ns, chunk = BENCH_SHAPES["ssd_scan"]
     xt, sa, sb, sc = (t[:, 0] for t in ssd_inputs(rng, bsz, 1, length, nh,
                                                   hp, ns))
@@ -801,7 +847,24 @@ def time_benches(rng):
                          "ns": ns, "chunk": chunk},
         lambda: ops.ssd_scan(xt, sa, sb, sc, chunk),
         lambda: ssd_chunked(xt, sa, sb, sc, chunk),
-        lambda: ssd_scan_library(xt, sa, sb, sc, chunk), SSD_TOL)
+        lambda: ssd_scan_library(xt, sa, sb, sc, chunk), SSD_TOL,
+        4.0 * bsz * length * (2 * nh * hp + nh + 2 * ns),
+        float(bsz * length) * (2.0 * chunk * nh * hp + 4.0 * nh * hp * ns))
+    # flash_decode at its bench (t = S - 1: every slot valid); the library
+    # call is SDPA of the one query over the whole cache
+    from repro_torch.kernels import flash_decode as fd
+    bsz, s, hq, hkv, d = BENCH_SHAPES["flash_decode"]
+    q = randn(rng, (bsz, 1, hq, d), f32)
+    kc, vc = (randn(rng, (bsz, s, hkv, d), f32) for _ in range(2))
+    qg = q[:, 0].reshape(bsz, hkv, hq // hkv, d)
+    kp, vp = (t.permute(0, 2, 1, 3) for t in (kc, vc))
+    row("flash_decode_1k", {"B": bsz, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+                            "t": s - 1},
+        lambda: ops.flash_decode(q, kc, vc, s - 1),
+        lambda: fd.flash_decode_ref(qg, kp, vp, s - 1),
+        lambda: F.scaled_dot_product_attention(qg, kp, vp),
+        ATTN_TOL[f32], 4.0 * (2 * bsz * hq * d + 2 * bsz * s * hkv * d),
+        4.0 * bsz * hq * s * d)
     return out
 
 
@@ -885,11 +948,10 @@ def phase_kernels(seed: int):
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
                                        simt=simt))
-        # bf16: the version the wrapper picks (tensor cores where K, N, r
-        # allow), and the SIMT kernel's two variants (x or W misaligned);
-        # f32 has the SIMT kernel only
-        g_simts = (None, "x", "w") if dtype == bf16 else (None,)
-        for simt in g_simts:
+        # the version the wrapper picks (tensor cores where K, N, r allow:
+        # bf16 wgmma, f32 tf32x3), and the SIMT kernel's two variants (x or
+        # W misaligned)
+        for simt in (None, "x", "w"):
             for gmknre in ((3, 1, 64, 48, 4, 2), (4, 8, 128, 128, 8, 4),
                            (2, 5, 100, 72, 4, 5), (6, 1, 256, 96, 16, 3),
                            (5, 3, 1100, 70, 16, 3), (9, 2, 53, 41, 3, 4),
@@ -998,11 +1060,12 @@ def phase_kernels(seed: int):
         rows["lora_matmul"].append(time_lora_matmul(rng, 64, k, n, 16, bf16))
         rows["lora_matmul_grouped"].append(
             time_grouped(rng, 8, k, n, 16, 4, bf16))
-    # f32 lora_matmul_grouped (SIMT; on no path) at the bf16 rows' first two
-    # shapes, after the headline rows
-    for k, n in KN_SHAPES[:2]:
-        rows["lora_matmul_grouped"].append(
-            time_grouped(rng, 8, k, n, 16, 4, f32))
+    # f32 lora_matmul_grouped (tf32x3) at G = 8 from a strided bank of 8 at
+    # llama32-1b's first two decode shapes and qwen3-0.6b's five (the
+    # serve32 path's; its (1024, 3072) heads the kernel's entry)
+    rows["lora_matmul_grouped_tf32x3"] = [
+        time_grouped(rng, 8, k, n, 16, 8, f32, strided=True)
+        for k, n in KN_SHAPES[:2] + QWEN3_KN]
     rows["flash_attention"].append(time_flash(rng, 4, 1024, 32, 8, 64, bf16))
     # the f32 tensor-core versions at the calibrate path's probe shapes
     rows["lora_matmul_tf32x3"] = [time_lora_matmul(rng, *shape, f32)
@@ -3091,16 +3154,18 @@ def bench_kernel_checks(seed: int, gpu: str):
 
 
 def phase_bench(seed: int, full: bool, calibration=None,
-                dryrun_records=None):
+                dryrun_records=None, serve_logits: bool = True):
     """The benchmark twins of ``launch/``: (a) the serving sweep at
     qwen3-0.6b's published width (``serving_bench.SMOKE_GRID``, or the
     reference's full grid ``FULL_GRID``), the fused LoRA kernels on, every
     row drained, both LoRA kernels launched, all ``wgmma``, the warm tick's
     wall and device time per slot count; before it, the LoRA kernels
     against their plain versions at the sweep's shapes
-    (``bench_kernel_checks``) and the served weights' logits, kernels
-    against the plain path, for one tick per slot count (the gate timer's
-    adapter ids) and one prefill chunk (``family_serve_logits``); (b) the
+    (``bench_kernel_checks``) and, with ``serve_logits``, the served
+    weights' logits, kernels against the plain path, for one tick per slot
+    count (the gate timer's adapter ids) and one prefill chunk
+    (``family_serve_logits``; the default run takes the same check in
+    ``phase_serve32``); (b) the
     kernel and card-calibration
     payloads from ``calibration`` (the calibrate phase's payload; without
     it a smoke calibrate) and ``dryrun_records`` (the dryrun phase's
@@ -3132,15 +3197,16 @@ def phase_bench(seed: int, full: bool, calibration=None,
     frozen = M.init_params(seed, cfg, device=dev)["frozen"]
     adapters = [serving_bench.make_adapter(cfg, s, dev) for s in
                 serving_bench.ADAPTER_SEEDS[:max(grid["adapter_counts"])]]
-    bank = AdapterBank(adapters)
-    frozen32 = tree_map(lambda v: v.float(), frozen)
-    for slots in grid["slot_counts"]:
-        family_serve_logits(
-            cfg, dataclasses.replace(cfg, dtype="float32"), frozen, frozen32,
-            bank, gpu, ids=[i % bank.n for i in range(slots)],
-            prompt_tokens=BENCH_PREFILL_ROWS, phase="bench_serve_logits")
-    del frozen32, bank
-    torch.cuda.empty_cache()
+    if serve_logits:
+        bank = AdapterBank(adapters)
+        frozen32 = tree_map(lambda v: v.float(), frozen)
+        for slots in grid["slot_counts"]:
+            family_serve_logits(
+                cfg, dataclasses.replace(cfg, dtype="float32"), frozen,
+                frozen32, bank, gpu, ids=[i % bank.n for i in range(slots)],
+                prompt_tokens=BENCH_PREFILL_ROWS, phase="bench_serve_logits")
+        del frozen32, bank
+        torch.cuda.empty_cache()
     t_checks = time.time() - t_phase
     # ---- the main path: counts set to 0 just before, read just after ----
     kernels.reset_launch_counts()
@@ -3239,6 +3305,193 @@ def phase_bench(seed: int, full: bool, calibration=None,
     return counts, runs, versions, kernel_rows
 
 # ---------------------------------------------------------------------------
+# serve32 phase
+# ---------------------------------------------------------------------------
+
+SERVE32_SLOTS = (2, 4, 8)     # the f32 decode tick timed at these slot counts
+SERVE32_TICK_ITERS = 10       # warm ticks a timing (wall mean; device best)
+SERVE32_MAX_LEN = 64
+
+
+def tick_grouped_bound_ms(cfg, slots: int) -> float:
+    """The least device time of one decode tick's grouped LoRA work at
+    ``slots`` rows, one distinct adapter each: every projection's W, the
+    rows' A and B, x and y moved once at 3.35 TB/s (bytes bound it)."""
+    es, r = torch.finfo(getattr(torch, cfg.dtype)).bits // 8, cfg.lora.rank
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    # q, k, v, o, gate, up, down
+    projections = ((d, q), (d, kv), (d, kv), (q, d), (d, ff), (d, ff), (ff, d))
+    total = 0.0
+    for k, n in projections:
+        bytes_moved = es * (slots * k + k * n + slots * (k * r + r * n)
+                            + slots * n) + 4 * slots
+        total += bound(bytes_moved, 2.0 * slots * k * n, torch.float32)[0]
+    return total * cfg.n_layers
+
+
+def tick_profile(eng, slots: int, reps: int = 3):
+    """Device microseconds of one warm decode tick by ``torch.profiler``:
+    all kernels, and the grouped LoRA kernels' (split and reduce) share."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    toks = np.ones((slots, 1), np.int32)
+    ts = np.arange(1, slots + 1, dtype=np.int32)
+    ids = np.arange(slots, dtype=np.int32) % eng.bank.n
+    eng._step(toks, ts, ids)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            eng._step(toks, ts, ids)
+        torch.cuda.synchronize()
+    # a kernel's own device time (an operator's is its kernels' again)
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0))
+            for e in p.key_averages()]
+    total = sum(us for _, us in rows) / reps
+    grouped = sum(us for key, us in rows
+                  if "lora_matmul_grouped" in key) / reps
+    return {"device_us": total, "grouped_device_us": grouped,
+            "grouped_share": grouped / total if total else None}
+
+
+def phase_serve32(seed: int):
+    """The f32 serve path, which the reference takes for every f32 config
+    with the fused kernels on: (a) the reference's own serving benchmark
+    configuration (``serving_bench.run(reduced=True)``: qwen3-0.6b reduced,
+    f32, r = 4) on the smoke grid, every row drained; (b) qwen3-0.6b at its
+    published width in f32 (28 layers, the twin's seeded non-zero
+    adapters): the kernel-vs-plain logits of the bench phase's ticks and
+    prompt (``family_serve_logits``), then the main path -- a
+    ``ServingEngine(use_lora_kernel=True)`` answering the twin's smoke
+    requests and the warm decode tick at 2, 4 and 8 slots, wall and
+    CUDA-graph device time (``serving_bench._time_decode_tick``) -- with
+    every ``lora_matmul_grouped`` and ``lora_matmul`` launch ``tf32x3``;
+    then, outside the counted path, the tick's device time by kernel at 8
+    slots (the grouped kernels' share) beside its grouped bound, and the
+    8-slot tick with the grouped calls forced onto the SIMT kernel (the
+    parent's version), tf32x3 and SIMT in turns. Returns the main path's
+    counts, runs on the card and versions."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.launch import serving_bench
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank, ServingEngine
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    lora = ("lora_matmul", "lora_matmul_grouped")
+    grid = serving_bench.SMOKE_GRID
+
+    def all_tf32x3(counts, versions, what):
+        for name in lora:
+            assert counts[name] > 0, (what, counts)
+            assert versions[name]["tf32x3"] == counts[name], (what, versions)
+        assert all(counts[k] == 0 for k in counts if k not in lora), counts
+
+    # (a) the reference's serving benchmark configuration, as it serves it
+    kernels.reset_launch_counts()
+    red = serving_bench.run(**grid, seed=seed, reduced=True)  # the card
+    counts, versions = kernels.launch_counts(), kernels.version_counts()
+    emit({"phase": "serve32_reduced", "gpu": gpu, "grid": grid,
+          "reduced": red["reduced"], "sweep": red["sweep"],
+          "gates": red["gates"],
+          "decode_tick_device_s": red["decode_tick_device_s"],
+          "launches": counts, "launches_by_version": versions,
+          "seconds": time.time() - t_phase})
+    assert red["reduced"], red["reduced"]
+    for row in red["sweep"]:
+        assert row["drained"] and row["completed"] == grid["requests"], row
+    all_tf32x3(counts, versions, "reduced")
+
+    # (b) qwen3-0.6b at its published width, in f32
+    cfg = get_config(serving_bench.ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
+    frozen32 = tree_map(lambda v: v.float(), frozen)
+    adapters = [serving_bench.make_adapter(cfg, s, dev)
+                for s in serving_bench.ADAPTER_SEEDS]
+    # the bench phase's logits check (its weights, its bank, its ids)
+    bank = AdapterBank(adapters[:max(grid["adapter_counts"])])
+    for slots in grid["slot_counts"]:
+        family_serve_logits(
+            cfg, cfg32, frozen, frozen32, bank, gpu,
+            ids=[i % bank.n for i in range(slots)],
+            prompt_tokens=BENCH_PREFILL_ROWS, phase="serve32_logits")
+    del frozen
+    torch.cuda.empty_cache()
+    bank = AdapterBank(adapters)
+    t0 = time.time()
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    eng = ServingEngine(cfg32, frozen32, bank, slots=max(SERVE32_SLOTS),
+                        max_len=SERVE32_MAX_LEN, prefill_chunk=4,
+                        use_lora_kernel=True)          # device=None: the card
+    for req in serving_bench._make_requests(
+            cfg32, grid["requests"], bank.n, grid["prompt_len"],
+            grid["max_new"], seed):
+        eng.submit(req)
+    stats = eng.run_until_drained(max_ticks=10_000)
+    ticks = {}
+    for slots in SERVE32_SLOTS:
+        wall_s, device_s = serving_bench._time_decode_tick(
+            cfg32, frozen32, bank, slots, SERVE32_MAX_LEN, SERVE32_TICK_ITERS,
+            use_lora_kernel=True, device=dev)
+        ticks[f"{slots}slot"] = {"wall_ms": wall_s * 1e3,
+                                 "device_ms": device_s * 1e3}
+    counts = kernels.launch_counts()
+    runs = kernels.runs_on_card()
+    versions = kernels.version_counts()
+    # ----------------------------------------------------------------------
+    t_main = time.time() - t0
+    top = max(SERVE32_SLOTS)
+    profile = tick_profile(eng, top)
+    # the same 8-slot tick with the grouped calls on the SIMT kernel (its
+    # version rule patched for the call; the wrapper looks it up by name)
+    rule = lm.lora_matmul_grouped_version
+    compare = {"tf32x3": [], "simt": []}
+    try:
+        for version in ("simt", "tf32x3", "tf32x3", "simt"):
+            lm.lora_matmul_grouped_version = (
+                rule if version == "tf32x3" else lambda *a: "simt")
+            before = dict(lm.lora_matmul_grouped.by_version)
+            _, device_s = serving_bench._time_decode_tick(
+                cfg32, frozen32, bank, top, SERVE32_MAX_LEN,
+                SERVE32_TICK_ITERS, use_lora_kernel=True, device=dev)
+            ran = {v for v, n in lm.lora_matmul_grouped.by_version.items()
+                   if n != before[v]}
+            assert ran == {version}, (version, ran)
+            compare[version].append(device_s * 1e3)
+    finally:
+        lm.lora_matmul_grouped_version = rule
+    report = {"phase": "serve32", "gpu": gpu, "arch": cfg32.name,
+              "dtype": cfg32.dtype, "layers": cfg32.n_layers,
+              "rank": cfg32.lora.rank, "adapters": bank.n,
+              "engine": {"slots": top, "max_len": SERVE32_MAX_LEN,
+                         "prefill_chunk": 4},
+              "served": {k: stats[k] for k in (
+                  "completed", "drained", "ticks", "prefills", "tokens",
+                  "requests_per_s", "tokens_per_sec", "mean_ttft_s",
+                  "wall_s")},
+              "decode_tick": ticks,
+              "tick_grouped_bound_ms": {
+                  f"{n}slot": tick_grouped_bound_ms(cfg32, n)
+                  for n in SERVE32_SLOTS},
+              "tick_profile_8slot": profile,
+              "tick_device_ms_8slot_by_grouped_version": compare,
+              "launches": counts, "runs_on_card": runs,
+              "launches_by_version": versions, "main_path_seconds": t_main,
+              "seconds": time.time() - t_phase}
+    emit(report)
+    assert stats["drained"] and stats["completed"] == grid["requests"], stats
+    for key, tick in ticks.items():
+        assert 0 < tick["device_ms"] <= tick["wall_ms"], (key, tick)
+    all_tf32x3(counts, versions, "full width")
+    del eng, frozen32, adapters, bank
+    torch.cuda.empty_cache()
+    return counts, runs, versions
+
+
+# ---------------------------------------------------------------------------
 
 
 # the source of the version the main path runs; the redesigned kernels keep
@@ -3260,6 +3513,9 @@ SOURCES = {
                            "src/repro/kernels/lora_matmul.py:73"),
     "flash_attention_tf32x3": ("src/repro_torch/csrc/flash_attention_tf32.cu",
                                "src/repro/kernels/flash_attention.py:107"),
+    "lora_matmul_grouped_tf32x3": (
+        "src/repro_torch/csrc/lora_matmul_grouped_tf32.cu",
+        "src/repro/kernels/lora_matmul.py:170"),
 }
 SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
                 "lora_matmul_grouped": "src/repro_torch/csrc/lora_matmul.cu",
@@ -3267,24 +3523,29 @@ SIMT_SOURCES = {"lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
                 "ssd_intra_chunk": "src/repro_torch/csrc/ssd_scan.cu",
                 "lora_matmul_tf32x3": "src/repro_torch/csrc/lora_matmul.cu",
                 "flash_attention_tf32x3":
-                    "src/repro_torch/csrc/flash_attention.cu"}
+                    "src/repro_torch/csrc/flash_attention.cu",
+                "lora_matmul_grouped_tf32x3":
+                    "src/repro_torch/csrc/lora_matmul.cu"}
 # the wrapper of each entry: the f32 tensor-core versions are a second
 # entry of their wrapper, beside its bf16 one
 WRAPPER = {"lora_matmul_tf32x3": "lora_matmul",
-           "flash_attention_tf32x3": "flash_attention"}
+           "flash_attention_tf32x3": "flash_attention",
+           "lora_matmul_grouped_tf32x3": "lora_matmul_grouped"}
 # the shape whose numbers head each kernel's entry (all shapes: "by_shape"):
-# the f32 versions' calibrate bench (lora_matmul_512, flash_attention_512)
+# the f32 versions' calibrate bench (lora_matmul_512, flash_attention_512),
+# f32 grouped at qwen3-0.6b's (1024, 3072)
 HEADLINE = {"lora_matmul": 2, "lora_matmul_grouped": 2, "flash_attention": 0,
             "flash_decode": 0, "ssd_intra_chunk": 0, "lora_matmul_tf32x3": 2,
-            "flash_attention_tf32x3": 3}
+            "flash_attention_tf32x3": 3, "lora_matmul_grouped_tf32x3": 5}
 # the path whose launch count each kernel's entry reports: the serving
 # slice's kernels from the serve and prefill run, ssd_intra_chunk from the
 # model path of the families phase, flash_decode and the f32 versions from
-# calibrate (their only caller)
+# calibrate (their only caller), f32 grouped from the f32 serve path
 PATH_OF = {"lora_matmul": "serve", "lora_matmul_grouped": "serve",
            "flash_attention": "serve", "flash_decode": "calibrate",
            "ssd_intra_chunk": "families", "lora_matmul_tf32x3": "calibrate",
-           "flash_attention_tf32x3": "calibrate"}
+           "flash_attention_tf32x3": "calibrate",
+           "lora_matmul_grouped_tf32x3": "serve32"}
 
 
 def main() -> int:
@@ -3293,7 +3554,8 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--only", choices=("kernels", "train", "families",
                                        "fleet", "calibrate", "registry",
-                                       "dryrun", "bench", "flash"),
+                                       "dryrun", "bench", "flash",
+                                       "serve32"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -3308,7 +3570,8 @@ def main() -> int:
                          "then the bench phase alone with the serving "
                          "twin's full grid; flash: the bf16 "
                          "flash_attention timing rows alone (the first "
-                         "launch builds the kernels)")
+                         "launch builds the kernels); serve32: build, then "
+                         "the f32 serve phase alone")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -3369,7 +3632,8 @@ def main() -> int:
     emit({"phase": "build_flash_attention_ws",
           "ptxas": usage["flash_attention_ws"],
           "sass": sass["flash_attention_ws"]})
-    for name in ("ssd_scan_tc", "lora_matmul_tf32", "flash_attention_tf32"):
+    for name in ("ssd_scan_tc", "lora_matmul_tf32", "lora_matmul_grouped_tf32",
+                 "flash_attention_tf32"):
         assert sass[name]["HMMA"] > 0, (name, sass)  # mma.sync, tf32
 
     if args.only == "families":
@@ -3385,6 +3649,11 @@ def main() -> int:
     if args.only == "bench":
         phase_bench(args.seed, True)
         emit({"phase": "done", "only": "bench",
+              "seconds": time.time() - t_start})
+        return 0
+    if args.only == "serve32":
+        phase_serve32(args.seed)
+        emit({"phase": "done", "only": "serve32",
               "seconds": time.time() - t_start})
         return 0
     if args.only == "fleet":
@@ -3415,9 +3684,11 @@ def main() -> int:
     *registry, registry_rows = phase_registry(args.seed)
     by_path["registry"] = tuple(registry)
     _, dryrun_records = phase_dryrun(args.seed)
+    # the served weights' logits check runs once, in serve32
     *bench, bench_rows = phase_bench(args.seed, False, calibration,
-                                     dryrun_records)
+                                     dryrun_records, serve_logits=False)
     by_path["bench"] = tuple(bench)
+    by_path["serve32"] = phase_serve32(args.seed)
     for extra_rows in (registry_rows, bench_rows):  # after the headline rows
         for name, extra in extra_rows.items():
             rows[name] += extra

@@ -24,7 +24,8 @@ from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_tf32",
-           "lora_matmul_grouped_tc", "flash_attention", "flash_attention_tc",
+           "lora_matmul_grouped_tc", "lora_matmul_grouped_tf32",
+           "flash_attention", "flash_attention_tc",
            "flash_attention_ws", "flash_attention_tf32", "flash_decode",
            "ssd_scan", "ssd_scan_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,6 +63,13 @@ _SIGNATURES = {
         # nx, stream
         "lora_matmul_grouped_tc_launch": [_P] * 8 + [_I] * 5 + [_L, _L, _F]
                                          + [_I] * 4 + [_P],
+    },
+    "lora_matmul_grouped_tf32": {
+        # x, w, a_bank, b_bank, ids, y, ws_y, ws_xa, rows, rows_per_group,
+        # K, N, r, a_stride, b_stride, scale, rt, splits, iters_per_split,
+        # nx, stream
+        "lora_matmul_grouped_tf32_launch": [_P] * 8 + [_I] * 5
+                                           + [_L, _L, _F] + [_I] * 4 + [_P],
     },
     "flash_attention": {
         # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, 12 strides (q,k,v,o x b,h,s),

@@ -7,9 +7,10 @@ of ``src/repro/kernels/lora_matmul.py``. CUDA sources (built and bound by
 ``_build``): ``csrc/lora_matmul_tc.cu`` (``lora_matmul`` on the tensor
 cores, bf16), ``csrc/lora_matmul_tf32.cu`` (``lora_matmul`` on the tensor
 cores, f32 as three tf32 products), ``csrc/lora_matmul_grouped_tc.cu``
-(``lora_matmul_grouped`` on the tensor cores, bf16) and
-``csrc/lora_matmul.cu`` (the SIMT kernels of both, for the shapes the
-tensor-core kernels do not take, and f32 ``lora_matmul_grouped``).
+(``lora_matmul_grouped`` on the tensor cores, bf16),
+``csrc/lora_matmul_grouped_tf32.cu`` (``lora_matmul_grouped`` on the tensor
+cores, f32 as three tf32 products) and ``csrc/lora_matmul.cu`` (the SIMT
+kernels of both, for the shapes the tensor-core kernels do not take).
 
 Bound on this card: at the serving shapes (64 rows of a prefill chunk, one
 row per request in a decode tick) both are bound by bytes, those of ``W``.
@@ -24,7 +25,9 @@ aligned pointers and bank strides) splits K over blocks by ``tc_plan`` /
 ``grouped_plan`` so that every SM streams W; ``"tf32x3"`` (``lora_matmul``
 in f32; K, N, r multiples of 4, r <= 64, 16-byte aligned pointers; the
 calibrate path's probes, bound by operations) splits K by ``tf32_plan``
-so that the calibrate bench starts at least one block per SM; otherwise
+so that the calibrate bench starts at least one block per SM, and
+``lora_matmul_grouped`` in f32 under the same rule (the decode ticks of an
+f32 config, bound by the bytes of W) by ``grouped_tf32_plan``; otherwise
 ``"simt"``. The SIMT grouped kernel itself has two variants (2-byte and
 16-byte loads), which its launcher picks by alignment.
 
@@ -53,6 +56,9 @@ MAX_RANK = 64
 TC_BK = 64                  # K depth of one step of the tensor-core kernel
 TF32_BK = 32                # K depth of one step of the f32 tensor-core kernel
 TF32_TILE = 64              # its output tiles: 64 x 64
+TF32_GROUPED_BN = 64        # columns of W a block of the f32 grouped kernel
+TF32_XA_COLS = 32           # its x@A blocks: rows x r of x@A, r <= 32
+TF32_GROUPED_STEPS = 8      # its most K steps a split (256 of K)
 
 
 # ---------------------------------------------------------------------------
@@ -174,13 +180,13 @@ def launch_tf32x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 def lora_matmul_grouped_version(dtype: torch.dtype, k: int, n: int, r: int,
                                 aligned: bool) -> str:
-    """The kernel a CUDA call of ``lora_matmul_grouped`` takes: ``"wgmma"``
-    (``csrc/lora_matmul_grouped_tc.cu``) under the bf16 rule of
-    ``lora_matmul_version``, where ``aligned`` also covers the bank strides
-    (whole 16-byte steps from one adapter to the next); otherwise, f32
-    included, ``"simt"`` (``csrc/lora_matmul.cu``)."""
-    version = lora_matmul_version(dtype, k, n, r, aligned)
-    return version if version == "wgmma" else "simt"
+    """The kernel a CUDA call of ``lora_matmul_grouped`` takes, by the rule
+    of ``lora_matmul_version``, where ``aligned`` also covers the bank
+    strides (whole 16-byte steps from one adapter to the next): ``"wgmma"``
+    (``csrc/lora_matmul_grouped_tc.cu``) for bf16, ``"tf32x3"``
+    (``csrc/lora_matmul_grouped_tf32.cu``) for f32, otherwise ``"simt"``
+    (``csrc/lora_matmul.cu``)."""
+    return lora_matmul_version(dtype, k, n, r, aligned)
 
 
 @functools.lru_cache(maxsize=256)
@@ -206,6 +212,72 @@ def grouped_xa_rows(bx: int, rows_in_tile: int, nx: int) -> range:
     K split computes, as the kernel deals them: row ``i`` to block
     ``i % nx``."""
     return range(bx, rows_in_tile, nx)
+
+
+@functools.lru_cache(maxsize=256)
+def grouped_tf32_plan(rows: int, k: int, n: int, sms: int,
+                      r: int = 16) -> Tuple[int, int, int, int]:
+    """Grid of the f32 tensor-core grouped kernel: ``(rt, splits,
+    iters_per_split, nx)``.
+
+    Row tiles are ``rt`` rows (8, 16 or 32: the fewest that hold ``rows``,
+    up to 32). Along N run ``nx`` blocks: the ``ceil(n / 64)`` tiles of W,
+    then the blocks that compute x@A only, each for at most
+    ``TF32_XA_COLS // r`` rows of a row tile (one where r is larger), dealt
+    by ``grouped_tf32_xa_rows``. K is cut into ``ceil(k / 32)`` steps,
+    dealt to ``splits`` blocks per (N block, row tile), ``iters_per_split``
+    consecutive steps each, the last split taking the rest (none is empty).
+    The splits are the fewest that give at least ``sms`` blocks, where K is
+    deep enough, and no split more than ``TF32_GROUPED_STEPS`` steps (a
+    block's products run step after step, so a long split is a long block:
+    measured on the H100, PERF.md), with the steps spread as evenly as that
+    count allows."""
+    rt = 8 if rows <= 8 else 16 if rows <= 16 else 32
+    n_iters = -(-k // TF32_BK)
+    nx = (-(-n // TF32_GROUPED_BN)
+          + -(-min(rows, rt) // max(1, TF32_XA_COLS // r)))
+    want = -(-sms // (nx * -(-rows // rt)))
+    # the deepest split, up to the cap, that still gives ``want`` splits
+    ips = next((i for i in range(min(n_iters, TF32_GROUPED_STEPS), 0, -1)
+                if -(-n_iters // i) >= want), 1)
+    splits = -(-n_iters // ips)
+    return rt, splits, -(-n_iters // splits), nx
+
+
+def grouped_tf32_xa_rows(bx: int, rows_in_tile: int, n: int,
+                         nx: int) -> range:
+    """The rows of a row tile whose x@A block ``bx`` of each K split of the
+    f32 grouped kernel computes: none for the first ``ceil(n / 64)`` blocks
+    (the tiles of W), and row ``i`` to x@A block ``i % nxa`` of the ``nxa``
+    blocks after them."""
+    n_tiles = -(-n // TF32_GROUPED_BN)
+    if bx < n_tiles:
+        return range(0)
+    return range(bx - n_tiles, rows_in_tile, nx - n_tiles)
+
+
+def launch_grouped_tf32x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                          b: torch.Tensor, ids: torch.Tensor, y: torch.Tensor,
+                          a_stride: int, b_stride: int, scale: float,
+                          stream: int) -> int:
+    """Enqueue ``csrc/lora_matmul_grouped_tf32.cu`` on ``stream`` for the
+    aligned f32 CUDA tensors that ``lora_matmul_grouped`` has checked (x
+    (G, M, K) and w contiguous, each adapter of the banks contiguous, ids
+    int32); returns the launch's error code."""
+    g, m, k = x.shape
+    n, r = w.shape[1], a.shape[2]
+    rows = g * m
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rt, splits, ips, nx = grouped_tf32_plan(rows, k, n, sms, r)
+    # f32 split-K partials: x@W (splits, rows, n), x@A (splits, rows, r)
+    ws = torch.empty(splits * rows * (n + r), dtype=torch.float32,
+                     device=x.device)
+    return _build.load(
+        "lora_matmul_grouped_tf32").lora_matmul_grouped_tf32_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        ids.data_ptr(), y.data_ptr(), ws.data_ptr(),
+        ws.data_ptr() + 4 * splits * rows * n, rows, m, k, n, r, a_stride,
+        b_stride, float(scale), rt, splits, ips, nx, stream)
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -323,10 +395,11 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     b_stride = b.stride(0) if e > 1 else r * n
     rows = g * m
     y = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
+    es = x.element_size()
     version = lora_matmul_grouped_version(
         x.dtype, k, n, r,
         all(t.data_ptr() % 16 == 0 for t in (x, w, a, b))
-        and a_stride % 8 == 0 and b_stride % 8 == 0)
+        and a_stride * es % 16 == 0 and b_stride * es % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if version == "wgmma":
@@ -342,6 +415,9 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 ids.data_ptr(), y.data_ptr(), ws.data_ptr(),
                 ws.data_ptr() + 4 * splits * rows * n, rows, m, k, n, r,
                 a_stride, b_stride, float(scale), bn, splits, ips, nx, stream)
+        elif version == "tf32x3":
+            code = launch_grouped_tf32x3(x, w, a, b, ids, y, a_stride,
+                                         b_stride, scale, stream)
         else:
             code = _build.load("lora_matmul").lora_matmul_grouped_launch(
                 x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -355,4 +431,4 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 lora_matmul_grouped.launches = 0
-lora_matmul_grouped.by_version = {"wgmma": 0, "simt": 0}
+lora_matmul_grouped.by_version = {"wgmma": 0, "tf32x3": 0, "simt": 0}

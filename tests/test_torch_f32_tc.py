@@ -57,14 +57,23 @@ def test_lora_matmul_f32_version(k, n, r, aligned, want):
     assert t_lm.lora_matmul_version(F32, k, n, r, aligned) == want
 
 
-@pytest.mark.parametrize("k,n,r", [(512, 512, 16), (2048, 2048, 16),
-                                   (136, 72, 8)])
-def test_lora_matmul_grouped_stays_simt_in_f32(k, n, r):
-    """The grouped function has no f32 tensor-core kernel: no path runs it
-    in f32 (ROADMAP); bf16 at the same shape takes wgmma."""
-    assert t_lm.lora_matmul_grouped_version(F32, k, n, r, True) == "simt"
-    assert t_lm.lora_matmul_grouped_version(BF16, k, n, r, True) == "wgmma"
-    assert set(t_lm.lora_matmul_grouped.by_version) == {"wgmma", "simt"}
+@pytest.mark.parametrize("k,n,r,aligned,want", [
+    (512, 512, 16, True, "tf32x3"), (2048, 2048, 16, True, "tf32x3"),
+    (136, 72, 8, True, "tf32x3"),
+    (2048, 2048, 16, False, "simt"),        # a pointer or stride off 16 B
+    (256, 96, 3, True, "simt"),             # r not a multiple of 4
+])
+def test_lora_matmul_grouped_takes_tf32x3_in_f32(k, n, r, aligned, want):
+    """The grouped function's f32 calls take the tensor-core kernel
+    (``csrc/lora_matmul_grouped_tf32.cu``) under ``lora_matmul_version``'s
+    f32 rule, the f32 decode ticks included; bf16 at the same aligned
+    shapes takes wgmma."""
+    assert t_lm.lora_matmul_grouped_version(F32, k, n, r, aligned) == want
+    if aligned and want == "tf32x3":
+        assert t_lm.lora_matmul_grouped_version(BF16, k, n, r,
+                                                True) == "wgmma"
+    assert set(t_lm.lora_matmul_grouped.by_version) == {"wgmma", "tf32x3",
+                                                        "simt"}
 
 
 @pytest.mark.parametrize("d,aligned,want", [
@@ -214,6 +223,38 @@ def _emulate_lora(x, w, a, b, scale, split="rz", sms=132):
     return y + scale * (xa @ b)
 
 
+def _emulate_grouped(x, w, a, b, ids, scale, sms=132):
+    """``lora_matmul_grouped_tf32_split_kernel`` and its reduce: K in
+    32-deep steps dealt to the splits of ``grouped_tf32_plan``; in each
+    split warp ``j`` sums x@W over the k8 block ``j`` of every step (three
+    truncated tf32 products), the four warps' sums added in warp order;
+    x@A in f32 per row with its own adapter; the reduce adds the splits in
+    order, then s * (x@A) @ B[ids]."""
+    g, m, k = x.shape
+    n, r = w.shape[1], a.shape[2]
+    rows = g * m
+    xr = x.reshape(rows, k)
+    aid = ids.long().repeat_interleave(m)
+    _, splits, ips, _ = t_lm.grouped_tf32_plan(rows, k, n, sms, r)
+    n_iters = -(-k // t_lm.TF32_BK)
+    y, xa = torch.zeros(rows, n), torch.zeros(rows, r)
+    for sp in range(splits):
+        warps = [torch.zeros(rows, n) for _ in range(4)]
+        pa = torch.zeros(rows, r)
+        for it in range(sp * ips, min((sp + 1) * ips, n_iters)):
+            k0 = t_lm.TF32_BK * it
+            for j in range(4):
+                ks = slice(k0 + 8 * j, min(k0 + 8 * j + 8, k))
+                if ks.start < k:
+                    warps[j] += _product_rz(xr[:, ks], w[ks])
+            ks = slice(k0, k0 + t_lm.TF32_BK)
+            pa += torch.einsum("rk,rkj->rj", xr[:, ks], a[aid][:, ks])
+        y = y + (((warps[0] + warps[1]) + warps[2]) + warps[3])
+        xa = xa + pa
+    corr = torch.einsum("rj,rjn->rn", xa, b[aid])
+    return (y + scale * corr).reshape(g, m, n)
+
+
 def _emulate_flash(q, k, v, *, causal=True, window=0, split="rz",
                    n_products=3):
     """``flash_attention_tf32_kernel`` on (B, H, S, D) tensors: 64 keys a
@@ -284,6 +325,23 @@ def test_lora_emulation_meets_the_f32_tolerance(shape, split):
     assert err <= LORA_TOL * want.abs().max().item(), err
 
 
+@pytest.mark.parametrize("shape", [
+    (8, 1, 2048, 2048, 16, 8), (8, 1, 2048, 512, 16, 4),
+    (8, 1, 1024, 3072, 16, 8), (8, 1, 3072, 1024, 16, 8),
+    (7, 10, 520, 264, 24, 5), (9, 2, 1100, 92, 12, 4), (3, 1, 64, 48, 4, 2)])
+def test_grouped_emulation_meets_the_f32_tolerance(shape):
+    """The f32 grouped kernel's arithmetic at decode ticks of llama32-1b's
+    and qwen3-0.6b's projections, M > 1 and ragged K and N: within 2e-4
+    max|want| of the plain version."""
+    g, m, k, n, r, e = shape
+    x, w, a, b = _normal(6, (g, m, k), (k, n), (e, k, r), (e, r, n))
+    ids = torch.from_numpy(np.random.default_rng(6).integers(0, e, g))
+    want = t_lm.lora_matmul_grouped_ref(x, w, a, b, ids, 2.0)
+    got = _emulate_grouped(x, w, a, b, ids, 2.0)
+    err = (got - want).abs().max().item()
+    assert err <= LORA_TOL * want.abs().max().item(), err
+
+
 @pytest.mark.parametrize("shape,kw", [
     *((s, {}) for s in FLASH_PROBES),
     ((2, 130, 4, 4, 16), {"window": 64}), ((1, 150, 2, 1, 128), {}),
@@ -326,6 +384,22 @@ def test_lora_plain_matches_jax_at_the_probe_shapes(shape):
     arrays = _normal(4, (m, k), (k, n), (k, r), (r, n))
     got = t2n(t_lm.lora_matmul(*arrays, 2.0))
     want = j2n(jops.lora_matmul(*(jnp.asarray(t2n(t)) for t in arrays), 2.0))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=LORA_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 256, 128, 4, 8),
+                                   (8, 1, 512, 256, 4, 2)])
+def test_grouped_plain_matches_jax_at_the_reduced_serve_shapes(shape):
+    """f32 ``lora_matmul_grouped`` at decode ticks of the reduced qwen3-0.6b
+    (r = 4, eight adapters; its q and down projections), against the JAX
+    package's Pallas kernel in interpret mode."""
+    g, m, k, n, r, e = shape
+    arrays = _normal(7, (g, m, k), (k, n), (e, k, r), (e, r, n))
+    ids = np.arange(g, dtype=np.int32) % e
+    got = t2n(t_lm.lora_matmul_grouped(*arrays, torch.from_numpy(ids), 2.0))
+    want = j2n(jops.lora_matmul_grouped(
+        *(jnp.asarray(t2n(t)) for t in arrays), jnp.asarray(ids), 2.0))
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=LORA_TOL * np.abs(want).max())
 

@@ -25,7 +25,7 @@ SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
     (BF16, 1096, 72, 16, True, "wgmma"),     # ragged K, whole 16-byte chunks
     (BF16, 136, 64, 64, True, "wgmma"),      # the largest rank
     (BF16, 2048, 2048, 16, False, "simt"),   # a pointer or stride off 16 B
-    (F32, 2048, 2048, 16, True, "simt"),     # f32 stays on the SIMT kernels
+    (F32, 2048, 2048, 16, True, "tf32x3"),   # f32 on the tensor cores too
     (BF16, 1096, 70, 16, True, "simt"),      # N not whole 16-byte chunks
     (BF16, 1100, 72, 16, True, "simt"),      # K not whole 16-byte chunks
     (BF16, 53, 41, 8, True, "simt"),         # K ragged by an odd count
@@ -87,6 +87,71 @@ def test_grouped_xa_rows_cover_each_row_and_split_once(rows, n, r):
             assert max(len(o) for o in owned) <= t_lm.MAX_RANK // r
 
 
+# (K, N) of qwen3-0.6b's five LoRA projections (q; k and v; o; gate and up;
+# down): the f32 serve path's decode ticks
+QWEN3_KN = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+            (3072, 1024))
+
+
+@pytest.mark.parametrize("rows,k,n,r", [
+    (8, 2048, 2048, 16), (8, 2048, 512, 16), (1, 8, 8, 4), (1, 2048, 512, 16),
+    (15, 1100, 72, 16), (32, 256, 64, 64), (4, 136, 64, 64),
+    (70, 520, 264, 16), (70, 520, 264, 24), (200, 1000, 96, 32),
+    (8, 256, 128, 4), *((8, k, n, 16) for k, n in QWEN3_KN)])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_grouped_tf32_plan_covers_every_k_step_once(rows, k, n, r, sms):
+    """The f32 grouped kernel's plan: every 32-deep K step falls in exactly
+    one split, none empty; the row tile is the fewest of 8, 16, 32 rows
+    that holds the rows (32 past that); x@A blocks follow the W tiles."""
+    rt, splits, ips, nx = t_lm.grouped_tf32_plan(rows, k, n, sms, r)
+    assert rt == (8 if rows <= 8 else 16 if rows <= 16 else 32)
+    n_iters = -(-k // t_lm.TF32_BK)
+    ranges = [list(range(s * ips, min((s + 1) * ips, n_iters)))
+              for s in range(splits)]
+    assert all(ranges), "no split may be empty"
+    assert [i for rg in ranges for i in rg] == list(range(n_iters))
+    assert nx > -(-n // t_lm.TF32_GROUPED_BN)
+
+
+@pytest.mark.parametrize("k,n", SERVING_KN[:2] + QWEN3_KN)
+def test_grouped_tf32_plan_fills_the_card_at_the_decode_shapes(k, n):
+    """At 8 rows (a decode tick of 8 slots), at llama32-1b's (2048, 2048 /
+    512) and qwen3-0.6b's five projections: at least 132 blocks (the H100's
+    SMs), no split deeper than ``TF32_GROUPED_STEPS`` K steps, and the
+    fewest splits (of the counts an even deal of the steps gives) that meet
+    both."""
+    rt, splits, ips, nx = t_lm.grouped_tf32_plan(8, k, n, 132, 16)
+    n_iters = -(-k // t_lm.TF32_BK)
+    assert rt == 8
+    assert nx * splits >= 132 and ips <= t_lm.TF32_GROUPED_STEPS
+    dealt = [s for s in range(1, n_iters + 1)
+             if -(-n_iters // -(-n_iters // s)) == s]
+    assert splits == min(s for s in dealt if nx * s >= 132
+                         and -(-n_iters // s) <= t_lm.TF32_GROUPED_STEPS)
+
+
+@pytest.mark.parametrize("rows,n,r", [
+    (8, 2048, 16), (8, 512, 16), (15, 72, 16), (32, 128, 8), (4, 64, 64),
+    (32, 64, 64), (70, 264, 32), (200, 96, 24), (130, 4104, 8), (1, 8, 4),
+    (8, 128, 4), (70, 264, 12)])
+def test_grouped_tf32_xa_rows_cover_each_row_and_split_once(rows, n, r):
+    """In every K split, every row's x@A is computed by exactly one x@A
+    block of its row tile, none by a block of W, and no x@A block holds
+    more than ``TF32_XA_COLS // r`` rows (one where r is larger): what fits
+    its stage of A and its registers."""
+    rt, splits, _, nx = t_lm.grouped_tf32_plan(rows, 4096, n, 132, r)
+    n_tiles = -(-n // t_lm.TF32_GROUPED_BN)
+    for split in range(splits):
+        for m0 in range(0, rows, rt):
+            here = min(rt, rows - m0)
+            owned = [list(t_lm.grouped_tf32_xa_rows(bx, here, n, nx))
+                     for bx in range(nx)]
+            assert not any(owned[:n_tiles])
+            assert sorted(i for o in owned for i in o) == list(range(here))
+            assert max(len(o) for o in owned) <= max(
+                1, t_lm.TF32_XA_COLS // r)
+
+
 @pytest.mark.parametrize("t,slots,window,run", [
     (0, 512, 0, 1),          # first token of a linear cache
     (200, 512, 0, 201),
@@ -146,10 +211,13 @@ def test_cpu_grouped_calls_count_no_version():
                                  torch.arange(8, dtype=torch.int32) % 4)
     assert y.shape == (8, 1, 64)
     assert t_lm.lora_matmul_grouped.launches == 0
-    assert t_lm.lora_matmul_grouped.by_version == {"wgmma": 0, "simt": 0}
+    assert t_lm.lora_matmul_grouped.by_version == {"wgmma": 0, "tf32x3": 0,
+                                                   "simt": 0}
 
 
 def test_grouped_by_version_resets_with_the_launch_counts():
     t_lm.lora_matmul_grouped.by_version["wgmma"] = 5
+    t_lm.lora_matmul_grouped.by_version["tf32x3"] = 3
     reset_launch_counts()
-    assert t_lm.lora_matmul_grouped.by_version == {"wgmma": 0, "simt": 0}
+    assert t_lm.lora_matmul_grouped.by_version == {"wgmma": 0, "tf32x3": 0,
+                                                   "simt": 0}

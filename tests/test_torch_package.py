@@ -78,14 +78,16 @@ def test_csrc_holds_the_three_kernels():
     the other two: all five TPU kernels of the reference; ``lora_matmul``,
     ``lora_matmul_grouped`` and ``flash_attention`` also on the tensor cores
     (``wgmma``), ``ssd_intra_chunk`` too (``mma.sync`` with tf32), and the
-    f32 ``lora_matmul`` and ``flash_attention`` on ``mma.sync`` with tf32,
-    the shared three-product helpers in ``tf32x3.cuh``; bf16
+    f32 ``lora_matmul``, ``lora_matmul_grouped`` and ``flash_attention`` on
+    ``mma.sync`` with tf32, the shared three-product helpers in
+    ``tf32x3.cuh``; bf16
     ``flash_attention`` at head dims 64 and 128 also warp-specialised (TMA,
     mbarriers, named barriers, ``setmaxnreg``)."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
             for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
                       "lora_matmul_tf32.cu", "lora_matmul_grouped_tc.cu",
+                      "lora_matmul_grouped_tf32.cu",
                       "flash_attention.cu", "flash_attention_tc.cu",
                       "flash_attention_ws.cu", "flash_attention_tf32.cu",
                       "flash_decode.cu",
@@ -113,14 +115,17 @@ def test_csrc_holds_the_three_kernels():
     assert ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
             in text["tf32x3.cuh"])
     for name in ("ssd_scan_tc.cu", "lora_matmul_tf32.cu",
-                 "flash_attention_tf32.cu"):
+                 "lora_matmul_grouped_tf32.cu", "flash_attention_tf32.cu"):
         assert '#include "tf32x3.cuh"' in text[name], name
     assert "lora_matmul_tf32_split_kernel" in text["lora_matmul_tf32.cu"]
+    assert ("lora_matmul_grouped_tf32_split_kernel"
+            in text["lora_matmul_grouped_tf32.cu"])
     assert "flash_attention_tf32_kernel" in text["flash_attention_tf32.cu"]
     from repro_torch.kernels import _build, launch_counts
     assert set(_build.SOURCES) == {"lora_matmul", "lora_matmul_tc",
                                    "lora_matmul_tf32",
                                    "lora_matmul_grouped_tc",
+                                   "lora_matmul_grouped_tf32",
                                    "flash_attention", "flash_attention_tc",
                                    "flash_attention_ws",
                                    "flash_attention_tf32", "flash_decode",
@@ -536,6 +541,43 @@ def test_gpu_lora_matmul_tf32x3_kernel(cuda, m, k, n, r):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("g,m,k,n,r,e,strided,ids", [
+    (1, 1, 2048, 512, 16, 4, False, None),          # one row
+    (8, 1, 2048, 2048, 16, 4, False, None),         # a decode tick
+    (70, 1, 520, 264, 16, 5, False, None),          # three row tiles of 32
+    (7, 10, 520, 264, 24, 5, False, None),          # M > 1, 70 rows
+    (5, 3, 1096, 72, 16, 3, False, None),           # M > 1, a 16-row tile
+    (8, 1, 2048, 512, 16, 4, True, (3, 3, 0, 2, 2, 2, 1, 0)),
+    (3, 1, 64, 48, 4, 2, False, None),              # r = 4
+    (4, 2, 136, 64, 64, 3, False, None),            # r = 64
+    (32, 1, 256, 64, 64, 4, False, None),           # blocks of x@A only
+    (9, 2, 1100, 92, 12, 4, False, None),           # K, N ragged by 4
+    (8, 1, 1024, 3072, 16, 8, True, None)])         # qwen3-0.6b's up proj.
+def test_gpu_lora_matmul_grouped_tf32x3_kernel(cuda, g, m, k, n, r, e,
+                                               strided, ids):
+    """f32 at decode shapes (one with the strided in-place bank of
+    ``AdapterBank.gather`` and repeated ids), one to 70 rows, M > 1, ranks
+    4 to 64, ragged K and N: the tf32x3 version, at the f32 tolerance."""
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(11)
+    f32 = torch.float32
+    x, w = _rand(rng, (g, m, k), f32, cuda), _rand(rng, (k, n), f32, cuda)
+    a, b = _rand(rng, (e, k, r), f32, cuda), _rand(rng, (e, r, n), f32, cuda)
+    if strided:
+        a = torch.stack([a, a], dim=1)[:, 1]
+        b = torch.stack([b, b], dim=1)[:, 0]
+        assert not a.is_contiguous()
+    ids = torch.as_tensor(rng.integers(0, e, g) if ids is None else ids,
+                          dtype=torch.int32, device=cuda)
+    before = lm.lora_matmul_grouped.by_version["tf32x3"]
+    got = lm.lora_matmul_grouped(x, w, a, b, ids, 2.0)
+    assert lm.lora_matmul_grouped.by_version["tf32x3"] == before + 1
+    torch.cuda.synchronize()
+    want = lm.lora_matmul_grouped_ref(x, w, a, b, ids, 2.0)
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
     (1, 512, 512, 8, 4, 64, True, 0), (1, 256, 256, 4, 2, 32, True, 0),
     (2, 130, 130, 4, 4, 16, True, 64), (1, 150, 150, 2, 1, 128, True, 0),
@@ -754,7 +796,7 @@ def test_gpu_serving_twin_launches_both_lora_kernels(cuda):
     dtype, r = getattr(torch, cfg.dtype), cfg.lora.rank
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = ((d, q), (d, kv), (q, d), (d, ff), (ff, d))
-    # the reduced width is f32: tf32x3 prefill chunks, SIMT ticks
+    # the reduced width is f32: tf32x3 prefill chunks and ticks
     want = {name: {fn(dtype, k, n, r, True) for k, n in shapes}
             for name, fn in (("lora_matmul", lm.lora_matmul_version),
                              ("lora_matmul_grouped",
