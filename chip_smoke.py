@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only bench     # build + the bench phase, full grid
     python3 chip_smoke.py --only flash     # bf16 flash_attention timing rows
     python3 chip_smoke.py --only serve32   # build + the serve32 phase
+    python3 chip_smoke.py --only shard     # build + the shard phase
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -109,8 +110,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
            roofline terms against the H100), in worker processes, beside
            the card check: the same train / prefill / decode programs of
            qwen3-0.6b, qwen2-7b, mamba2-370m and granite-moe-3b-a800m run
-           on the card at full width and depth (the batch cut), their
-           FLOP count equal to the meta record's, the meta peak within
+           on the card at full width and depth (the batch cut; the 32k
+           prefills on their first 8 layers, the meta record likewise),
+           their FLOP count equal to the meta record's, the meta peak within
            10 % of ``max_memory_allocated``, CUDA-event time beside the
            record's bound; no kernel
   bench    the benchmark twins of ``launch/``: ``serving_bench`` at
@@ -151,6 +153,7 @@ true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -2289,11 +2292,17 @@ class RoutingLog:
     gates are then the caller's own probabilities at the replayed experts).
     Top-k is discontinuous at a near-tie, so two paths that agree to
     rounding can still route one token differently; replaying one path's
-    routing in the other compares what is continuous."""
+    routing in the other compares what is continuous. ``rows`` (a slice)
+    takes one rank's rows of each replayed entry (its batch shard); in
+    replay, ``flips`` counts the choices the caller's own top-k would have
+    made otherwise."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, rows=slice(None)):
         self.idx = []
         self.replay = None if replay is None else list(replay)
+        self.rows = rows
+        self.flips = 0
+        self.choices = 0
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -2301,7 +2310,11 @@ class RoutingLog:
 
         def route(probs, k):
             if self.replay is not None:
-                idx = self.replay.pop(0)
+                idx = torch.as_tensor(self.replay.pop(0)[self.rows],
+                                      device=probs.device)
+                own = self._orig(probs, k)[1]
+                self.flips += int((own != idx).sum())
+                self.choices += idx.numel()
                 return probs.gather(-1, idx), idx
             gates, idx = self._orig(probs, k)
             self.idx.append(idx)
@@ -2312,6 +2325,39 @@ class RoutingLog:
     def __exit__(self, *exc):
         from repro_torch.models import moe
         moe.route = self._orig
+        return False
+
+
+class DropLog:
+    """While open, tallies every capacity check (``moe.within_capacity``):
+    ``checked``, the items the first check of each layer saw (the routed
+    choices; ``stages`` checks a layer: 2 on the all-to-all layout, sender
+    and receiver), and ``dropped``, the items any check dropped."""
+
+    def __init__(self, stages=1):
+        self.stages = stages
+        self.calls = 0
+        self.checked = 0
+        self.dropped = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe.within_capacity
+
+        def within_capacity(pos, cap, valid=None):
+            keep = self._orig(pos, cap, valid)
+            n = pos.numel() if valid is None else int(valid.sum())
+            if self.calls % self.stages == 0:
+                self.checked += n
+            self.dropped += n - int(keep.sum())
+            self.calls += 1
+            return keep
+        moe.within_capacity = within_capacity
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.within_capacity = self._orig
         return False
 
 
@@ -2933,6 +2979,9 @@ DRYRUN_CARD = {
     "granite-moe-3b-a800m": {"train_4k": 2, "prefill_32k": 1,
                              "decode_32k": 16},
 }
+# the depth of the card check's 32k prefills: at full depth they took 254 s
+# of the phase (memory-bound chunked attention, 14.9-25.5 s a row)
+DRYRUN_CARD_LAYERS = {"prefill_32k": 8}
 DRYRUN_WORKERS = 6          # processes tracing on meta beside the card check
 PEAK_TOL = 0.10             # meta peak vs max_memory_allocated, relative
 DRYRUN_REPS = 3             # timed calls after the warm-up, median
@@ -2943,9 +2992,11 @@ def _finite(tree) -> bool:
                if x.is_floating_point())
 
 
-def dryrun_card_run(arch: str, shape_name: str, batch: int, dev):
+def dryrun_card_run(arch: str, shape_name: str, batch: int, dev,
+                    layers=None):
     """One dry-run program on the card at its full published width and
-    depth, the global batch cut to ``batch``: the warm-up under
+    depth (``layers``: its first layers), the global batch cut to
+    ``batch``: the warm-up under
     ``FlopCounterMode`` (the card's FLOP count) with the peak memory above
     what was allocated before the arguments were made, then
     ``DRYRUN_REPS`` calls timed with CUDA events. Returns the measurements;
@@ -2954,6 +3005,8 @@ def dryrun_card_run(arch: str, shape_name: str, batch: int, dev):
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.launch.dryrun import build_step, combo_config
     cfg = combo_config(arch, shape_name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = dataclasses.replace(INPUT_SHAPES[shape_name], global_batch=batch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2995,9 +3048,10 @@ def phase_dryrun(seed: int):
     ``meta`` at full published width (40 combos, kimi-k2-1t-a32b included),
     in ``DRYRUN_WORKERS`` processes, beside (b) the card check: the same
     three programs run on the card for the archs of ``DRYRUN_CARD`` at
-    full width and depth, the batch cut, each held against its own meta
-    record at that batch: the FLOP count equal, the meta peak within
-    ``PEAK_TOL`` of the card's. No kernel launches on this path."""
+    full width and depth (the 32k prefills at ``DRYRUN_CARD_LAYERS``), the
+    batch cut, each held against its own meta record at that batch and
+    depth: the FLOP count equal, the meta peak within ``PEAK_TOL`` of the
+    card's. No kernel launches on this path."""
     del seed                        # weights from seed 0, as ``build_step``
     from repro_torch import kernels
     from repro_torch.configs.base import INPUT_SHAPES
@@ -3008,8 +3062,10 @@ def phase_dryrun(seed: int):
     gpu = gpu_line()
     t_phase = time.time()
     matrix = [(a, s, {}) for a in dryrun.DRYRUN_ARCHS for s in INPUT_SHAPES]
-    card_jobs = [(a, s, {"batch": b}) for a, by in DRYRUN_CARD.items()
-                 for s, b in by.items()]
+    card_jobs = [(a, s, {"batch": b,
+                         **({"layers": DRYRUN_CARD_LAYERS[s]}
+                            if s in DRYRUN_CARD_LAYERS else {})})
+                 for a, by in DRYRUN_CARD.items() for s, b in by.items()]
     done = []
     pool, result = dryrun.start_matrix(
         matrix + card_jobs, DRYRUN_WORKERS,
@@ -3017,7 +3073,8 @@ def phase_dryrun(seed: int):
     with pool:
         # ---- the main path: counts set to 0 just before, read just after --
         kernels.reset_launch_counts()
-        card = {(a, s): dryrun_card_run(a, s, kw["batch"], dev)
+        card = {(a, s): dryrun_card_run(a, s, kw["batch"], dev,
+                                        kw.get("layers"))
                 for a, s, kw in card_jobs}
         counts = kernels.launch_counts()
         # ------------------------------------------------------------------
@@ -3492,6 +3549,546 @@ def phase_serve32(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# shard phase
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "granite-moe-3b-a800m"
+SHARD_TOKENS = (4, 1024)
+SHARD_AXES = ("data", "model")
+# ep_a2a on both; at batch 4, dp 8 does not divide the batch: the broadcast
+# layout
+SHARD_EP_MESHES = ((4, 2), (8, 1))
+# replicated (dp 3 does not divide 40 experts) at batch 6, over dp x model;
+# its first 16 layers: six f32 copies of the 32-layer expert bank (12 GB
+# each) do not fit the card beside one another
+SHARD_REPLICATED = ((3, 2), 6, 16)
+SHARD_TOL = 1e-4           # f32, x max|want|
+PUBLISHED_CF = 1.25
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_MESH = (8, 1)
+KIMI_TOKENS = (8, 8)       # 64 tokens: no expert gets more than 64 rows
+KIMI_CF = 8.0              # send 64 slots a group, receive 88 an expert
+KIMI_REF_CF = 48.0         # one card: 64 slots an expert
+KIMI_TOL = 2e-2            # bf16, x max|want|
+SHARD_TIMEOUT_S = 600
+SHARD_BUILD_WAVE = 3       # ranks holding the whole bf16 model at once
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def _moe_rows(mesh, cfg, batch: int, seq: int):
+    """The rows of a layer's (batch * seq) tokens this rank routes, and the
+    capacity checks a layer makes (2 on the all-to-all layout)."""
+    from repro_torch import shardctx
+    from repro_torch.models import moe_shard_map as msm
+    with shardctx.mesh_ctx(mesh):
+        strategy = msm.select_strategy(cfg)
+        axes = msm.batch_axes(strategy, batch)
+    if not axes:
+        return slice(None), 1
+    n = batch * seq // mesh.axis_size(axes)
+    i = mesh.axis_index(axes)
+    return slice(i * n, (i + 1) * n), 2 if strategy == "ep_a2a" else 1
+
+
+def local_frozen(mesh, cfg, seed: int, n_layers: int, dtypes):
+    """The bf16 model drawn from ``seed`` as every phase draws it, its first
+    ``n_layers`` layers, its MoE weights cut to this rank's block under
+    ``param_specs``, for each of ``dtypes`` ("bfloat16", "float32"). The
+    ranks build in waves of ``SHARD_BUILD_WAVE``: only a wave holds the
+    whole model at once."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    out = None
+    cut = n_layers < cfg.n_layers
+    for first in range(0, mesh.size, SHARD_BUILD_WAVE):
+        if first <= mesh.rank < first + SHARD_BUILD_WAVE:
+            params = M.init_params(seed, cfg, device=mesh.device)
+            frozen, lora = params["frozen"], params["lora"]
+            if cut:
+                frozen = dict(frozen, layers=M.slice_layers(
+                    frozen["layers"], 0, n_layers))
+                lora = {"layers": M.slice_layers(lora["layers"], 0,
+                                                 n_layers)}
+            specs = shd.param_specs(
+                dataclasses.replace(cfg, n_layers=n_layers),
+                {"frozen": frozen, "lora": lora}, mesh)["frozen"]
+            moe = tree_map(lambda v, spec: shd.local_shard(v, spec,
+                                                           mesh).clone(),
+                           frozen["layers"]["moe"], specs["layers"]["moe"])
+            frozen = dict(frozen, layers=dict(frozen["layers"], moe=moe))
+            # "bfloat16": the model as drawn (its router and norms are
+            # f32); "float32": every leaf upcast. A copy where the leaf is a
+            # view of the whole model's stacks
+            out = {dt: tree_map(lambda v, dt=dt: (
+                       v.to(torch.float32, copy=cut) if dt == "float32"
+                       else v.clone() if cut else v), frozen)
+                   for dt in dtypes}
+            del params, lora, frozen, moe
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def shard_prefill(mesh, cfg, frozen, lora, toks, replay=None):
+    """``make_prefill_step(impl="flash")`` on ``mesh`` (None: one card), the
+    launch counts set to 0 just before and read just after; the MoE
+    routing replayed from ``replay`` (this rank's rows), if given."""
+    from repro_torch import kernels, shardctx
+    from repro_torch.launch.serve import make_prefill_step
+    rows, stages = (_moe_rows(mesh, cfg, *toks.shape) if mesh is not None
+                    else (slice(None), 1))
+    step = make_prefill_step(cfg, impl="flash", device=toks.device)
+    ctx = shardctx.mesh_ctx(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    with ctx, RoutingLog(replay=replay, rows=rows) as route, \
+            DropLog(stages) as drops:
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        logits = step(frozen, lora, toks)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = kernels.launch_counts()
+        runs = kernels.runs_on_card()
+        versions = kernels.version_counts()
+    return {"logits": logits, "seconds": seconds, "launches": counts,
+            "runs_on_card": runs, "launches_by_version": versions,
+            "routing": [i.cpu().numpy() for i in route.idx],
+            "flips": route.flips, "choices": route.choices,
+            "checked": drops.checked, "dropped": drops.dropped}
+
+
+def _shard_inputs(seed: int, batch: int, seq: int, vocab: int):
+    rng = np.random.default_rng(seed + 100)
+    return torch.as_tensor(rng.integers(0, vocab, (batch, seq)),
+                           device="cuda")
+
+
+def _layer_inputs(seed: int, cfg, batch: int):
+    """(x, R) of the single-layer checks: a unit-scale hidden state, and the
+    weights of the loss sum(out * R)."""
+    rng = np.random.default_rng(seed + 300)
+    shape = (batch, SHARD_TOKENS[1], cfg.d_model)
+    return (randn(rng, shape, torch.float32), randn(rng, shape,
+                                                    torch.float32))
+
+
+def _layer_adapter(lora):
+    from repro_torch.models.common import tree_map
+    return {"out_adapter": tree_map(
+        lambda v: v[0].float().clone().requires_grad_(),
+        lora["layers"]["moe"]["out_adapter"])}
+
+
+def shard_layer(mesh, cfg, layer, lora, x, r, replay):
+    """One MoE layer, forward and the backward of sum(out * R) w.r.t. x and
+    the adapter (on ``mesh``: ``moe_forward_dist``; None: ``moe_forward``)."""
+    from repro_torch import shardctx
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_shard_map as msm
+    rows, stages = (_moe_rows(mesh, cfg, x.shape[0], x.shape[1])
+                    if mesh is not None else (slice(None), 1))
+    ctx = shardctx.mesh_ctx(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    x = x.detach().clone().requires_grad_(lora is not None)
+    with ctx, RoutingLog(replay=replay, rows=rows) as route, \
+            DropLog(stages) as drops:
+        if mesh is not None:
+            out, aux = msm.moe_forward_dist(layer, lora, x, cfg,
+                                            msm.select_strategy(cfg))
+        else:
+            out, aux = moe_mod.moe_forward(layer, lora, x, cfg)
+        res = {"out": out.detach(), "aux": aux.detach(),
+               "routing": [i.cpu().numpy() for i in route.idx],
+               "flips": route.flips, "dropped": drops.dropped,
+               "checked": drops.checked}
+        if lora is not None:
+            wrt = [x, lora["out_adapter"]["a"], lora["out_adapter"]["b"]]
+            grads = torch.autograd.grad((out * r).sum(), wrt)
+            res.update(grad_x=grads[0], grad_a=grads[1], grad_b=grads[2])
+    return res
+
+
+def shard_rank(mesh, jobs):
+    """One rank of the shard phase's ranks (``spawn_mesh``): for each
+    (mesh shape, job) of ``jobs`` in turn, that mesh over the same ranks
+    (``mesh`` itself, or another ``LiveMesh`` of the same world size) and
+    ``shard_mesh_run`` on it. Returns {shape: that run's results}."""
+    from repro_torch.launch.mesh import LiveMesh
+    out = {}
+    for shape, job in jobs:
+        m = mesh if tuple(shape) == mesh.sizes else LiveMesh.build(
+            shape, SHARD_AXES, mesh.device)
+        out[tuple(shape)] = shard_mesh_run(m, job)
+    return out
+
+
+def shard_mesh_run(mesh, job):
+    """One rank's part of a mesh of the shard phase: the granite prefill
+    runs of ``job``, then the single-layer and kimi checks it names.
+    Returns the counts, the logits, and what rank 0 alone carries whole
+    (the layer tensors; the other ranks send their digests)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe_shard_map as msm
+    from repro_torch.models.common import tree_take
+    t_start = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(SHARD_ARCH),
+                              capacity_factor=job["cf"])
+    n_layers = job["layers"]
+    frozen = local_frozen(mesh, cfg, job["seed"], n_layers, job["dtypes"])
+    lora = make_adapter(cfg, job["seed"] + 1, mesh.device)
+    if n_layers < cfg.n_layers:
+        cfg, _, lora = first_layers(cfg, frozen["float32"], lora, n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = _shard_inputs(job["seed"], job["batch"], SHARD_TOKENS[1],
+                         cfg.vocab_size)
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "backend": mesh.backend, "transport": mesh.transport,
+           "build_s": time.time() - t_start,
+           "build_peak_bytes": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"f32": shard_prefill(mesh, cfg32, frozen["float32"], lora, toks,
+                                 job["routing"])}
+    if "bfloat16" in job["dtypes"]:
+        runs["bf16"] = shard_prefill(mesh, cfg, frozen["bfloat16"], lora,
+                                     toks)
+    runs["f32_published_cf"] = shard_prefill(
+        mesh, dataclasses.replace(cfg32, capacity_factor=PUBLISHED_CF),
+        frozen["float32"], lora, toks)
+    for run in runs.values():
+        run["logits_digest"] = _digest(run["logits"])
+        del run["routing"]
+    out["runs"] = runs
+    if job.get("layer"):
+        layer = tree_take(frozen["float32"]["layers"], 0)["moe"]
+        x, r = _layer_inputs(job["seed"], cfg, SHARD_TOKENS[0])
+        checks = {"ep_a2a_backward": shard_layer(
+                      mesh, cfg32, layer, _layer_adapter(lora), x, r,
+                      job["layer_routing"]),
+                  "broadcast": shard_layer(mesh, cfg32, layer, None,
+                                           x[:job["bcast_batch"]], r,
+                                           job["bcast_routing"])}
+        for check in checks.values():
+            del check["routing"]
+            for key in ("out", "aux", "grad_x", "grad_a", "grad_b"):
+                if key in check:
+                    check[key + "_digest"] = _digest(check[key])
+                    if mesh.rank:
+                        del check[key]
+        out["layer"] = checks
+    del frozen, runs, lora
+    torch.cuda.empty_cache()
+    out["granite_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if job.get("kimi"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        kcfg = dataclasses.replace(get_config(KIMI_ARCH),
+                                   capacity_factor=KIMI_CF)
+        params = msm.init_local_moe(job["seed"], kcfg, torch.bfloat16, mesh,
+                                    device=mesh.device)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        x = randn(np.random.default_rng(job["seed"] + 400),
+                  KIMI_TOKENS + (kcfg.d_model,), torch.bfloat16)
+        res = shard_layer(mesh, kcfg, params, None, x, None, None)
+        out["kimi"] = {"out": res["out"], "routing": res["routing"],
+                       "dropped": res["dropped"], "checked": res["checked"],
+                       "init_s": init_s, "seconds": time.time() - t0,
+                       "expert_bytes": sum(
+                           params[k].numel() * params[k].element_size()
+                           for k in ("w_gate", "w_up", "w_down")),
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["seconds"] = time.time() - t_start
+    return out
+
+
+def phase_shard(seed: int):
+    """The sharding layer on meshes of ranks sharing this card
+    (``spawn_mesh``, one process a rank, ``gloo``):
+
+      (a) granite-moe-3b-a800m at its published config: the f32 flash
+          prefill step on (4, 1024) tokens through ``moe_forward_dist`` on
+          (4, 2) and (8, 1) (``ep_a2a``) and on (3, 2) at batch 6
+          (``replicated``, first 16 layers), each against the same weights'
+          run on one card, the routing replayed from it, at the capacity
+          factor E / k, at which no path drops; the flash_attention
+          launches of every rank counted; the dropped share of every path
+          at the published 1.25; bf16 on (4, 2) by the registry phase's
+          rule; one layer's backward (x and the adapter) on (4, 2);
+      (b) the broadcast layout: one layer at batch 2 on (4, 2);
+      (c) one MoE layer of kimi-k2-1t-a32b at its published width (bf16,
+          384 experts, 64 tokens) on (8, 1), each rank drawing its 48
+          experts only, against ``moe_forward`` of the whole layer on one
+          card after the ranks exit.
+
+    Returns the path's (counts, runs, versions), summed over the ranks'
+    prefill runs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import (choose_backend, make_abstract_mesh,
+                                         spawn_mesh)
+    from repro_torch.models import model as M
+    from repro_torch.models import moe_shard_map as msm
+    from repro_torch.models.common import tree_map, tree_take
+    gpu = gpu_line()
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    cfg = get_config(SHARD_ARCH)
+    free_cf = cfg.n_experts / cfg.top_k          # drops nothing anywhere
+    worlds = sorted({a * b for a, b in SHARD_EP_MESHES}
+                    | {math.prod(SHARD_REPLICATED[0])})
+    backends = {w: choose_backend(dev, w) for w in worlds}
+    emit({"phase": "shard_plan", "gpu": gpu, "arch": SHARD_ARCH,
+          "meshes": [list(m) for m in SHARD_EP_MESHES]
+          + [list(SHARD_REPLICATED[0])],
+          "backend_by_world_size": backends,
+          "cards": torch.cuda.device_count()})
+
+    # ---- one card: the references, and the routing every mesh replays ----
+    batch, seq = SHARD_TOKENS
+    rep_shape, rep_batch, rep_layers = SHARD_REPLICATED
+    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
+    frozen32 = tree_map(lambda v: v.float(), frozen)
+    lora = make_adapter(cfg, seed + 1, dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = _shard_inputs(seed, batch, seq, cfg.vocab_size)
+    toks6 = _shard_inputs(seed, rep_batch, seq, cfg.vocab_size)
+    cfg_rep, frozen_rep, lora_rep = first_layers(cfg32, frozen32, lora,
+                                                 rep_layers)
+    want = shard_prefill(None, dataclasses.replace(cfg32,
+                                                   capacity_factor=free_cf),
+                         frozen32, lora, toks)
+    want6 = shard_prefill(None, dataclasses.replace(cfg_rep,
+                                                    capacity_factor=free_cf),
+                          frozen_rep, lora_rep, toks6)
+    want_bf = shard_prefill(None, dataclasses.replace(
+        cfg, capacity_factor=free_cf), frozen, lora, toks)
+    published = {
+        "one_card": shard_prefill(None, dataclasses.replace(
+            cfg32, capacity_factor=PUBLISHED_CF), frozen32, lora, toks),
+        "one_card_16_layers_batch_6": shard_prefill(
+            None, dataclasses.replace(cfg_rep, capacity_factor=PUBLISHED_CF),
+            frozen_rep, lora_rep, toks6)}
+    # the single-layer checks: layer 0 at f32 and E / k, the meshes replaying
+    # the one-card routing
+    layer = tree_take(frozen32["layers"], 0)["moe"]
+    x, r = _layer_inputs(seed, cfg, batch)
+    bcast_batch = 2
+    cfg_l = dataclasses.replace(cfg32, capacity_factor=free_cf)
+    layer_want = shard_layer(None, cfg_l, layer, _layer_adapter(lora), x, r,
+                             None)
+    bcast_want = shard_layer(None, cfg_l, layer, None, x[:bcast_batch], r,
+                             None)
+    for run in (want, want6, want_bf, layer_want, bcast_want):
+        assert run["dropped"] == 0, run["dropped"]
+    # the logits of the real vocabulary (the padded columns are -inf-like)
+    ref = {"f32": want["logits"][:, :cfg.vocab_size],
+           "f32_6": want6["logits"][:, :cfg.vocab_size],
+           "bf16": want_bf["logits"][:, :cfg.vocab_size]}
+    one_card_s = {"f32": want["seconds"], "bf16": want_bf["seconds"],
+                  "f32_16_layers_batch_6": want6["seconds"]}
+    del frozen, frozen32, lora, frozen_rep, lora_rep, layer
+    torch.cuda.empty_cache()
+
+    # ---- the meshes ---------------------------------------------------------
+    base = {"seed": seed, "cf": free_cf, "bcast_batch": bcast_batch}
+    jobs = {
+        (4, 2): dict(base, layers=cfg.n_layers, batch=batch,
+                     dtypes=("float32", "bfloat16"), routing=want["routing"],
+                     layer=True, layer_routing=layer_want["routing"],
+                     bcast_routing=bcast_want["routing"]),
+        (8, 1): dict(base, layers=cfg.n_layers, batch=batch,
+                     dtypes=("float32",), routing=want["routing"], kimi=True),
+        rep_shape: dict(base, layers=rep_layers, batch=rep_batch,
+                        dtypes=("float32",), routing=want6["routing"]),
+    }
+    # one spawn for each world size: (4, 2) and (8, 1) share the 8 ranks
+    spawns = {}
+    for shape, job in jobs.items():
+        spawns.setdefault(math.prod(shape), []).append((shape, job))
+    results, spawn_s = {}, {}
+    for world, mesh_jobs in spawns.items():
+        t0 = time.time()
+        ranks = spawn_mesh(shard_rank, mesh_jobs[0][0], SHARD_AXES,
+                           device=dev, args=(mesh_jobs,),
+                           timeout_s=SHARD_TIMEOUT_S)
+        spawn_s[world] = time.time() - t0
+        for shape, _ in mesh_jobs:
+            results[shape] = [res[shape] for res in ranks]
+
+    # ---- (c) kimi-k2's layer on one card, on the ranks' routing ------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    kimi_ranks = results[KIMI_MESH]
+    kcfg = dataclasses.replace(get_config(KIMI_ARCH),
+                               capacity_factor=KIMI_REF_CF)
+    kparams = msm.init_local_moe(seed, kcfg, torch.bfloat16, device=dev)
+    kx = randn(np.random.default_rng(seed + 400),
+               KIMI_TOKENS + (kcfg.d_model,), torch.bfloat16)
+    k_routing = [np.concatenate([res["kimi"]["routing"][0]
+                                 for res in kimi_ranks])]
+    kimi_want = shard_layer(None, kcfg, kparams, None, kx, None, k_routing)
+    kimi_ref_s = time.time() - t0
+    kimi_ref_peak = torch.cuda.max_memory_allocated()
+    del kparams
+    torch.cuda.empty_cache()
+
+    # ---- checks ----------------------------------------------------------
+    def err(got, w):
+        if w.dim():                     # logits: the real vocabulary
+            got = got[..., :w.shape[-1]]
+        return (got.float().to(w.device) - w.float()).abs().max().item()
+
+    def scale(w):
+        return w.float().abs().max().item()
+
+    def share(run_list):
+        checked = sum(run["checked"] for run in run_list)
+        return sum(run["dropped"] for run in run_list) / max(checked, 1)
+
+    totals = ({}, {}, {})
+    report = {}
+    for shape, ranks in results.items():
+        name = "x".join(map(str, shape))
+        f32_want = ref["f32_6"] if shape == rep_shape else ref["f32"]
+        runs = [res["runs"] for res in ranks]
+        entry = {"world": len(ranks), "backend": ranks[0]["backend"],
+                 "transport": ranks[0]["transport"],
+                 "strategy": msm.strategy_for_mesh(
+                     cfg, make_abstract_mesh(shape, SHARD_AXES)),
+                 "rank_seconds": max(res["seconds"] for res in ranks),
+                 "build_s": max(res["build_s"] for res in ranks),
+                 "f32_step_s": max(r["f32"]["seconds"] for r in runs),
+                 "f32_err": max(err(r["f32"]["logits"], f32_want)
+                                for r in runs),
+                 "f32_tol": SHARD_TOL * scale(f32_want),
+                 "f32_dropped": sum(r["f32"]["dropped"] for r in runs),
+                 "f32_routing_flips": sum(r["f32"]["flips"] for r in runs),
+                 "f32_routing_choices": sum(r["f32"]["choices"]
+                                            for r in runs),
+                 "dropped_share_at_1.25": share(
+                     [r["f32_published_cf"] for r in runs]),
+                 "build_peak_bytes_by_rank": [res["build_peak_bytes"]
+                                              for res in ranks],
+                 "peak_bytes_by_rank": [res["granite_peak_bytes"]
+                                        for res in ranks]}
+        for run in runs:
+            for kind in ("f32", "bf16"):
+                if kind not in run:
+                    continue
+                for acc, key in zip(totals, ("launches", "runs_on_card")):
+                    for kname, n in run[kind][key].items():
+                        acc[kname] = acc.get(kname, 0) + n
+                for kname, by in run[kind]["launches_by_version"].items():
+                    acc = totals[2].setdefault(kname, {})
+                    for ver, n in by.items():
+                        acc[ver] = acc.get(ver, 0) + n
+        entry["flash_attention_launches"] = {
+            kind: sum(r[kind]["launches"]["flash_attention"] for r in runs)
+            for kind in ("f32", "bf16") if kind in runs[0]}
+        entry["flash_attention_by_version"] = {
+            kind: runs[0][kind]["launches_by_version"]["flash_attention"]
+            for kind in ("f32", "bf16") if kind in runs[0]}
+        logits = runs[0]["f32"]["logits"]
+        entry["f32_logits_finite"] = bool(
+            tuple(logits.shape) == (f32_want.shape[0], cfg.padded_vocab)
+            and torch.isfinite(logits[:, :cfg.vocab_size]).all())
+        # every rank's logits are the same, bit for bit
+        for kind in runs[0]:
+            assert len({r[kind]["logits_digest"] for r in runs}) == 1, (
+                name, kind)
+        if "bf16" in runs[0]:
+            entry["bf16_vs_f32"] = err(runs[0]["bf16"]["logits"], ref["f32"])
+            entry["one_card_bf16_vs_f32"] = err(ref["bf16"], ref["f32"])
+        if "layer" in ranks[0]:
+            lay = ranks[0]["layer"]
+            for check in lay:
+                assert len({res["layer"][check]["out_digest"]
+                            for res in ranks}) == 1, check
+            bw, bc = lay["ep_a2a_backward"], lay["broadcast"]
+            # grad_x runs through the map's transposes; the adapter sits
+            # outside the map, on the replicated x with the same R on every
+            # rank, so grad_a and grad_b only confirm that it stays there
+            entry["layer_backward"] = {
+                key: {"err": err(bw[key], layer_want[key]),
+                      "tol": SHARD_TOL * scale(layer_want[key])}
+                for key in ("out", "grad_x", "grad_a", "grad_b")}
+            entry["layer_backward"]["aux"] = {
+                "dist": bw["aux"].item(), "one_card": layer_want["aux"].item()}
+            entry["broadcast_layer"] = {
+                key: {"err": err(bc[key], bcast_want[key]),
+                      "tol": SHARD_TOL * max(scale(bcast_want[key]), 1e-30)}
+                for key in ("out", "aux")}
+            entry["layer_dropped"] = bw["dropped"] + bc["dropped"]
+            entry["layer_flips"] = bw["flips"] + bc["flips"]
+        report[name] = entry
+    kimi = {"world": len(kimi_ranks), "mesh": list(KIMI_MESH),
+            "tokens": list(KIMI_TOKENS),
+            "err": err(kimi_ranks[0]["kimi"]["out"], kimi_want["out"]),
+            "tol": KIMI_TOL * scale(kimi_want["out"]),
+            "dropped": sum(res["kimi"]["dropped"] for res in kimi_ranks)
+            + kimi_want["dropped"],
+            "one_card_routing_flips": kimi_want["flips"],
+            "expert_bytes_by_rank": [res["kimi"]["expert_bytes"]
+                                     for res in kimi_ranks],
+            "peak_bytes_by_rank": [res["kimi"]["peak_bytes"]
+                                   for res in kimi_ranks],
+            "init_s": max(res["kimi"]["init_s"] for res in kimi_ranks),
+            "rank_seconds": max(res["kimi"]["seconds"] for res in kimi_ranks),
+            "one_card_seconds": kimi_ref_s,
+            "one_card_peak_bytes": kimi_ref_peak}
+    emit({"phase": "shard", "gpu": gpu, "arch": SHARD_ARCH,
+          "spawn_seconds_by_world_size": spawn_s,
+          "tokens": list(SHARD_TOKENS), "capacity_factor_no_drops": free_cf,
+          "replicated": {"mesh": list(rep_shape), "batch": rep_batch,
+                         "layers": rep_layers},
+          "one_card_seconds": one_card_s,
+          "dropped_share_at_1.25": {k: share([v])
+                                    for k, v in published.items()},
+          "meshes": report, "kimi": kimi,
+          "launches": totals[0], "launches_by_version": totals[2],
+          "seconds": time.time() - t_phase})
+    for name, entry in report.items():
+        assert entry["f32_logits_finite"], (name, entry)
+        assert entry["f32_err"] <= entry["f32_tol"], (name, entry)
+        assert entry["f32_dropped"] == 0, (name, entry)
+        assert entry["f32_routing_flips"] <= 0.01 * \
+            entry["f32_routing_choices"], (name, entry)
+        n_layers = rep_layers if name == "x".join(map(str, rep_shape)) \
+            else cfg.n_layers
+        # one f32 flash_attention a layer on every rank, all tf32x3
+        assert entry["flash_attention_launches"]["f32"] \
+            == entry["world"] * n_layers, (name, entry)
+        assert entry["flash_attention_by_version"]["f32"]["tf32x3"] \
+            == n_layers, (name, entry)
+        if "bf16_vs_f32" in entry:
+            assert entry["flash_attention_by_version"]["bf16"]["wgmma_ws"] \
+                == n_layers, (name, entry)
+            assert entry["bf16_vs_f32"] <= \
+                2.0 * entry["one_card_bf16_vs_f32"] + 0.05, (name, entry)
+        if "layer_backward" in entry:
+            for key, e in {**entry["layer_backward"],
+                           **entry["broadcast_layer"]}.items():
+                if "err" in e:
+                    assert e["err"] <= e["tol"], (name, key, e)
+            assert entry["layer_dropped"] == 0, (name, entry)
+    assert report["x".join(map(str, rep_shape))]["strategy"] == "replicated"
+    assert kimi["err"] <= kimi["tol"] and kimi["dropped"] == 0, kimi
+    assert totals[0]["flash_attention"] > 0, totals
+    for kname in ("lora_matmul", "lora_matmul_grouped", "flash_decode",
+                  "ssd_intra_chunk"):
+        assert totals[0][kname] == 0, totals
+    return totals
+
+
+# ---------------------------------------------------------------------------
 
 
 # the source of the version the main path runs; the redesigned kernels keep
@@ -3555,7 +4152,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("kernels", "train", "families",
                                        "fleet", "calibrate", "registry",
                                        "dryrun", "bench", "flash",
-                                       "serve32"),
+                                       "serve32", "shard"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -3571,7 +4168,8 @@ def main() -> int:
                          "twin's full grid; flash: the bf16 "
                          "flash_attention timing rows alone (the first "
                          "launch builds the kernels); serve32: build, then "
-                         "the f32 serve phase alone")
+                         "the f32 serve phase alone; shard: build, then the "
+                         "shard phase alone")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -3656,6 +4254,11 @@ def main() -> int:
         emit({"phase": "done", "only": "serve32",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "shard":
+        phase_shard(args.seed)
+        emit({"phase": "done", "only": "shard",
+              "seconds": time.time() - t_start})
+        return 0
     if args.only == "fleet":
         from repro_torch.core.measured_cost import LatencyTable
         from repro_torch.launch import calibrate
@@ -3689,6 +4292,7 @@ def main() -> int:
                                      dryrun_records, serve_logits=False)
     by_path["bench"] = tuple(bench)
     by_path["serve32"] = phase_serve32(args.seed)
+    by_path["shard"] = phase_shard(args.seed)
     for extra_rows in (registry_rows, bench_rows):  # after the headline rows
         for name, extra in extra_rows.items():
             rows[name] += extra

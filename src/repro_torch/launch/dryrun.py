@@ -8,8 +8,9 @@ and roofline terms against one NVIDIA H100.
 
 The counterpart of the JAX package's ``launch/dryrun.py``, which lowers and
 compiles each combo onto a forced 512-device host mesh and reads XLA's cost
-and memory analyses. Here one card is the mesh (``"mesh": "1"``): the
-step's parameters, optimizer state, cache and batch are ``meta`` tensors
+and memory analyses. Here one card is the mesh (``"mesh": "1"``, the
+default): the step's parameters, optimizer state, cache and batch are
+``meta`` tensors
 (``models.model.abstract_params``, ``data.batch_specs``,
 ``models.model.init_cache(..., device="meta")``) and ``launch.analysis``
 counts the aten ops of one traced call. A record holds the whole global
@@ -18,6 +19,15 @@ says whether its peak ``fits`` one H100's 80 GB. The whole matrix of 40
 combos runs on the CPU too (``--all``; seconds a combo, no allocation).
 ``chip_smoke.py --only dryrun`` runs it and holds the records against the
 same steps run on the card.
+
+On the production meshes (``mesh="16x16"``, or ``multi_pod=True`` for
+``"2x16x16"``; ``--mesh both|multi``) a record holds the per-chip bytes of
+the step's arguments under ``launch/sharding.py``'s specs (``param_specs``,
+``opt_state_specs``, ``batch_specs_for``, ``cache_specs``), the
+counterpart of the argument bytes in XLA's memory analysis, and whether
+they ``fit`` one H100. The sharded step itself is not traced
+(``"traced": false``, ``"roofline": null``): its per-chip FLOPs and
+collectives are ROADMAP work.
 """
 from __future__ import annotations
 
@@ -34,14 +44,20 @@ from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
                                       long_context_variant)
 from repro_torch.core.hardware import H100_HBM_BYTES
 from repro_torch.data.pipeline import batch_specs
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.analysis import Roofline, analyze_step, model_flops
+from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.launch.serve import make_prefill_step, make_serve_step
 from repro_torch.launch.train import make_train_step
 from repro_torch.models import model as model_lib
+from repro_torch.models.moe_shard_map import strategy_for_mesh
 from repro_torch.optim import adamw, constant_schedule
 
 DRYRUN_ARCHS = tuple(a for a in ARCH_IDS if a != "llama32-1b")
 META = "meta"
+# the reference's production meshes, by the name a record carries
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def combo_config(arch: str, shape_name: str) -> Optional[ModelConfig]:
@@ -99,12 +115,47 @@ def _cost_triple(cfg, shape, *, remat) -> Dict:
             "counts": coll.counts, "bytes_by_kind": coll.bytes_by_kind}
 
 
+def sharded_arguments(cfg: ModelConfig, shape: InputShape, mesh, *,
+                      cut: int = 0) -> Dict[str, int]:
+    """Per-chip bytes of each argument of the step program on ``mesh`` (an
+    ``AbstractMesh``), each leaf laid out by its spec; the step's
+    arguments are ``build_step``'s, on ``meta``."""
+    import torch
+    params = model_lib.abstract_params(cfg)
+    pspecs = shd.param_specs(cfg, params, mesh)
+    key = "embeds" if cfg.input_mode == "embeds" else "tokens"
+    batch = batch_specs(cfg, shape, cut if shape.kind == "train" else 0)
+    bspecs = shd.batch_specs_for(cfg, mesh, shape.kind, shape.global_batch,
+                                 cut if shape.kind == "train" else 0)
+    out = {"frozen": shd.bytes_per_chip(params["frozen"], pspecs["frozen"],
+                                        mesh),
+           "lora": shd.bytes_per_chip(params["lora"], pspecs["lora"], mesh)}
+    if shape.kind == "train":
+        opt_state = adamw(constant_schedule(1e-4)).init(params["lora"])
+        out["opt_state"] = shd.bytes_per_chip(
+            opt_state, shd.opt_state_specs(pspecs["lora"]), mesh)
+        out["batch"] = shd.bytes_per_chip(batch, bspecs, mesh)
+        return out
+    out["inputs"] = shd.bytes_per_chip({key: batch[key]},
+                                       {key: bspecs[key]}, mesh)
+    if shape.kind == "decode":
+        cache = model_lib.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                     device=META)
+        out["cache"] = shd.bytes_per_chip(
+            cache, shd.cache_specs(cfg, cache, mesh, shape.global_batch),
+            mesh)
+        out["t"] = torch.empty((), dtype=torch.int32).element_size()
+    return out
+
+
 def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
+                mesh: Optional[str] = None,
                 cut: int = 0, compile_: bool = True, unroll: bool = False,
                 roofline_probe: bool = True, microbatches: int = 1,
                 remat: bool = True, capacity_factor: float = 0.0,
                 kv_int8: bool = False,
-                batch: Optional[int] = None) -> Dict:
+                batch: Optional[int] = None,
+                layers: Optional[int] = None) -> Dict:
     """Full-depth trace (peak memory, raw counts) plus a depth-1/depth-2
     probe pair for the roofline terms, as in the reference:
 
@@ -115,23 +166,36 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     the extrapolated terms must agree with them for a uniform layer stack
     (``raw_scan_costs`` holds the full-depth ones). ``compile_=False``
     traces the step without counting. ``batch`` replaces the shape's global
-    batch (the card check's cut; the record lists it under ``reduced``).
-    ``multi_pod=True`` raises: the sharded path is not ported."""
-    if multi_pod:
-        raise NotImplementedError(
-            "multi_pod: the sharded dry run needs several cards and is not "
-            "ported (ROADMAP Queue 1 item 9(b)); this dry run is one H100")
+    batch and ``layers`` the config's depth (the card check's cuts; the
+    record lists them under ``reduced``).
+
+    ``mesh``: ``"1"`` (one H100, the default) or a production mesh,
+    ``"16x16"`` or ``"2x16x16"`` (``multi_pod=True``): then the record is
+    :func:`sharded_arguments`'s per-chip bytes, untraced."""
+    name = mesh or ("2x16x16" if multi_pod else "1")
+    if multi_pod and name != "2x16x16":
+        raise ValueError(f"multi_pod=True is the 2x16x16 mesh, not {name!r}")
+    if name != "1" and name not in MESHES:
+        raise ValueError(f"mesh {name!r}: one of '1', {sorted(MESHES)}")
     cfg = combo_config(arch, shape_name)
     if capacity_factor:
         cfg = _dc.replace(cfg, capacity_factor=capacity_factor)
     if kv_int8:
         cfg = _dc.replace(cfg, kv_cache_dtype="int8")
     shape = INPUT_SHAPES[shape_name]
+    reduced = {}
     if batch is not None and batch != shape.global_batch:
-        reduced = {"global_batch": [shape.global_batch, batch]}
+        reduced["global_batch"] = [shape.global_batch, batch]
         shape = _dc.replace(shape, global_batch=batch)
-    else:
-        reduced = None
+    if layers is not None and layers != cfg.n_layers:
+        reduced["n_layers"] = [cfg.n_layers, layers]
+        cfg = _dc.replace(cfg, n_layers=layers)
+    if name != "1":
+        return _sharded_record(cfg, shape, name, arch=arch,
+                               shape_name=shape_name, cut=cut, unroll=unroll,
+                               microbatches=microbatches, remat=remat,
+                               capacity_factor=capacity_factor,
+                               kv_int8=kv_int8, reduced=reduced)
     chips = 1
     rec: Dict = {"arch": arch, "shape": shape_name, "unroll": unroll,
                  "mesh": "1", "chips": chips, "device": META,
@@ -205,14 +269,43 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+def _sharded_record(cfg: ModelConfig, shape: InputShape, name: str, *,
+                    arch: str, shape_name: str, cut: int, reduced,
+                    **flags) -> Dict:
+    t0 = time.time()
+    mesh = make_abstract_mesh(*MESHES[name])
+    by_arg = sharded_arguments(cfg, shape, mesh, cut=cut)
+    total = sum(by_arg.values())
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": name,
+                 "chips": mesh.size, "device": META, "cut": cut, **flags,
+                 "capacity_factor": flags["capacity_factor"] or None,
+                 "moe_strategy": strategy_for_mesh(cfg, mesh),
+                 "memory": {"argument_bytes_per_chip": total,
+                            "argument_bytes_per_chip_by_argument": by_arg},
+                 "fits": total <= H100_HBM_BYTES,
+                 "traced": False, "roofline": None, "tokens": tokens,
+                 "model_flops_global": model_flops(
+                     cfg, tokens,
+                     "train" if shape.kind == "train" else "inference"),
+                 "lower_compile_s": round(time.time() - t0, 1), "ok": True}
+    if reduced:
+        rec["reduced"] = reduced
+    return rec
+
+
 def lower_record(arch: str, shape_name: str, kwargs: Optional[Dict] = None
                  ) -> Dict:
     """``lower_combo``'s record, or a failed record with the error: the
     boundary that lets a matrix report every combo."""
+    kwargs = kwargs or {}
     try:
-        return lower_combo(arch, shape_name, **(kwargs or {}))
+        return lower_combo(arch, shape_name, **kwargs)
     except Exception as e:  # noqa: BLE001 -- recorded and reported
-        return {"arch": arch, "shape": shape_name, "mesh": "1", "ok": False,
+        mesh = kwargs.get("mesh") or ("2x16x16" if kwargs.get("multi_pod")
+                                      else "1")
+        return {"arch": arch, "shape": shape_name, "mesh": mesh, "ok": False,
                 "error": f"{type(e).__name__}: {e}",
                 "traceback": traceback.format_exc()[-2000:]}
 
@@ -239,9 +332,13 @@ def start_matrix(jobs, workers: int, callback=None):
 
 
 def summary_line(rec: Dict) -> str:
-    label = f"{rec['arch']} x {rec['shape']} x 1"
+    label = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
     if not rec["ok"]:
         return f"[FAIL] {label}: {rec['error'][:500]}"
+    if rec["mesh"] != "1":
+        return (f"[OK]   {label}: {rec['chips']} chips, arguments "
+                f"{rec['memory']['argument_bytes_per_chip']:.4g}B a chip "
+                f"fits={rec['fits']} (not traced)")
     r = rec.get("roofline", {})
     return (f"[OK]   {label}: trace {rec['lower_compile_s']}s "
             f"probes {rec.get('probe_s', '-')}s "
@@ -258,8 +355,11 @@ def main(argv=None) -> None:
     p.add_argument("--arch", default=None)
     p.add_argument("--shape", default=None)
     p.add_argument("--all", action="store_true")
-    p.add_argument("--mesh", choices=["single"], default="single",
-                   help="one H100 (the sharded meshes are not ported)")
+    p.add_argument("--mesh", choices=["single", "multi", "both"],
+                   default="single",
+                   help="single: one H100 (traced); multi: the 2x16x16 "
+                        "mesh; both: 16x16 and 2x16x16 (per-chip argument "
+                        "bytes, not traced)")
     p.add_argument("--cut", type=int, default=0)
     p.add_argument("--no-compile", action="store_true",
                    help="trace only, count nothing")
@@ -283,7 +383,10 @@ def main(argv=None) -> None:
           "unroll": args.unroll, "microbatches": args.microbatches,
           "remat": not args.no_remat,
           "capacity_factor": args.capacity_factor, "kv_int8": args.kv_int8}
-    jobs = [(a, s, kw) for a in archs for s in shapes]
+    meshes = {"single": ["1"], "multi": ["2x16x16"],
+              "both": ["16x16", "2x16x16"]}[args.mesh]
+    jobs = [(a, s, {**kw, "mesh": m}) for a in archs for s in shapes
+            for m in meshes]
     if args.workers > 1:
         pool, result = start_matrix(jobs, args.workers)
         with pool:

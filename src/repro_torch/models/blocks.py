@@ -15,6 +15,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_shard_map
 from repro_torch.models.common import Params, init_rms_norm, rms_norm
 
 
@@ -58,10 +59,11 @@ def _lget(lora: Optional[Params], key: str) -> Optional[Params]:
 def _moe_dispatch(params: Params, lora: Optional[Params], h: torch.Tensor,
                   cfg: ModelConfig, use_lora_kernel: bool
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE block on one card: ``moe_forward``, which is what the
-    reference runs when no mesh is active (``select_strategy`` gives
-    ``None``). Its ``shard_map`` expert- and capacity-parallel strategies
-    wait for a multi-GPU host (ROADMAP.md Queue 1 item 9)."""
+    """Route to the expert-parallel path when a mesh is active
+    (``moe_shard_map``); on one card, ``moe_forward``."""
+    strategy = moe_shard_map.select_strategy(cfg)
+    if strategy is not None:
+        return moe_shard_map.moe_forward_dist(params, lora, h, cfg, strategy)
     return moe_mod.moe_forward(params, lora, h, cfg, use_lora_kernel)
 
 

@@ -72,6 +72,15 @@ def group_capacity(n_items: int, n_groups: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def within_capacity(pos: torch.Tensor, cap: int,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dispatch's one drop rule: an item is kept where its rank within
+    its group (``pos``) is below the group's capacity ``cap`` (and, given
+    ``valid``, where it is a real item and not an empty slot)."""
+    keep = pos < cap
+    return keep if valid is None else valid & keep
+
+
 def group_counts(groups: torch.Tensor, n_groups: int) -> torch.Tensor:
     """(n_groups,) int64 count of each id in ``groups`` (n,): the integers
     ``torch.bincount(groups, minlength=n_groups)`` gives, at a length fixed
@@ -129,7 +138,7 @@ def moe_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
     # --- dispatch: sort-based position assignment (within-expert rank) -----
     flat_e = idx.reshape(-1)                                 # (T*k,)
     pos = ranks_within_groups(flat_e, e)
-    keep = pos < cap
+    keep = within_capacity(pos, cap)
     pos_c = torch.where(keep, pos, torch.zeros_like(pos))
     tok = torch.arange(t, device=dev).repeat_interleave(k)   # (T*k,)
 

@@ -192,9 +192,29 @@ def test_batch_cut_is_recorded():
     assert rec["tokens"] == 4
 
 
+def test_depth_cut_is_recorded():
+    """The card check's depth cut (the 32k prefills run their first layers
+    on the card): the record says so, and counts that depth."""
+    full = dryrun.lower_combo("qwen3-0.6b", "decode_32k", batch=2,
+                              roofline_probe=False)
+    cut = dryrun.lower_combo("qwen3-0.6b", "decode_32k", batch=2, layers=2,
+                             roofline_probe=False)
+    assert cut["reduced"] == {"global_batch": [128, 2], "n_layers": [28, 2]}
+    assert 0 < cut["raw_scan_costs"]["flops"] < full["raw_scan_costs"]["flops"]
+
+
 def test_multi_pod_raises():
-    with pytest.raises(NotImplementedError, match="9\\(b\\)"):
-        dryrun.lower_combo("qwen3-0.6b", "decode_32k", multi_pod=True)
+    """``multi_pod=True`` is the 2x16x16 mesh (an untraced per-chip record,
+    ``tests/test_torch_sharding.py`` holds its bytes); it raises beside
+    another mesh, and for a mesh that does not exist."""
+    rec = dryrun.lower_combo("qwen3-0.6b", "decode_32k", multi_pod=True)
+    assert rec["mesh"] == "2x16x16" and rec["chips"] == 512
+    assert rec["traced"] is False and rec["roofline"] is None
+    with pytest.raises(ValueError, match="2x16x16"):
+        dryrun.lower_combo("qwen3-0.6b", "decode_32k", multi_pod=True,
+                           mesh="16x16")
+    with pytest.raises(ValueError, match="mesh"):
+        dryrun.lower_combo("qwen3-0.6b", "decode_32k", mesh="8x8")
 
 
 def test_cli_prints_ok_and_writes_one_record(tmp_path):

@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax_or_reference_package():
                  "launch.hierarchy_bench", "launch.churn_bench",
                  "launch.fleet_sweep", "launch.quickstart", "__main__",
                  "launch.serve_multiarch", "launch.edge_finetune",
-                 "launch.dryrun", "launch.analysis"):
+                 "launch.dryrun", "launch.analysis", "shardctx",
+                 "launch.sharding", "models.moe_shard_map"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -59,6 +60,24 @@ def test_every_module_imports_without_jax_or_reference_package():
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("imported")
+
+
+def test_the_port_has_every_module_of_the_reference_package():
+    """The module lists of the two packages differ by ``kernels/ref.py``
+    only: the reference's plain versions of its kernels, which the port
+    keeps beside each kernel's wrapper (``kernels/<kernel>.py``)."""
+    ref_root = os.path.join(ROOT, "src", "repro")
+
+    def modules(root):
+        out = set()
+        for base, _, files in os.walk(root):
+            rel = os.path.relpath(base, root)
+            for f in files:
+                if f.endswith(".py"):
+                    out.add(os.path.normpath(os.path.join(rel, f)))
+        return out
+
+    assert modules(ref_root) - modules(PKG_DIR) == {"kernels/ref.py"}
 
 
 def test_sources_name_neither_jax_nor_reference_package():
@@ -156,7 +175,8 @@ def no_gpu():
                                    "make_fleet_mesh", "fig4_comparison.run",
                                    "quickstart.run", "python -m repro_torch",
                                    "serve_multiarch.main",
-                                   "edge_finetune.run"])
+                                   "edge_finetune.run", "spawn_mesh",
+                                   "make_production_mesh over a live group"])
 def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
     from repro_torch.configs.base import get_config
     from repro_torch.core import (channel, cost_model, hardware, measured_cost,
@@ -213,8 +233,23 @@ def test_entry_points_raise_without_a_gpu_by_default(no_gpu, entry):
         "edge_finetune.run": lambda: edge_finetune.run(rounds=1,
                                                        pretrain_steps=0),
     }
+    def live_production_mesh():
+        # a process group of the mesh's 256 ranks, as each rank sees it
+        import torch.distributed as dist
+        from unittest import mock
+        with mock.patch.object(dist, "is_initialized", return_value=True), \
+                mock.patch.object(dist, "get_world_size", return_value=256):
+            return mesh.make_production_mesh()
+
+    calls["spawn_mesh"] = lambda: mesh.spawn_mesh(
+        _never_called, (1, 1), ("data", "model"))
+    calls["make_production_mesh over a live group"] = live_production_mesh
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def _never_called(mesh):
+    raise AssertionError("spawn_mesh started a rank without a device")
 
 
 def test_engine_refuses_parameters_on_another_device():
