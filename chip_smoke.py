@@ -83,8 +83,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   families mamba2-370m, hymba-1.5b and granite-moe-3b-a800m at their full
            published configs (bf16, random weights from a seed, four
            non-zero adapters): ``ServingEngine`` with the fused kernels on
-           8 requests a config (launch counts by kernel and version,
-           tokens, logits against the f32 plain path);
+           8 requests a config (mamba2-370m and hymba-1.5b on their first
+           24 / 16 layers; launch counts by kernel and version, tokens),
+           logits against the f32 plain path;
            ``make_prefill_step(impl="flash")`` on (4, 1024) against
            ``impl="chunked"`` (``ssd_intra_chunk`` on its model path, its
            share of the step's device time); split == unsplit grads in f32
@@ -143,6 +144,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            the 8-slot tick's device time by kernel (the grouped kernels'
            share) beside the grouped work's bound, and that tick with the
            grouped calls on the SIMT kernel, in turns
+  shard    meshes of ranks sharing the card (``spawn_mesh``, ``gloo``), the
+           model tensor-parallel on each rank's blocks: qwen3-4b at its
+           published config, the flash prefill on (4, 1024) in f32 on
+           (1, 4) and bf16 on (2, 4) against one card, launches by version
+           on each rank's heads, a rank's weight and peak bytes, one f32
+           train step of 8 layers on (1, 4), the (2, 4) chunked step traced
+           on ``meta`` over a fake process group equal to a live rank's
+           FLOPs and collectives; granite-moe-3b-a800m's flash prefill on
+           (4, 2), (8, 1) and (3, 2) through ``moe_forward_tp``; one
+           kimi-k2 MoE layer at full width on (8, 1)
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line (and, in the bench phase, the serving twin's CSV
@@ -162,6 +173,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2062,6 +2074,10 @@ LOGIT_TOKENS = 8           # the prompt of the serve logits check
 # reference's at 3e-3 step by step at the reduced size
 # (tests/test_torch_train.py::test_moe_train_step_matches_jax_at_3e_3_on_one_batch)
 TRAIN_LR = {"moe": 3e-4}
+# the serve of the SSM configs on their first layers: a prompt chunk is 32
+# decode steps at batch 1, host-bound, and hymba-1.5b's whole-model serve
+# alone took 123.6 s on a slow host
+FAMILY_SERVE_LAYERS = {"mamba2-370m": 24, "hymba-1.5b": 16}
 
 
 def lora_projections(cfg) -> int:
@@ -2514,7 +2530,8 @@ def family_train(cfg, cfg32, frozen, frozen32, lora, seed, gpu):
 def phase_families(seed: int):
     """The ssm, hybrid and moe families at their full published configs,
     bf16, random weights from ``seed``, four adapters with non-zero B:
-    (a) serve, (b) the flash prefill step, (c) split training. The family
+    (a) serve (the SSM configs on their first ``FAMILY_SERVE_LAYERS``),
+    (b) the flash prefill step, (c) split training. The family
     path's launches are (a)'s and (b)'s, summed over the three configs."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -2543,7 +2560,15 @@ def phase_families(seed: int):
                                  for x in _leaves(frozen)),
               "params": sum(x.numel() for x in _leaves(frozen)),
               "seconds": time.time() - t0})
-        counts, by = family_serve(cfg, frozen, bank, seed + i, gpu)
+        depth = FAMILY_SERVE_LAYERS.get(arch, cfg.n_layers)
+        if depth < cfg.n_layers:
+            cut = [first_layers(cfg, frozen, a, depth) for a in adapters]
+            counts, by = family_serve(cut[0][0], cut[0][1],
+                                      AdapterBank([c[2] for c in cut]),
+                                      seed + i, gpu)
+            del cut
+        else:
+            counts, by = family_serve(cfg, frozen, bank, seed + i, gpu)
         family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu)
         pc, pby = family_prefill(cfg, cfg32, frozen, frozen32, adapters[0],
                                  seed + i, gpu)
@@ -3556,8 +3581,10 @@ SHARD_ARCH = "granite-moe-3b-a800m"
 SHARD_TOKENS = (4, 1024)
 SHARD_AXES = ("data", "model")
 # ep_a2a on both; at batch 4, dp 8 does not divide the batch: the broadcast
-# layout
+# layout; their first 16 layers (at 32 the whole script took 1165.9 s of its
+# 1200 on a slow host)
 SHARD_EP_MESHES = ((4, 2), (8, 1))
+SHARD_EP_LAYERS = 16
 # replicated (dp 3 does not divide 40 experts) at batch 6, over dp x model;
 # its first 16 layers: six f32 copies of the 32-layer expert bank (12 GB
 # each) do not fit the card beside one another
@@ -3572,6 +3599,17 @@ KIMI_REF_CF = 48.0         # one card: 64 slots an expert
 KIMI_TOL = 2e-2            # bf16, x max|want|
 SHARD_TIMEOUT_S = 600
 SHARD_BUILD_WAVE = 3       # ranks holding the whole bf16 model at once
+# qwen3-4b at its published config, tensor-parallel: the f32 flash prefill
+# on (1, 4), the bf16 one on (2, 4), one f32 train step of its first 8
+# layers on (1, 4); the weights drawn once on the card and read by the
+# ranks from a file
+QWEN_ARCH = "qwen3-4b"
+QWEN_TOKENS = (4, 1024)
+QWEN_F32_MESH = (1, 4)
+QWEN_BF16_MESH = (2, 4)
+QWEN_TRAIN_LAYERS = 8
+QWEN_TRAIN_TOKENS = (2, 512)
+QWEN_TRAIN_TOL = 1e-4      # loss and each LoRA gradient leaf, relative
 
 
 def _digest(t) -> str:
@@ -3597,10 +3635,11 @@ def _moe_rows(mesh, cfg, batch: int, seq: int):
 
 def local_frozen(mesh, cfg, seed: int, n_layers: int, dtypes):
     """The bf16 model drawn from ``seed`` as every phase draws it, its first
-    ``n_layers`` layers, its MoE weights cut to this rank's block under
-    ``param_specs``, for each of ``dtypes`` ("bfloat16", "float32"). The
-    ranks build in waves of ``SHARD_BUILD_WAVE``: only a wave holds the
-    whole model at once."""
+    ``n_layers`` layers, every leaf cut to this rank's block under
+    ``param_specs`` (the tensor-parallel layout: attention's columns and
+    rows, the vocabulary of the embedding, the MoE experts), for each of
+    ``dtypes`` ("bfloat16", "float32"). The ranks build in waves of
+    ``SHARD_BUILD_WAVE``: only a wave holds the whole model at once."""
     import torch.distributed as dist
     from repro_torch.launch import sharding as shd
     from repro_torch.models import model as M
@@ -3619,18 +3658,13 @@ def local_frozen(mesh, cfg, seed: int, n_layers: int, dtypes):
             specs = shd.param_specs(
                 dataclasses.replace(cfg, n_layers=n_layers),
                 {"frozen": frozen, "lora": lora}, mesh)["frozen"]
-            moe = tree_map(lambda v, spec: shd.local_shard(v, spec,
-                                                           mesh).clone(),
-                           frozen["layers"]["moe"], specs["layers"]["moe"])
-            frozen = dict(frozen, layers=dict(frozen["layers"], moe=moe))
+            frozen = shd.shard_params(frozen, specs, mesh)
             # "bfloat16": the model as drawn (its router and norms are
-            # f32); "float32": every leaf upcast. A copy where the leaf is a
-            # view of the whole model's stacks
+            # f32); "float32": every leaf upcast
             out = {dt: tree_map(lambda v, dt=dt: (
-                       v.to(torch.float32, copy=cut) if dt == "float32"
-                       else v.clone() if cut else v), frozen)
+                       v.float() if dt == "float32" else v), frozen)
                    for dt in dtypes}
-            del params, lora, frozen, moe
+            del params, lora, frozen
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
         dist.barrier()
@@ -3726,7 +3760,103 @@ def shard_rank(mesh, jobs):
     for shape, job in jobs:
         m = mesh if tuple(shape) == mesh.sizes else LiveMesh.build(
             shape, SHARD_AXES, mesh.device)
-        out[tuple(shape)] = shard_mesh_run(m, job)
+        run = qwen_mesh_run if job.get("kind") == "qwen" else shard_mesh_run
+        out[(job.get("kind", "granite"), tuple(shape))] = run(m, job)
+    return out
+
+
+class CapturingOptimizer:
+    """An optimizer (``optim.Optimizer``'s two functions) whose update keeps
+    the gradients it is handed and changes nothing: ``make_train_step``'s
+    gradients, reduced over the mesh as the step reduces them."""
+
+    def __init__(self):
+        from repro_torch.optim import Optimizer
+        self.grads = []
+
+        def update(grads, state, params):
+            from repro_torch.models.common import tree_map
+            self.grads.append(grads)
+            return tree_map(torch.zeros_like, params), state
+        self.optimizer = Optimizer(init=lambda params: {}, update=update)
+
+
+def qwen_train_step(mesh, cfg, frozen, lora, batch):
+    """One f32 ``make_train_step`` (chunked attention, remat) on ``mesh``
+    (None: one card): the loss and the LoRA gradients (this rank's
+    blocks)."""
+    from repro_torch import shardctx
+    from repro_torch.launch.train import make_train_step
+    cap = CapturingOptimizer()
+    step = make_train_step(cfg, cap.optimizer)
+    ctx = shardctx.mesh_ctx(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    t0 = time.time()
+    with ctx:
+        loss, _, _ = step(frozen, lora, {}, batch)
+    torch.cuda.synchronize()
+    return loss, cap.grads[0], time.time() - t0
+
+
+def _qwen_batch(seed: int, cfg):
+    rng = np.random.default_rng(seed + 500)
+    return {k: rng.integers(0, cfg.vocab_size, QWEN_TRAIN_TOKENS)
+            for k in ("tokens", "labels")}
+
+
+def qwen_mesh_run(mesh, job):
+    """One rank's part of a qwen3-4b mesh: its blocks of the weights read
+    from the parent's file (``torch.load(mmap=True)``; a rank reads its
+    blocks, never holds the whole model), the flash prefill step with its
+    launch counts and peak memory, and as ``job`` asks, the chunked prefill
+    step under ``analyze_sharded_step`` (FLOPs, bytes, collectives) and one
+    f32 train step of the first layers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.analysis import analyze_sharded_step
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.common import tree_map
+    t_start = time.time()
+    cfg = get_config(QWEN_ARCH)
+    dtype = torch.float32 if job["dtype"] == "float32" else None
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    whole = torch.load(job["path"], map_location="cpu", mmap=True,
+                       weights_only=True)
+    specs = shd.param_specs(cfg, whole, mesh)
+    params = tree_map(lambda v, spec: shd.local_shard(v, spec, mesh).to(
+        mesh.device, dtype or v.dtype), whole, specs)
+    del whole
+    torch.cuda.synchronize()
+    frozen, lora = params["frozen"], params["lora"]
+    toks = _shard_inputs(job["seed"], *QWEN_TOKENS, cfg.vocab_size)
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "backend": mesh.backend, "load_s": time.time() - t_start,
+           "weight_bytes": sum(v.numel() * v.element_size()
+                               for v in _leaves(params))}
+    torch.cuda.reset_peak_memory_stats()
+    run = shard_prefill(mesh, cfg, frozen, lora, toks)
+    run["logits_digest"] = _digest(run["logits"])
+    run["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del run["routing"]
+    out["prefill"] = run
+    if job.get("counted"):
+        step = make_prefill_step(cfg, impl="chunked", device=mesh.device)
+        roof, coll, mem = analyze_sharded_step(step, frozen, lora, toks,
+                                               mesh=mesh)
+        out["counted"] = {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
+                          "counts": coll.counts,
+                          "bytes_by_kind": coll.bytes_by_kind,
+                          "peak_bytes": mem["peak_bytes"]}
+    if job.get("train"):
+        tcfg, tfz, tlo = first_layers(cfg, frozen, lora, QWEN_TRAIN_LAYERS)
+        loss, grads, secs = qwen_train_step(mesh, tcfg, tfz, tlo,
+                                            _qwen_batch(job["seed"], cfg))
+        out["train"] = {"loss": loss.item(), "grads": grads, "seconds": secs,
+                        "specs": shd._map_with_specs(
+                            lambda _g, spec: list(spec), tlo,
+                            shd.lora_specs(tcfg, tlo, mesh))}
+    out["seconds"] = time.time() - t_start
     return out
 
 
@@ -3740,6 +3870,7 @@ def shard_mesh_run(mesh, job):
     from repro_torch.models.common import tree_take
     t_start = time.time()
     torch.cuda.reset_peak_memory_stats()
+    from repro_torch.launch import sharding as shd
     cfg = dataclasses.replace(get_config(SHARD_ARCH),
                               capacity_factor=job["cf"])
     n_layers = job["layers"]
@@ -3747,6 +3878,7 @@ def shard_mesh_run(mesh, job):
     lora = make_adapter(cfg, job["seed"] + 1, mesh.device)
     if n_layers < cfg.n_layers:
         cfg, _, lora = first_layers(cfg, frozen["float32"], lora, n_layers)
+    lora = shd.shard_params(lora, shd.lora_specs(cfg, lora, mesh), mesh)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     toks = _shard_inputs(job["seed"], job["batch"], SHARD_TOKENS[1],
                          cfg.vocab_size)
@@ -3810,13 +3942,241 @@ def shard_mesh_run(mesh, job):
     return out
 
 
+def qwen_one_card(seed: int, directory: str, dev):
+    """qwen3-4b at its published config drawn once (bf16, from ``seed``)
+    with a seeded non-zero adapter: the weights written to a file in
+    ``directory`` that the ranks read; on one card the flash prefill step
+    on ``QWEN_TOKENS`` in bf16 and in f32 (the weights upcast), each with
+    its peak bytes, and one f32 train step of the first
+    ``QWEN_TRAIN_LAYERS`` layers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    cfg = get_config(QWEN_ARCH)
+    t0 = time.time()
+    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
+    lora = make_adapter(cfg, seed + 1, dev)
+    torch.cuda.synchronize()
+    out = {"draw_s": time.time() - t0, "cfg": cfg,
+           "path": os.path.join(directory, "qwen3-4b.pt")}
+    t0 = time.time()
+    torch.save({"frozen": tree_map(lambda v: v.cpu(), frozen),
+                "lora": tree_map(lambda v: v.cpu(), lora)}, out["path"])
+    out["save_s"] = time.time() - t0
+    out["file_bytes"] = os.path.getsize(out["path"])
+    toks = _shard_inputs(seed, *QWEN_TOKENS, cfg.vocab_size)
+    out["weight_bytes"] = {"bf16": sum(v.numel() * v.element_size()
+                                       for v in _leaves(frozen))
+                           + sum(v.numel() * v.element_size()
+                                 for v in _leaves(lora))}
+    torch.cuda.reset_peak_memory_stats()
+    out["bf16"] = shard_prefill(None, cfg, frozen, lora, toks)
+    out["bf16"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    frozen32 = tree_map(lambda v: v.float(), frozen)
+    del frozen
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out["weight_bytes"]["f32"] = sum(v.numel() * v.element_size()
+                                     for v in _leaves(frozen32)) \
+        + sum(v.numel() * v.element_size() for v in _leaves(lora))
+    torch.cuda.reset_peak_memory_stats()
+    out["f32"] = shard_prefill(None, cfg32, frozen32, lora, toks)
+    out["f32"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    tcfg, tfz, tlo = first_layers(cfg32, frozen32, lora, QWEN_TRAIN_LAYERS)
+    loss, grads, secs = qwen_train_step(None, tcfg, tfz, tlo,
+                                        _qwen_batch(seed, cfg))
+    out["train"] = {"loss": loss.item(), "grads": grads, "seconds": secs}
+    del frozen32, lora, tfz, tlo
+    torch.cuda.empty_cache()
+    return out
+
+
+def _block(t, spec, shape, coords):
+    """Rank ``coords``' block of ``t`` under ``spec`` on a mesh of
+    ``shape`` over ``SHARD_AXES``."""
+    sizes = dict(zip(SHARD_AXES, shape))
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n, idx = 1, 0
+        for a in (axis if isinstance(axis, (list, tuple)) else (axis,)):
+            n *= sizes[a]
+            idx = idx * sizes[a] + coords[a]
+        blk = t.shape[dim] // n
+        t = t.narrow(dim, idx * blk, blk)
+    return t
+
+
+def _grad_leaves(tree, specs, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _grad_leaves(v, specs[k], path + (k,))
+    else:
+        yield path, tree, specs
+
+
+def qwen_report(ref, results, seed: int, gpu: str):
+    """The qwen3-4b meshes against one card: f32 logits on (1, 4) within
+    ``SHARD_TOL`` x max|want| (the real vocabulary), bf16 on (2, 4) by the
+    registry phase's rule, every rank's logits equal bit for bit, each
+    rank's flash_attention launches on its heads by version, its peak and
+    weight bytes beside one card's; the f32 train step's loss and LoRA
+    gradients within ``QWEN_TRAIN_TOL``; the (2, 4) chunked prefill step
+    traced on ``meta`` as rank 0 of a fake process group of 8, its FLOPs
+    and collectives equal to live rank 0's. Returns the report (with the
+    ranks' summed launch counts) after asserting it."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import analyze_sharded_step
+    from repro_torch.models import attention
+    cfg = ref["cfg"]
+    vocab = cfg.vocab_size
+    want32 = ref["f32"]["logits"][:, :vocab].float()
+    scale = want32.abs().max().item()
+
+    def err(got, want):
+        return (got[:, :vocab].float().to(want.device)
+                - want).abs().max().item()
+
+    report = {"gpu": gpu, "arch": QWEN_ARCH, "tokens": list(QWEN_TOKENS),
+              "draw_s": ref["draw_s"], "save_s": ref["save_s"],
+              "file_bytes": ref["file_bytes"],
+              "one_card": {k: {"seconds": ref[k]["seconds"],
+                               "peak_bytes": ref[k]["peak_bytes"],
+                               "weight_bytes": ref["weight_bytes"][k]}
+                           for k in ("bf16", "f32")},
+              "one_card_bf16_vs_f32": err(ref["bf16"]["logits"], want32),
+              "meshes": {}}
+    totals = ({}, {}, {})
+    for shape, ranks in results.items():
+        kind = "f32" if shape == QWEN_F32_MESH else "bf16"
+        runs = [r["prefill"] for r in ranks]
+        assert len({r["logits_digest"] for r in runs}) == 1, shape
+        lay = attention.tp_layout(cfg, shape[1])
+        entry = {"world": len(ranks), "dtype": kind,
+                 "backend": ranks[0]["backend"], "heads": lay,
+                 "load_s": max(r["load_s"] for r in ranks),
+                 "step_s": max(r["seconds"] for r in runs),
+                 "rank_seconds": max(r["seconds"] for r in ranks),
+                 "peak_bytes_by_rank": [r["peak_bytes"] for r in runs],
+                 "weight_bytes_by_rank": [r["weight_bytes"] for r in ranks],
+                 "flash_attention_by_rank": [r["launches"]["flash_attention"]
+                                             for r in runs],
+                 "flash_attention_by_version": runs[0]["launches_by_version"][
+                     "flash_attention"]}
+        entry["peak_share_of_one_card"] = max(entry["peak_bytes_by_rank"]) \
+            / ref[kind]["peak_bytes"]
+        entry["weight_share_of_one_card"] = max(
+            entry["weight_bytes_by_rank"]) / ref["weight_bytes"][kind]
+        logits = runs[0]["logits"]
+        entry["logits_finite"] = bool(
+            tuple(logits.shape) == (QWEN_TOKENS[0], cfg.padded_vocab)
+            and torch.isfinite(logits[:, :vocab]).all())
+        if kind == "f32":
+            entry["f32_err"] = err(logits, want32)
+            entry["f32_tol"] = SHARD_TOL * scale
+        else:
+            entry["bf16_vs_f32"] = err(logits, want32)
+            entry["bf16_cap"] = 2.0 * report["one_card_bf16_vs_f32"] + 0.05
+        for run in runs:
+            for acc, key in zip(totals, ("launches", "runs_on_card")):
+                for kname, n in run[key].items():
+                    acc[kname] = acc.get(kname, 0) + n
+            for kname, by in run["launches_by_version"].items():
+                acc = totals[2].setdefault(kname, {})
+                for ver, n in by.items():
+                    acc[ver] = acc.get(ver, 0) + n
+        report["meshes"]["x".join(map(str, shape))] = entry
+        if "train" in ranks[0]:
+            want = ref["train"]
+            worst, n = 0.0, 0
+            for r in ranks:
+                tr = r["train"]
+                for path, g, spec in _grad_leaves(tr["grads"], tr["specs"]):
+                    w = want["grads"]
+                    for k in path:
+                        w = w[k]
+                    wb = _block(w, spec, shape, r["coords"])
+                    assert tuple(g.shape) == tuple(wb.shape), (path, g.shape)
+                    worst = max(worst, (g.float().to(wb.device) - wb).abs()
+                                .max().item() / max(w.abs().max().item(),
+                                                    1e-30))
+                    n += 1
+            entry["train"] = {
+                "layers": QWEN_TRAIN_LAYERS, "tokens": list(QWEN_TRAIN_TOKENS),
+                "loss": ranks[0]["train"]["loss"], "one_card_loss": want["loss"],
+                "loss_rel_err": max(abs(r["train"]["loss"] - want["loss"])
+                                    for r in ranks) / abs(want["loss"]),
+                "grad_leaves": n, "grad_worst_rel_err": worst,
+                "tol": QWEN_TRAIN_TOL,
+                "seconds": max(r["train"]["seconds"] for r in ranks),
+                "one_card_seconds": want["seconds"]}
+        if "counted" in ranks[0]:
+            live = ranks[0]["counted"]
+            t0 = time.time()
+            shape_in = InputShape("shard_prefill", QWEN_TOKENS[1],
+                                  QWEN_TOKENS[0], "prefill")
+            with dryrun.fake_mesh(shape, SHARD_AXES) as mesh:
+                step, args = dryrun.build_step(cfg, shape_in, mesh=mesh)
+                roof, coll, mem = analyze_sharded_step(step, *args, mesh=mesh)
+                del step, args
+            entry["meta_trace"] = {
+                "seconds": time.time() - t0, "impl": "chunked",
+                "flops": roof.flops, "live_flops": live["flops"],
+                "hbm_bytes": roof.hbm_bytes, "live_hbm_bytes": live["hbm_bytes"],
+                "peak_bytes": mem["peak_bytes"],
+                "live_peak_bytes": live["peak_bytes"],
+                "counts": coll.counts, "live_counts": live["counts"],
+                "bytes_by_kind": coll.bytes_by_kind,
+                "live_bytes_by_kind": live["bytes_by_kind"]}
+    report["launches"], report["runs_on_card"] = totals[0], totals[1]
+    report["launches_by_version"] = totals[2]
+    emit({"phase": "shard_qwen3_4b", **{k: v for k, v in report.items()
+                                       if not k.startswith("launches")
+                                       and k != "runs_on_card"}})
+    n_layers = cfg.n_layers
+    for name, entry in report["meshes"].items():
+        assert entry["logits_finite"], (name, entry)
+        m = int(name.split("x")[1])
+        assert entry["heads"]["q_heads_per_rank"] == cfg.n_heads // m
+        assert entry["heads"]["kv_heads_per_rank"] == cfg.n_kv_heads // m
+        # one flash_attention a layer on every rank, on its heads
+        assert entry["flash_attention_by_rank"] == [n_layers] \
+            * entry["world"], (name, entry)
+        version = "tf32x3" if entry["dtype"] == "f32" else "wgmma_ws"
+        assert entry["flash_attention_by_version"][version] == n_layers, \
+            (name, entry)
+        if entry["dtype"] == "f32":
+            assert entry["f32_err"] <= entry["f32_tol"], (name, entry)
+        else:
+            assert entry["bf16_vs_f32"] <= entry["bf16_cap"], (name, entry)
+        if "train" in entry:
+            t = entry["train"]
+            assert t["loss_rel_err"] <= t["tol"], (name, t)
+            assert t["grad_worst_rel_err"] <= t["tol"], (name, t)
+            assert t["grad_leaves"] >= entry["world"] * 14, (name, t)
+        if "meta_trace" in entry:
+            mt = entry["meta_trace"]
+            assert mt["flops"] == mt["live_flops"] > 0, (name, mt)
+            assert mt["counts"] == mt["live_counts"], (name, mt)
+            assert mt["bytes_by_kind"] == mt["live_bytes_by_kind"], (name, mt)
+    return report
+
+
 def phase_shard(seed: int):
     """The sharding layer on meshes of ranks sharing this card
-    (``spawn_mesh``, one process a rank, ``gloo``):
+    (``spawn_mesh``, one process a rank, ``gloo``), the model
+    tensor-parallel on each rank's blocks of the parameters:
 
+      (q) qwen3-4b at its published config (``qwen_one_card``,
+          ``qwen_mesh_run``, ``qwen_report``): the flash prefill step on
+          ``QWEN_TOKENS``, f32 on (1, 4) and bf16 on (2, 4); one f32 train
+          step of its first layers on (1, 4); the (2, 4) chunked step
+          traced on ``meta`` against live rank 0;
       (a) granite-moe-3b-a800m at its published config: the f32 flash
-          prefill step on (4, 1024) tokens through ``moe_forward_dist`` on
-          (4, 2) and (8, 1) (``ep_a2a``) and on (3, 2) at batch 6
+          prefill step on (4, 1024) tokens (tensor-parallel attention, the
+          MoE through ``moe_forward_tp``) on (4, 2) and (8, 1)
+          (``ep_a2a``) and on (3, 2) at batch 6
           (``replicated``, first 16 layers), each against the same weights'
           run on one card, the routing replayed from it, at the capacity
           factor E / k, at which no path drops; the flash_attention
@@ -3835,6 +4195,7 @@ def phase_shard(seed: int):
     from repro_torch.launch.mesh import (choose_backend, make_abstract_mesh,
                                          spawn_mesh)
     from repro_torch.models import model as M
+    from repro_torch.models import attention
     from repro_torch.models import moe_shard_map as msm
     from repro_torch.models.common import tree_map, tree_take
     gpu = gpu_line()
@@ -3862,17 +4223,22 @@ def phase_shard(seed: int):
     toks6 = _shard_inputs(seed, rep_batch, seq, cfg.vocab_size)
     cfg_rep, frozen_rep, lora_rep = first_layers(cfg32, frozen32, lora,
                                                  rep_layers)
-    want = shard_prefill(None, dataclasses.replace(cfg32,
+    cfg_ep, frozen_ep, lora_ep = first_layers(cfg, frozen, lora,
+                                              SHARD_EP_LAYERS)
+    cfg_ep32, frozen_ep32, _ = first_layers(cfg32, frozen32, lora,
+                                            SHARD_EP_LAYERS)
+    want = shard_prefill(None, dataclasses.replace(cfg_ep32,
                                                    capacity_factor=free_cf),
-                         frozen32, lora, toks)
+                         frozen_ep32, lora_ep, toks)
     want6 = shard_prefill(None, dataclasses.replace(cfg_rep,
                                                     capacity_factor=free_cf),
                           frozen_rep, lora_rep, toks6)
     want_bf = shard_prefill(None, dataclasses.replace(
-        cfg, capacity_factor=free_cf), frozen, lora, toks)
+        cfg_ep, capacity_factor=free_cf), frozen_ep, lora_ep, toks)
     published = {
         "one_card": shard_prefill(None, dataclasses.replace(
-            cfg32, capacity_factor=PUBLISHED_CF), frozen32, lora, toks),
+            cfg_ep32, capacity_factor=PUBLISHED_CF), frozen_ep32, lora_ep,
+            toks),
         "one_card_16_layers_batch_6": shard_prefill(
             None, dataclasses.replace(cfg_rep, capacity_factor=PUBLISHED_CF),
             frozen_rep, lora_rep, toks6)}
@@ -3895,33 +4261,48 @@ def phase_shard(seed: int):
     one_card_s = {"f32": want["seconds"], "bf16": want_bf["seconds"],
                   "f32_16_layers_batch_6": want6["seconds"]}
     del frozen, frozen32, lora, frozen_rep, lora_rep, layer
+    del frozen_ep, frozen_ep32, lora_ep
     torch.cuda.empty_cache()
 
-    # ---- the meshes ---------------------------------------------------------
-    base = {"seed": seed, "cf": free_cf, "bcast_batch": bcast_batch}
-    jobs = {
-        (4, 2): dict(base, layers=cfg.n_layers, batch=batch,
-                     dtypes=("float32", "bfloat16"), routing=want["routing"],
-                     layer=True, layer_routing=layer_want["routing"],
-                     bcast_routing=bcast_want["routing"]),
-        (8, 1): dict(base, layers=cfg.n_layers, batch=batch,
-                     dtypes=("float32",), routing=want["routing"], kimi=True),
-        rep_shape: dict(base, layers=rep_layers, batch=rep_batch,
-                        dtypes=("float32",), routing=want6["routing"]),
-    }
-    # one spawn for each world size: (4, 2) and (8, 1) share the 8 ranks
-    spawns = {}
-    for shape, job in jobs.items():
-        spawns.setdefault(math.prod(shape), []).append((shape, job))
-    results, spawn_s = {}, {}
-    for world, mesh_jobs in spawns.items():
-        t0 = time.time()
-        ranks = spawn_mesh(shard_rank, mesh_jobs[0][0], SHARD_AXES,
-                           device=dev, args=(mesh_jobs,),
-                           timeout_s=SHARD_TIMEOUT_S)
-        spawn_s[world] = time.time() - t0
-        for shape, _ in mesh_jobs:
-            results[shape] = [res[shape] for res in ranks]
+    # ---- qwen3-4b on one card: the weights' file and the references -------
+    qwen_dir = tempfile.mkdtemp(prefix="chip_smoke_qwen_")
+    try:
+        qwen_ref = qwen_one_card(seed, qwen_dir, dev)
+        # ---- the meshes -----------------------------------------------------
+        base = {"seed": seed, "cf": free_cf, "bcast_batch": bcast_batch}
+        qbase = {"kind": "qwen", "seed": seed, "path": qwen_ref["path"]}
+        jobs = [
+            ((4, 2), dict(base, layers=SHARD_EP_LAYERS, batch=batch,
+                          dtypes=("float32", "bfloat16"),
+                          routing=want["routing"], layer=True,
+                          layer_routing=layer_want["routing"],
+                          bcast_routing=bcast_want["routing"])),
+            ((8, 1), dict(base, layers=SHARD_EP_LAYERS, batch=batch,
+                          dtypes=("float32",), routing=want["routing"],
+                          kimi=True)),
+            (QWEN_BF16_MESH, dict(qbase, dtype="bfloat16", counted=True)),
+            (rep_shape, dict(base, layers=rep_layers, batch=rep_batch,
+                             dtypes=("float32",), routing=want6["routing"])),
+            (QWEN_F32_MESH, dict(qbase, dtype="float32", train=True)),
+        ]
+        # one spawn for each world size: the 8-rank meshes share the ranks
+        spawns = {}
+        for shape, job in jobs:
+            spawns.setdefault(math.prod(shape), []).append((shape, job))
+        results, qwen_results, spawn_s = {}, {}, {}
+        for world, mesh_jobs in spawns.items():
+            t0 = time.time()
+            ranks = spawn_mesh(shard_rank, mesh_jobs[0][0], SHARD_AXES,
+                               device=dev, args=(mesh_jobs,),
+                               timeout_s=SHARD_TIMEOUT_S)
+            spawn_s[world] = time.time() - t0
+            for shape, job in mesh_jobs:
+                kind = job.get("kind", "granite")
+                target = qwen_results if kind == "qwen" else results
+                target[shape] = [res[(kind, shape)] for res in ranks]
+    finally:
+        shutil.rmtree(qwen_dir, ignore_errors=True)
+    qwen = qwen_report(qwen_ref, qwen_results, seed, gpu)
 
     # ---- (c) kimi-k2's layer on one card, on the ranks' routing ------------
     torch.cuda.reset_peak_memory_stats()
@@ -3990,6 +4371,8 @@ def phase_shard(seed: int):
                     acc = totals[2].setdefault(kname, {})
                     for ver, n in by.items():
                         acc[ver] = acc.get(ver, 0) + n
+        entry["model_axis"] = shape[1]
+        entry["heads"] = attention.tp_layout(cfg, shape[1])
         entry["flash_attention_launches"] = {
             kind: sum(r[kind]["launches"]["flash_attention"] for r in runs)
             for kind in ("f32", "bf16") if kind in runs[0]}
@@ -4045,10 +4428,12 @@ def phase_shard(seed: int):
             "one_card_seconds": kimi_ref_s,
             "one_card_peak_bytes": kimi_ref_peak}
     emit({"phase": "shard", "gpu": gpu, "arch": SHARD_ARCH,
+          "qwen3_4b": qwen,
           "spawn_seconds_by_world_size": spawn_s,
           "tokens": list(SHARD_TOKENS), "capacity_factor_no_drops": free_cf,
           "replicated": {"mesh": list(rep_shape), "batch": rep_batch,
                          "layers": rep_layers},
+          "ep_layers": SHARD_EP_LAYERS,
           "one_card_seconds": one_card_s,
           "dropped_share_at_1.25": {k: share([v])
                                     for k, v in published.items()},
@@ -4062,10 +4447,13 @@ def phase_shard(seed: int):
         assert entry["f32_routing_flips"] <= 0.01 * \
             entry["f32_routing_choices"], (name, entry)
         n_layers = rep_layers if name == "x".join(map(str, rep_shape)) \
-            else cfg.n_layers
-        # one f32 flash_attention a layer on every rank, all tf32x3
+            else SHARD_EP_LAYERS
+        # one f32 flash_attention a layer on every rank, all tf32x3, on
+        # the rank's heads
         assert entry["flash_attention_launches"]["f32"] \
             == entry["world"] * n_layers, (name, entry)
+        assert entry["heads"]["q_heads_per_rank"] \
+            == cfg.n_heads // entry["model_axis"], (name, entry)
         assert entry["flash_attention_by_version"]["f32"]["tf32x3"] \
             == n_layers, (name, entry)
         if "bf16_vs_f32" in entry:
@@ -4081,6 +4469,13 @@ def phase_shard(seed: int):
             assert entry["layer_dropped"] == 0, (name, entry)
     assert report["x".join(map(str, rep_shape))]["strategy"] == "replicated"
     assert kimi["err"] <= kimi["tol"] and kimi["dropped"] == 0, kimi
+    for acc, key in zip(totals, ("launches", "runs_on_card")):
+        for kname, n in qwen[key].items():
+            acc[kname] = acc.get(kname, 0) + n
+    for kname, by in qwen["launches_by_version"].items():
+        acc = totals[2].setdefault(kname, {})
+        for ver, n in by.items():
+            acc[ver] = acc.get(ver, 0) + n
     assert totals[0]["flash_attention"] > 0, totals
     for kname in ("lora_matmul", "lora_matmul_grouped", "flash_decode",
                   "ssd_intra_chunk"):

@@ -23,10 +23,20 @@ the dry run: shapes only, nothing allocated) and counts its aten ops:
     argument bytes. The caching allocator's rounding and the temporaries a
     kernel allocates inside one op are not seen.
 
-``parse_collectives`` and ``_shape_bytes`` read XLA HLO text and have no
-counterpart here: a step on one card runs no collective, so
-``CollectiveStats`` stays empty. Collectives come with the sharded path
-(ROADMAP Queue 1 item 9(b)), counted through the c10d ops.
+Collectives (the counterpart of ``parse_collectives``, which reads XLA's
+HLO text). A sharded step runs on one rank of a ``LiveMesh``
+(``launch/mesh.py``) whose collectives are ``torch.distributed`` calls; each
+reaches the dispatcher as a ``c10d`` op (``allreduce_``, ``allgather_``,
+``alltoall_base_``, ...), also on ``meta`` tensors over a ``fake`` process
+group, where no byte moves. ``StepCounter`` counts them by the reference's
+``COLLECTIVE_KINDS`` and its convention: the bytes of each op's result on
+this device, so an all-gather counts the group's size times its input, an
+all-reduce and an all-to-all their input. A collective's bytes go to the
+collective term only: they are not added to the HBM bytes (the reduction
+an all-reduce makes on the card is the transport's, not a kernel the step
+launches). ``analyze_sharded_step`` is ``analyze_compiled``'s counterpart
+for one rank: its roofline's collective term is those bytes over the
+H100's NVLink (``H100_NVLINK_BYTES_PER_S`` x ``H100_NVLINK_LINKS``).
 """
 from __future__ import annotations
 
@@ -131,16 +141,35 @@ def _is_view(func) -> bool:
         r.alias_info is not None and not r.alias_info.is_write for r in rets)
 
 
+#: the c10d ops ``LiveMesh``'s collectives reach, by the reference's kind
+_COLLECTIVE_OPS = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+                   "alltoall_base_": "all-to-all"}
+
+
+def _collective_kind(func):
+    """The reference's kind of a c10d op, else None (not a c10d op). A c10d
+    op this table does not hold raises: its bytes would go uncounted."""
+    if func.namespace != "c10d":
+        return None
+    name = func._schema.name.split("::")[-1]
+    if name not in _COLLECTIVE_OPS:
+        raise NotImplementedError(f"StepCounter does not count c10d.{name}")
+    return _COLLECTIVE_OPS[name]
+
+
 class StepCounter(TorchDispatchMode):
-    """HBM bytes and live / peak storage bytes of the aten ops run under it.
-    ``track`` registers a tensor's storage as live (the arguments, before
-    the step); every op's outputs are registered as they are made."""
+    """HBM bytes, live / peak storage bytes and collectives of the aten ops
+    run under it. ``track`` registers a tensor's storage as live (the
+    arguments, before the step); every op's outputs are registered as they
+    are made. ``collectives`` holds the c10d ops' counts and result bytes
+    by kind (module docstring), none of them in ``hbm_bytes``."""
 
     def __init__(self):
         super().__init__()
         self.hbm_bytes = 0
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.collectives = CollectiveStats()
         self._sizes: Dict[int, int] = {}       # storage key -> bytes
         self._refs: Dict[int, weakref.ref] = {}
 
@@ -161,6 +190,17 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        kind = _collective_kind(func)
+        if kind is not None:
+            stats = self.collectives
+            stats.counts[kind] = stats.counts.get(kind, 0) + 1
+            # the result is written into the first argument: the tensors of
+            # an all-reduce in place, the output list of an all-gather, the
+            # output of an all-to-all
+            stats.bytes_by_kind[kind] = (stats.bytes_by_kind.get(kind, 0)
+                                         + sum(map(_nbytes,
+                                                   _tensors(args[0]))))
+            return out
         outs = _tensors(out)
         if not _is_view(func):
             if func._overloadpacket not in _NO_KERNEL:
@@ -192,7 +232,7 @@ def analyze_step(fn: Callable, *args: Any, chips: int = 1
         if st._cdata not in seen:
             seen.add(st._cdata)
             output_bytes += st.nbytes()
-    coll = CollectiveStats()
+    coll = counter.collectives
     roof = Roofline(flops=float(flops.get_total_flops()),
                     hbm_bytes=float(counter.hbm_bytes),
                     collective_bytes=float(coll.total_bytes), chips=chips)
@@ -200,3 +240,19 @@ def analyze_step(fn: Callable, *args: Any, chips: int = 1
            "temp_bytes": counter.peak_bytes - argument_bytes,
            "generated_code_bytes": None, "peak_bytes": counter.peak_bytes}
     return roof, coll, mem
+
+
+def analyze_sharded_step(fn: Callable, *args: Any, mesh
+                         ) -> Tuple[Roofline, CollectiveStats, Dict]:
+    """``analyze_step`` of ``fn(*args)`` on this rank of ``mesh`` (a
+    ``LiveMesh``: a live process group, or a ``fake`` one on ``meta``), run
+    under ``shardctx.mesh_ctx(mesh)``; ``args`` are the rank's own
+    (``sharding.shard_params``). The counterpart of the reference's
+    ``analyze_compiled`` for one device: FLOPs, HBM bytes and peak bytes of
+    this rank, and the collectives it takes part in (module docstring)."""
+    from repro_torch import shardctx
+
+    def step(*a):
+        with shardctx.mesh_ctx(mesh):
+            return fn(*a)
+    return analyze_step(step, *args, chips=mesh.size)

@@ -25,19 +25,29 @@ On the production meshes (``mesh="16x16"``, or ``multi_pod=True`` for
 the step's arguments under ``launch/sharding.py``'s specs (``param_specs``,
 ``opt_state_specs``, ``batch_specs_for``, ``cache_specs``), the
 counterpart of the argument bytes in XLA's memory analysis, and whether
-they ``fit`` one H100. The sharded step itself is not traced
-(``"traced": false``, ``"roofline": null``): its per-chip FLOPs and
-collectives are ROADMAP work.
+they ``fit`` one H100. The train and prefill steps are also traced there
+(``"traced": true``): the process joins a ``fake`` process group of 256 or
+512 ranks as rank 0, builds its ``LiveMesh`` on ``meta``, and runs the
+tensor-parallel step (``models/model.py``) on that rank's blocks of the
+parameters, so the record has one chip's FLOPs, HBM bytes, peak bytes and
+collectives (``analysis.analyze_sharded_step``), with the depth-1/depth-2
+probe pair as on one chip, the layout of the attention heads
+(``attention.tp_layout``) and the one-chip FLOPs beside them. The group is
+torn down after each record. The decode steps stay untraced (``"why"``):
+their cache is sequence-sharded (``cache_specs``: KV slots over "model"),
+which takes a softmax combined across ranks that the port does not run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses as _dc
 import json
+import math
 import sys
 import time
 import traceback
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
                                       ModelConfig, get_config,
@@ -45,8 +55,9 @@ from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
 from repro_torch.core.hardware import H100_HBM_BYTES
 from repro_torch.data.pipeline import batch_specs
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.analysis import Roofline, analyze_step, model_flops
-from repro_torch.launch.mesh import make_abstract_mesh
+from repro_torch.launch.analysis import (Roofline, analyze_sharded_step,
+                                         analyze_step, model_flops)
+from repro_torch.launch.mesh import LiveMesh, data_axes, make_abstract_mesh
 from repro_torch.launch.serve import make_prefill_step, make_serve_step
 from repro_torch.launch.train import make_train_step
 from repro_torch.models import model as model_lib
@@ -58,6 +69,10 @@ META = "meta"
 # the reference's production meshes, by the name a record carries
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+TRACED_KINDS = ("train", "prefill")     # traced on the production meshes
+UNTRACED_WHY = ("decode on a mesh reads a sequence-sharded KV cache "
+                "(cache_specs: slots over 'model'), which needs a softmax "
+                "combined across ranks; the port's decode runs unsharded")
 
 
 def combo_config(arch: str, shape_name: str) -> Optional[ModelConfig]:
@@ -70,7 +85,8 @@ def combo_config(arch: str, shape_name: str) -> Optional[ModelConfig]:
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, *, cut: int = 0,
-               microbatches: int = 1, remat: bool = True, device=META):
+               microbatches: int = 1, remat: bool = True, device=META,
+               mesh=None):
     """One step program of the reference's dry run and its arguments on
     ``device`` (``meta``: shapes only): ``(step, args)``.
 
@@ -84,9 +100,15 @@ def build_step(cfg: ModelConfig, shape: InputShape, *, cut: int = 0,
 
     None of the three reaches a kernel, as in the reference. For a ``cuda``
     device the parameters are drawn from seed 0 and the inputs are zeros
-    (the card check runs these same programs)."""
+    (the card check runs these same programs). With ``mesh`` (a
+    ``LiveMesh``) the parameters are this rank's blocks
+    (``sharding.shard_params``) and the batch the global one; the step runs
+    tensor-parallel under ``shardctx.mesh_ctx(mesh)``."""
     import torch
     params = model_lib.init_params(0, cfg, device=device)
+    if mesh is not None:
+        params = shd.shard_params(params, shd.param_specs(cfg, params, mesh),
+                                  mesh)
     key = "embeds" if cfg.input_mode == "embeds" else "tokens"
     specs = batch_specs(cfg, shape, cut if shape.kind == "train" else 0)
     batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
@@ -107,12 +129,27 @@ def build_step(cfg: ModelConfig, shape: InputShape, *, cut: int = 0,
                   shape.seq_len - 1)
 
 
-def _cost_triple(cfg, shape, *, remat) -> Dict:
-    step, args = build_step(cfg, shape, remat=remat)
-    roof, coll, _mem = analyze_step(step, *args)
+def _cost_triple(cfg, shape, *, remat, mesh=None) -> Dict:
+    step, args = build_step(cfg, shape, remat=remat, mesh=mesh)
+    if mesh is None:
+        roof, coll, _mem = analyze_step(step, *args)
+    else:
+        roof, coll, _mem = analyze_sharded_step(step, *args, mesh=mesh)
     return {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
             "collective_bytes": float(coll.total_bytes),
             "counts": coll.counts, "bytes_by_kind": coll.bytes_by_kind}
+
+
+def _probe_pair(cfg, shape, *, remat, mesh=None):
+    """The depth-1 and depth-2 costs of the step, and a function that
+    extrapolates a key of them to ``L`` layers:
+    term(L) = term(1) + (L - 1) * (term(2) - term(1))."""
+    p1, p2 = (_cost_triple(_dc.replace(cfg, n_layers=depth), shape,
+                           remat=remat, mesh=mesh) for depth in (1, 2))
+
+    def extrap(L, get):
+        return get(p1) + (L - 1) * (get(p2) - get(p1))
+    return p1, p2, extrap
 
 
 def sharded_arguments(cfg: ModelConfig, shape: InputShape, mesh, *,
@@ -170,8 +207,9 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     record lists them under ``reduced``).
 
     ``mesh``: ``"1"`` (one H100, the default) or a production mesh,
-    ``"16x16"`` or ``"2x16x16"`` (``multi_pod=True``): then the record is
-    :func:`sharded_arguments`'s per-chip bytes, untraced."""
+    ``"16x16"`` or ``"2x16x16"`` (``multi_pod=True``): then the record has
+    :func:`sharded_arguments`'s per-chip bytes and, for a train or prefill
+    step, one rank's trace on a fake process group (module docstring)."""
     name = mesh or ("2x16x16" if multi_pod else "1")
     if multi_pod and name != "2x16x16":
         raise ValueError(f"multi_pod=True is the 2x16x16 mesh, not {name!r}")
@@ -195,7 +233,9 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                                shape_name=shape_name, cut=cut, unroll=unroll,
                                microbatches=microbatches, remat=remat,
                                capacity_factor=capacity_factor,
-                               kv_int8=kv_int8, reduced=reduced)
+                               kv_int8=kv_int8, reduced=reduced,
+                               compile_=compile_,
+                               roofline_probe=roofline_probe)
     chips = 1
     rec: Dict = {"arch": arch, "shape": shape_name, "unroll": unroll,
                  "mesh": "1", "chips": chips, "device": META,
@@ -228,26 +268,10 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         # probes run microbatches=1 and cut=0: total FLOPs/bytes per step
         # are mb-invariant (only the peak changes, and that comes from the
         # full-depth trace)
-        probes = [_cost_triple(_dc.replace(cfg, n_layers=depth), shape,
-                               remat=remat) for depth in (1, 2)]
+        p1, p2, extrap = _probe_pair(cfg, shape, remat=remat)
         rec["probe_s"] = round(time.time() - t1, 1)
-        p1, p2 = probes
-        L = n_layers_eff
-
-        def extrap(key):
-            return p1[key] + (L - 1) * (p2[key] - p1[key])
-
-        coll_b = extrap("collective_bytes")
-        counts = {k: p1["counts"].get(k, 0)
-                  + (L - 1) * (p2["counts"].get(k, 0)
-                               - p1["counts"].get(k, 0))
-                  for k in set(p1["counts"]) | set(p2["counts"])}
-        roof = Roofline(flops=extrap("flops"), hbm_bytes=extrap("hbm_bytes"),
-                        collective_bytes=coll_b, chips=chips)
-        rec["collectives"] = {"counts": counts, "total_bytes": coll_b,
-                              "per_layer_bytes":
-                                  p2["collective_bytes"]
-                                  - p1["collective_bytes"]}
+        roof, rec["collectives"] = _extrapolated(p1, p2, extrap,
+                                                 n_layers_eff, chips)
     else:
         roof = roof_raw
         rec["collectives"] = {"counts": coll_raw.counts,
@@ -267,6 +291,114 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         "tokens": tokens,
     })
     return rec
+
+
+def _extrapolated(p1, p2, extrap, L: int, chips: int):
+    """The roofline and the collectives of ``L`` layers from a probe pair."""
+    kinds = set(p1["counts"]) | set(p2["counts"])
+    coll_b = extrap(L, lambda p: p["collective_bytes"])
+    roof = Roofline(flops=extrap(L, lambda p: p["flops"]),
+                    hbm_bytes=extrap(L, lambda p: p["hbm_bytes"]),
+                    collective_bytes=coll_b, chips=chips)
+    coll = {"counts": {k: extrap(L, lambda p: p["counts"].get(k, 0))
+                       for k in kinds},
+            "bytes_by_kind": {k: extrap(L, lambda p: p["bytes_by_kind"]
+                                        .get(k, 0)) for k in kinds},
+            "total_bytes": coll_b,
+            "per_layer_bytes": p2["collective_bytes"]
+            - p1["collective_bytes"]}
+    return roof, coll
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes):
+    """This process as rank 0 of a ``fake`` process group of
+    ``prod(shape)`` ranks (collectives are recorded, nothing moves), and
+    its ``LiveMesh`` on ``meta``; the group is destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; the "
+                           "traced sharded dry run joins a fake one of its "
+                           "own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield LiveMesh.build(shape, axes, torch.device(META))
+    finally:
+        dist.destroy_process_group()
+
+
+def _batch_bytes(cfg, shape, mesh, cut) -> Tuple[int, int]:
+    """(bytes of the global batch, of this rank's block of it)."""
+    kind_cut = cut if shape.kind == "train" else 0
+    batch = batch_specs(cfg, shape, kind_cut)
+    if shape.kind == "prefill":
+        key = "embeds" if cfg.input_mode == "embeds" else "tokens"
+        batch = {key: batch[key]}
+    specs = shd.batch_specs_for(cfg, mesh, shape.kind, shape.global_batch,
+                                kind_cut)
+    whole = sum(v.numel() * v.element_size() for v in batch.values())
+    return whole, shd.bytes_per_chip(batch, {k: specs[k] for k in batch},
+                                     mesh)
+
+
+def _traced(cfg: ModelConfig, shape: InputShape, name: str, *, cut: int,
+            microbatches: int, remat: bool, roofline_probe: bool,
+            unroll: bool) -> Dict:
+    """One rank's trace of the tensor-parallel step on the mesh ``name``:
+    the full-depth peak, the probe pair's roofline and collectives, and
+    the one-chip probe pair's FLOPs beside them. Every rank receives the
+    global batch and keeps its block; the memory counts the block (the
+    peak less the rest of the batch, live from the start to the end)."""
+    from repro_torch.models import attention
+    out: Dict = {}
+    with fake_mesh(*MESHES[name]) as mesh:
+        t0 = time.time()
+        step, args = build_step(cfg, shape, cut=cut,
+                                microbatches=microbatches, remat=remat,
+                                mesh=mesh)
+        roof_raw, coll_raw, mem = analyze_sharded_step(step, *args, mesh=mesh)
+        del step, args
+        whole, block = _batch_bytes(cfg, shape, mesh, cut)
+        for key in ("argument_bytes", "peak_bytes"):
+            mem[key] -= whole - block
+        out["trace_s"] = round(time.time() - t0, 1)
+        out["memory"] = mem
+        out["raw_scan_costs"] = {
+            "flops": roof_raw.flops, "hbm_bytes": roof_raw.hbm_bytes,
+            "collective_bytes": float(coll_raw.total_bytes),
+            "counts": coll_raw.counts, "bytes_by_kind": coll_raw.bytes_by_kind}
+        L = cfg.n_layers - cut
+        if roofline_probe and not unroll and L >= 2:
+            t1 = time.time()
+            p1, p2, extrap = _probe_pair(cfg, shape, remat=remat, mesh=mesh)
+            roof, out["collectives"] = _extrapolated(p1, p2, extrap, L,
+                                                     mesh.size)
+            out["probe_s"] = round(time.time() - t1, 1)
+        else:
+            roof = roof_raw
+            out["collectives"] = {
+                "counts": coll_raw.counts,
+                "bytes_by_kind": coll_raw.bytes_by_kind,
+                "total_bytes": float(coll_raw.total_bytes),
+                "per_layer_bytes": None}
+        out["roofline"] = {**roof.as_dict(), "bound_s": roof.bound_s}
+        if not cfg.is_attention_free:
+            out["heads"] = attention.tp_layout(cfg, mesh.shape["model"])
+        dp = data_axes(mesh)
+        out["batch_split"] = (list(dp) if shape.global_batch
+                              % mesh.axis_size(dp) == 0 else None)
+    if roofline_probe and not unroll and L >= 2:
+        _, _, one = _probe_pair(cfg, shape, remat=remat)
+        flops_one = one(L, lambda p: p["flops"])
+    else:
+        flops_one = _cost_triple(cfg, shape, remat=remat)["flops"]
+    out["flops_one_chip"] = flops_one
+    out["flops_x_chips_over_one_chip"] = (roof.flops * mesh.size / flops_one
+                                          if flops_one else None)
+    return out
 
 
 def _sharded_record(cfg: ModelConfig, shape: InputShape, name: str, *,
@@ -289,9 +421,26 @@ def _sharded_record(cfg: ModelConfig, shape: InputShape, name: str, *,
                  "model_flops_global": model_flops(
                      cfg, tokens,
                      "train" if shape.kind == "train" else "inference"),
-                 "lower_compile_s": round(time.time() - t0, 1), "ok": True}
+                 "ok": False}
     if reduced:
         rec["reduced"] = reduced
+    if shape.kind in TRACED_KINDS and flags.get("compile_", True):
+        traced = _traced(cfg, shape, name, cut=cut,
+                         microbatches=flags["microbatches"],
+                         remat=flags["remat"],
+                         roofline_probe=flags.get("roofline_probe", True),
+                         unroll=flags["unroll"])
+        mem = traced.pop("memory")
+        rec["memory"].update(mem)
+        rec.update(traced, traced=True, fits=mem["peak_bytes"]
+                   <= H100_HBM_BYTES)
+        pf = rec["model_flops_global"] / mesh.size
+        rec["model_flops_per_chip"] = pf
+        rec["useful_flops_ratio"] = pf / rec["roofline"]["flops"] \
+            if rec["roofline"]["flops"] else None
+    elif shape.kind not in TRACED_KINDS:
+        rec["why"] = UNTRACED_WHY
+    rec.update(ok=True, lower_compile_s=round(time.time() - t0, 1))
     return rec
 
 
@@ -335,10 +484,19 @@ def summary_line(rec: Dict) -> str:
     label = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
     if not rec["ok"]:
         return f"[FAIL] {label}: {rec['error'][:500]}"
-    if rec["mesh"] != "1":
+    if rec["mesh"] != "1" and not rec.get("traced"):
         return (f"[OK]   {label}: {rec['chips']} chips, arguments "
                 f"{rec['memory']['argument_bytes_per_chip']:.4g}B a chip "
                 f"fits={rec['fits']} (not traced)")
+    if rec["mesh"] != "1":
+        r = rec["roofline"]
+        return (f"[OK]   {label}: {rec['chips']} chips, traced "
+                f"{rec['lower_compile_s']}s dominant={r['dominant']} "
+                f"compute={r['compute_s']:.4g}s memory={r['memory_s']:.4g}s "
+                f"coll={r['collective_s']:.4g}s "
+                f"collective_bytes={r['collective_bytes']:.4g}B "
+                f"peak={rec['memory']['peak_bytes']:.4g}B a chip "
+                f"fits={rec['fits']}")
     r = rec.get("roofline", {})
     return (f"[OK]   {label}: trace {rec['lower_compile_s']}s "
             f"probes {rec.get('probe_s', '-')}s "
@@ -359,7 +517,8 @@ def main(argv=None) -> None:
                    default="single",
                    help="single: one H100 (traced); multi: the 2x16x16 "
                         "mesh; both: 16x16 and 2x16x16 (per-chip argument "
-                        "bytes, not traced)")
+                        "bytes; train and prefill traced on one rank of a "
+                        "fake process group)")
     p.add_argument("--cut", type=int, default=0)
     p.add_argument("--no-compile", action="store_true",
                    help="trace only, count nothing")

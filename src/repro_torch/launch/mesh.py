@@ -215,6 +215,52 @@ class LiveMesh(AbstractMesh):
         replicated over (shard_map's transpose of an unmentioned axis)."""
         return _Leave.apply(x, self, _as_axes(axes))
 
+    # ---- resharding between enter and leave ------------------------------
+    #
+    # Between ``enter`` and ``leave`` a value is either split over some axes
+    # (each rank holds its block, and its cotangent is that block's) or
+    # replicated over them. The cotangent of a replicated value is held as
+    # partial sums: the true cotangent is the sum over its replicas of what
+    # each rank holds. ``leave``'s backward hands each replica its share
+    # (1 / their count), and ``enter``'s sums them back; in between every
+    # op keeps the rule: a rank's local op is linear in the cotangent, a
+    # ``psum``'s backward (a psum) turns the replicas' partials into the
+    # true cotangent of each summand, and the two below complete it. A
+    # gradient of a parameter replicated over some axes is then the psum of
+    # the ranks' gradients over those axes (``sharding.reduce_grads``).
+
+    def split(self, x: torch.Tensor, axes: Axes, dim: int) -> torch.Tensor:
+        """This rank's block of dim ``dim`` of a value replicated over
+        ``axes``. Backward: the block's cotangent padded with zeros, this
+        rank's partial of the replicated value's."""
+        axes = _as_axes(axes)
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {axes} ({n} ranks)")
+        blk = x.shape[dim] // n
+        return x.narrow(dim, self.axis_index(axes) * blk, blk)
+
+    def gather(self, x: torch.Tensor, axes: Axes, dim: int) -> torch.Tensor:
+        """The blocks of dim ``dim`` over ``axes`` joined into the value,
+        replicated over ``axes``. Backward: the replicas' partial cotangents
+        summed over ``axes`` (a psum), and this rank's block of the sum."""
+        group = self.group(axes)
+        return x if group is None else _Gather.apply(
+            x, group, self.axis_index(axes), dim)
+
+    def pmax(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """Elementwise maximum over the ranks of ``axes``, no gradient (the
+        shift of a log-sum-exp)."""
+        import torch.distributed as dist
+        group = self.group(axes)
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        if group is not None:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        return out
+
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
@@ -228,6 +274,25 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _AllReduce.apply(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        import torch.distributed as dist
+        ctx.group, ctx.index, ctx.dim = group, index, dim
+        ctx.blk = x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _AllReduce.apply(g, ctx.group)
+        return (g.narrow(ctx.dim, ctx.index * ctx.blk, ctx.blk), None, None,
+                None)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -253,3 +253,89 @@ def bytes_per_chip(tree: Params, specs: Params, mesh) -> int:
             n *= s
         total += n * leaf.element_size()
     return total
+
+
+def shard_params(params: Params, specs: Params, mesh) -> Params:
+    """Each leaf of ``params`` (the global values) cut to this rank's block
+    of its spec on the ``LiveMesh`` ``mesh`` (``param_specs``), a copy that
+    owns its storage: the rank holds its blocks and nothing of the rest.
+    These are the per-rank parameters the tensor-parallel model code takes
+    under ``shardctx.mesh_ctx(mesh)``."""
+    return _map_with_specs(
+        lambda t, spec: local_shard(t, spec, mesh).clone(), params, specs)
+
+
+def _map_with_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+class _Shape:
+    """A leaf's shape and nothing else (what the spec rules read)."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+
+#: the adapters whose B ``param_specs`` splits with the base's columns, and
+#: the config's width of those columns
+_COLUMN_OUT = {"wq": "q_dim", "wk": "kv_dim", "wv": "kv_dim", "w_gate": "d_ff",
+               "w_up": "d_ff"}
+
+
+def lora_specs(cfg: ModelConfig, lora: Params, mesh) -> Params:
+    """``param_specs``' specs of the adapters, from the adapter tree as
+    given (whole, or this rank's blocks: a column-parallel B's whole width
+    is the config's), without making a tensor: a step can ask inside a
+    traced call."""
+    def shapes(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: shapes(v, path + (k,)) for k, v in tree.items()}
+        shape = list(tree.shape)
+        if path[-1] == "b" and path[-2] in _COLUMN_OUT:
+            shape[-1] = getattr(cfg, _COLUMN_OUT[path[-2]])
+        return _Shape(shape)
+    return param_specs(cfg, {"frozen": {}, "lora": shapes(lora)},
+                       mesh)["lora"]
+
+
+def replicated_axes(spec: P, mesh) -> Tuple[str, ...]:
+    """The mesh axes a leaf laid out by ``spec`` is replicated over, in
+    mesh order."""
+    used = set()
+    for axis in spec:
+        if axis is not None:
+            used.update(axis if isinstance(axis, tuple) else (axis,))
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
+def reduce_grads(grads: Params, specs: Params, mesh) -> Params:
+    """The gradients of this rank's parameter blocks, from each rank's own
+    (a partial sum: ``LiveMesh``'s rule for replicated values): each leaf
+    summed over the axes its spec replicates it over. The leaves that share
+    those axes go in one all-reduce."""
+    import torch.distributed as dist
+    leaves = list(_leaves_with_specs(grads, specs))
+    buckets: Dict[Tuple[str, ...], list] = {}
+    for i, (g, spec) in enumerate(leaves):
+        axes = replicated_axes(spec, mesh)
+        if mesh.axis_size(axes) > 1:
+            buckets.setdefault(axes, []).append(i)
+    out = [g for g, _ in leaves]
+    for axes, idx in buckets.items():
+        dtypes = {out[i].dtype for i in idx}
+        for dtype in sorted(dtypes, key=str):
+            part = [i for i in idx if out[i].dtype == dtype]
+            flat = torch.cat([out[i].reshape(-1) for i in part])
+            dist.all_reduce(flat, group=mesh.group(axes))
+            start = 0
+            for i in part:
+                n = out[i].numel()
+                out[i] = flat[start:start + n].view_as(out[i])
+                start += n
+    it = iter(out)
+    return _map_with_specs(lambda _g, _s: next(it), grads, specs)

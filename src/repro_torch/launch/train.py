@@ -17,11 +17,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import shardctx
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.launch import sharding as shd
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import (Params, batch_to_device,
-                                       resolve_device, softmax_cross_entropy,
-                                       tree_leaves, tree_map, tree_unflatten)
+                                       resolve_device, tree_leaves, tree_map,
+                                       tree_unflatten)
 from repro_torch.optim import Optimizer, adamw, apply_updates, warmup_cosine
 
 
@@ -54,6 +56,14 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
 
     ``microbatches > 1`` splits the batch and accumulates the LoRA grads in
     f32, which divides peak activation memory by the microbatch count.
+
+    Under ``shardctx.mesh_ctx`` of a ``LiveMesh`` of several ranks the step
+    is tensor-parallel (``models.model``): ``frozen``, ``lora`` and
+    ``opt_state`` are this rank's blocks (``sharding.shard_params`` of
+    ``param_specs``), ``batch`` the global batch; each rank's gradients are
+    summed over the axes its adapters are replicated over
+    (``sharding.reduce_grads``), so every rank updates its blocks as one
+    card would, and the loss is the whole batch's.
     """
 
     def loss_fn(lora, frozen, batch):
@@ -64,12 +74,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         x, aux = model_lib.forward_hidden(
             frozen, lora, batch["smashed"], cfg, lo=cut, hi=cfg.n_layers,
             impl=impl, remat=remat, inputs_embedded=True, unroll=unroll)
-        logits = model_lib.logits_from_hidden(frozen, x, cfg)
-        return softmax_cross_entropy(logits, batch["labels"]) + aux
+        return model_lib.loss_from_hidden(frozen, x, batch["labels"], aux,
+                                          cfg)
 
     def train_step(frozen: Params, lora: Params, opt_state, batch
                    ) -> Tuple[torch.Tensor, Params, Any]:
         batch = batch_to_device(batch, frozen["embed"].device)
+        mesh = shardctx.live()
         if microbatches == 1:
             loss, grads = value_and_grad(loss_fn, lora, frozen, batch)
         else:
@@ -86,6 +97,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                 loss = loss + l
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
+        if mesh is not None:
+            grads = shd.reduce_grads(grads, shd.lora_specs(cfg, lora, mesh),
+                                     mesh)
 
         updates, new_state = optimizer.update(grads, opt_state, lora)
         new_lora = apply_updates(lora, updates)

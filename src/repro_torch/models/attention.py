@@ -23,11 +23,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import shardctx
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ACC_DTYPE, Params, apply_rope,
-                                       dense_init, dtype_of, init_lora_pair,
-                                       init_rms_norm, lora_dense, maybe_lora,
-                                       rms_norm)
+from repro_torch.models.common import (ACC_DTYPE, Params, TensorParallel,
+                                       apply_rope, dense_init, dtype_of,
+                                       init_lora_pair, init_rms_norm,
+                                       lora_dense, maybe_lora,
+                                       row_parallel_dense, rms_norm)
 
 NEG_INF = -1e30
 
@@ -156,9 +158,92 @@ def attention_scores(q, k, v, *, impl: str, causal: bool, window: int,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the heads of a rank
+# ---------------------------------------------------------------------------
+
+
+def tp_layout(cfg: ModelConfig, m: int) -> Dict:
+    """How attention lies on a model axis of ``m`` ranks. ``param_specs``
+    splits ``wq``/``wk``/``wv`` by their flat columns wherever ``m``
+    divides them, heads or not; the reference's hint
+    ``constrain(q, "dp", None, "model", None)`` splits the query heads only
+    where ``m`` divides ``n_heads``. So:
+
+      * ``"q"``: ``"split"`` (each rank its ``n_heads / m`` heads),
+        ``"gathered"`` (the columns split off head boundaries: gathered
+        over "model", every rank all heads) or ``"replicated"`` (``wq``
+        whole on every rank);
+      * ``"kv"``: ``"split"`` (a rank's kv columns are exactly the kv heads
+        its query heads read), ``"gathered"`` (the split cuts or misses
+        them: gathered, then each rank takes the heads it needs, as GSPMD's
+        reshard does) or ``"replicated"``;
+      * the heads a rank runs attention on (rank 0's kv heads, and whether
+        its query heads read them as whole GQA groups, ``"grouped"``, or
+        one kv head each, ``"expanded"``)."""
+    heads = m > 1 and cfg.n_heads % m == 0
+    q_cols = m > 1 and cfg.q_dim % m == 0
+    kv_cols = m > 1 and cfg.kv_dim % m == 0
+    kv_split = heads and cfg.n_kv_heads % m == 0
+    sel = _kv_heads(cfg, m, 0)
+    return {"q": "split" if heads else "gathered" if q_cols else "replicated",
+            "kv": ("split" if kv_split else "gathered" if kv_cols
+                   else "replicated"),
+            "q_heads_per_rank": cfg.n_heads // m if heads else cfg.n_heads,
+            "kv_heads_per_rank": (sel[1] - sel[0] if isinstance(sel, tuple)
+                                  else len(sel)),
+            "kv_read": "grouped" if isinstance(sel, tuple) else "expanded",
+            "model_axis": m}
+
+
+def _kv_heads(cfg: ModelConfig, m: int, index: int):
+    """The kv heads the query heads of rank ``index`` read: ``(lo, hi)``
+    when they read kv heads ``lo..hi-1`` in whole GQA groups of equal size,
+    else one kv head index per query head."""
+    if not (m > 1 and cfg.n_heads % m == 0):
+        return (0, cfg.n_kv_heads)
+    group = cfg.n_heads // cfg.n_kv_heads
+    hq = cfg.n_heads // m
+    need = [h // group for h in range(index * hq, (index + 1) * hq)]
+    lo, hi = need[0], need[-1] + 1
+    per = hq // (hi - lo)
+    if hq % (hi - lo) == 0 and need == [lo + i // per for i in range(hq)]:
+        return (lo, hi)
+    return need
+
+
+def _tp_heads(q, k, v, cfg: ModelConfig, tp: TensorParallel):
+    """This rank's query heads and the kv heads they read, from its blocks
+    of the q/k/v projections (``tp_layout``)."""
+    lay = tp_layout(cfg, tp.size)
+    hd, b = cfg.resolved_head_dim, tp.batch
+    # the reference's hint constrain(q, "dp", None, "model", None), taken on
+    # the flat columns: split where its guard splits the heads
+    q = shardctx.constrain(
+        q, "dp", None, "model" if lay["q"] == "split" else None,
+        have=(b, None, None if lay["q"] == "replicated" else "model"))
+    kv_have = (b, None, None if lay["kv"] == "replicated" else "model")
+    kv_tag = "model" if lay["kv"] == "split" else None
+    k = shardctx.constrain(k, "dp", None, kv_tag, have=kv_have)
+    v = shardctx.constrain(v, "dp", None, kv_tag, have=kv_have)
+    q = _split_heads(q, q.shape[-1] // hd)
+    k = _split_heads(k, k.shape[-1] // hd)
+    v = _split_heads(v, v.shape[-1] // hd)
+    if lay["kv"] != "split":
+        sel = _kv_heads(cfg, tp.size, tp.index)
+        if isinstance(sel, tuple):
+            k, v = k[:, :, sel[0]:sel[1]], v[:, :, sel[0]:sel[1]]
+        else:
+            idx = torch.as_tensor(sel, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v
+
+
 def _qkv(params: Params, lora: Optional[Params], x: torch.Tensor,
-         cfg: ModelConfig, positions: torch.Tensor, use_lora_kernel: bool):
-    """Projections, head split, qk-norm and RoPE shared by every path."""
+         cfg: ModelConfig, positions: torch.Tensor, use_lora_kernel: bool,
+         tp: Optional[TensorParallel] = None):
+    """Projections, head split, qk-norm and RoPE shared by every path
+    (``tp``: this rank's heads, from its column blocks)."""
     scale = cfg.lora.scale
     q = lora_dense(x, params["wq"], maybe_lora(lora, "wq"), scale,
                    params.get("bq"), use_kernel=use_lora_kernel)
@@ -166,9 +251,12 @@ def _qkv(params: Params, lora: Optional[Params], x: torch.Tensor,
                    params.get("bk"), use_kernel=use_lora_kernel)
     v = lora_dense(x, params["wv"], maybe_lora(lora, "wv"), scale,
                    params.get("bv"), use_kernel=use_lora_kernel)
-    q = _split_heads(q, cfg.n_heads)
-    k = _split_heads(k, cfg.n_kv_heads)
-    v = _split_heads(v, cfg.n_kv_heads)
+    if tp is not None:
+        q, k, v = _tp_heads(q, k, v, cfg, tp)
+    else:
+        q = _split_heads(q, cfg.n_heads)
+        k = _split_heads(k, cfg.n_kv_heads)
+        v = _split_heads(v, cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rms_eps)
         k = rms_norm(k, params["k_norm"], cfg.rms_eps)
@@ -180,16 +268,29 @@ def _qkv(params: Params, lora: Optional[Params], x: torch.Tensor,
 def attention_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
                       cfg: ModelConfig, *, positions: torch.Tensor,
                       impl: str = "chunked",
-                      use_lora_kernel: bool = False
+                      use_lora_kernel: bool = False,
+                      tp: Optional[TensorParallel] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence attention. Returns (out, {"k","v"} post-RoPE for cache)."""
-    q, k, v = _qkv(params, lora, x, cfg, positions, use_lora_kernel)
+    """Full-sequence attention. Returns (out, {"k","v"} post-RoPE for cache;
+    with ``tp``, this rank's heads). With ``tp`` the projections run on this
+    rank's blocks (``tp_layout``) and ``wo`` is row-parallel where the model
+    axis divides ``q_dim``: the rank's block of the heads' output times its
+    rows of ``wo``, summed over "model"."""
+    q, k, v = _qkv(params, lora, x, cfg, positions, use_lora_kernel, tp)
     out = attention_scores(q, k, v, impl=impl, causal=True,
                            window=cfg.sliding_window,
                            q_positions=positions, k_positions=positions)
-    out = out.reshape(x.shape[0], x.shape[1], cfg.q_dim)
-    out = lora_dense(out, params["wo"], maybe_lora(lora, "wo"),
-                     cfg.lora.scale, use_kernel=use_lora_kernel)
+    out = out.reshape(x.shape[0], x.shape[1], q.shape[2] * q.shape[3])
+    if tp is not None and tp.splits(cfg.q_dim):
+        # every rank ran all heads where the heads do not split: its block
+        out = shardctx.constrain(out, "dp", None, "model",
+                                 have=(tp.batch, None, "model"
+                                       if q.shape[2] < cfg.n_heads else None))
+        out = row_parallel_dense(out, params["wo"], maybe_lora(lora, "wo"),
+                                 cfg.lora.scale, tp, use_lora_kernel)
+    else:
+        out = lora_dense(out, params["wo"], maybe_lora(lora, "wo"),
+                         cfg.lora.scale, use_kernel=use_lora_kernel)
     return out, {"k": k, "v": v}
 
 

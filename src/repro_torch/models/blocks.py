@@ -16,7 +16,10 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import moe_shard_map
-from repro_torch.models.common import Params, init_rms_norm, rms_norm
+from repro_torch.models.common import (Params, TensorParallel,
+                                       init_rms_norm, rms_norm)
+
+ATTN_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype, device=None
@@ -57,35 +60,46 @@ def _lget(lora: Optional[Params], key: str) -> Optional[Params]:
 
 
 def _moe_dispatch(params: Params, lora: Optional[Params], h: torch.Tensor,
-                  cfg: ModelConfig, use_lora_kernel: bool
+                  cfg: ModelConfig, use_lora_kernel: bool,
+                  tp: Optional[TensorParallel] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route to the expert-parallel path when a mesh is active
-    (``moe_shard_map``); on one card, ``moe_forward``."""
+    (``moe_shard_map``: inside the tensor-parallel model ``h`` is this
+    rank's block of the batch, else the whole batch); on one card,
+    ``moe_forward``."""
     strategy = moe_shard_map.select_strategy(cfg)
+    if strategy is not None and tp is not None:
+        return moe_shard_map.moe_forward_tp(params, lora, h, cfg, strategy,
+                                            tp.batch)
     if strategy is not None:
         return moe_shard_map.moe_forward_dist(params, lora, h, cfg, strategy)
     return moe_mod.moe_forward(params, lora, h, cfg, use_lora_kernel)
 
 
 def _ffn(params: Params, lora: Optional[Params], x: torch.Tensor,
-         cfg: ModelConfig, use_lora_kernel: bool
+         cfg: ModelConfig, use_lora_kernel: bool,
+         tp: Optional[TensorParallel] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second residual branch: (x + mlp or moe of norm2(x), aux)."""
     h2 = rms_norm(x, params["norm2"], cfg.rms_eps)
     if cfg.family == "moe":
         out, aux = _moe_dispatch(params["moe"], _lget(lora, "moe"), h2, cfg,
-                                 use_lora_kernel)
+                                 use_lora_kernel, tp)
         return x + out, aux
     return x + mlp_mod.mlp_forward(params["mlp"], _lget(lora, "mlp"), h2, cfg,
-                                   use_lora_kernel), None
+                                   use_lora_kernel, tp), None
 
 
 def layer_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
                   cfg: ModelConfig, *, positions: torch.Tensor,
-                  impl: str = "chunked", use_lora_kernel: bool = False
+                  impl: str = "chunked", use_lora_kernel: bool = False,
+                  tp: Optional[TensorParallel] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence layer. Returns (x, aux_loss). ``impl`` picks the
-    attention score path and the SSM scan (``"flash"``: the kernels)."""
+    attention score path and the SSM scan (``"flash"``: the kernels).
+    ``tp``: this rank of a tensor-parallel mesh (attention and the dense
+    MLP on their blocks; the Mamba block and the norms replicated, as
+    ``param_specs`` lays them out)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.rms_eps)
     if cfg.family == "ssm":
@@ -94,7 +108,7 @@ def layer_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
         return x, aux
     attn_out, _ = attn_mod.attention_forward(
         params["attn"], _lget(lora, "attn"), h, cfg, positions=positions,
-        impl=impl, use_lora_kernel=use_lora_kernel)
+        impl=impl, use_lora_kernel=use_lora_kernel, tp=tp)
     if cfg.family == "hybrid":
         ssm_out = mamba_mod.mamba_forward(params["mamba"],
                                           _lget(lora, "mamba"), h, cfg,
@@ -102,7 +116,7 @@ def layer_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    x, moe_aux = _ffn(params, lora, x, cfg, use_lora_kernel)
+    x, moe_aux = _ffn(params, lora, x, cfg, use_lora_kernel, tp)
     return x, aux if moe_aux is None else moe_aux
 
 

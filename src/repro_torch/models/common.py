@@ -9,7 +9,8 @@ the activation dtype" order).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Union
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -214,6 +215,54 @@ def lora_dense(
     return y
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism (Megatron-style, on the mesh's "model" axis)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """What a layer needs to run on its rank of a ``LiveMesh``: the mesh,
+    and the data axes the batch is split over (None: every rank holds the
+    whole batch). The weights are this rank's blocks under
+    ``launch.sharding.param_specs``; an activation is the rank's block of
+    the batch, replicated over ``"model"`` between the layers."""
+    mesh: Any
+    batch: Optional[Tuple[str, ...]]
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.axis_index("model") if self.size > 1 else 0
+
+    def splits(self, n: int) -> bool:
+        """Whether ``param_specs`` splits a dim of ``n`` over "model" (its
+        guard: the axis divides the dim)."""
+        return self.size > 1 and n % self.size == 0
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.psum(x, "model") if self.size > 1 else x
+
+
+def row_parallel_dense(x: torch.Tensor, w: torch.Tensor,
+                       lora: Optional[Params], scale: float,
+                       tp: TensorParallel, use_kernel: bool = False
+                       ) -> torch.Tensor:
+    """``lora_dense`` with ``W`` split by rows over "model" (``wo``,
+    ``w_down``): ``x`` is this rank's block of columns, ``W`` its block of
+    rows, and ``A`` (replicated) gives the same rows. The product is linear
+    in the rank-``r`` term too, so the partial products summed over the
+    model axis are the whole product: the fused kernel takes the blocks as
+    they are."""
+    if lora is not None:
+        k = w.shape[0]
+        lora = {"a": lora["a"].narrow(0, tp.index * k, k), "b": lora["b"]}
+    return tp.psum(lora_dense(x, w, lora, scale, use_kernel=use_kernel))
+
+
 def maybe_lora(lora_tree: Optional[Params], name: str) -> Optional[Params]:
     if lora_tree is None:
         return None
@@ -253,3 +302,8 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             t = t.to(torch.long)
         out[k] = t.to(device)
     return out
+
+
+def count_params(tree) -> int:
+    """Elements in every leaf of ``tree``."""
+    return sum(int(x.numel()) for x in tree_leaves(tree))

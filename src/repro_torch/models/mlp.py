@@ -6,9 +6,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (Params, dense_init, dtype_of,
-                                       init_lora_pair, lora_dense, maybe_lora,
-                                       silu)
+from repro_torch.models.common import (Params, TensorParallel, dense_init,
+                                       dtype_of, init_lora_pair, lora_dense,
+                                       maybe_lora, row_parallel_dense, silu)
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, device=None
@@ -37,13 +37,20 @@ def init_mlp_lora(gen: torch.Generator, cfg: ModelConfig, device=None
 
 
 def mlp_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
-                cfg: ModelConfig, use_lora_kernel: bool = False
-                ) -> torch.Tensor:
+                cfg: ModelConfig, use_lora_kernel: bool = False,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """SwiGLU. With ``tp`` and a width the model axis divides, the gate and
+    up projections are column-parallel (this rank's block of ``d_ff``) and
+    the down projection row-parallel (summed over "model")."""
     s = cfg.lora.scale
     g = lora_dense(x, params["w_gate"], maybe_lora(lora, "w_gate"), s,
                    use_kernel=use_lora_kernel)
     u = lora_dense(x, params["w_up"], maybe_lora(lora, "w_up"), s,
                    use_kernel=use_lora_kernel)
+    if tp is not None and tp.splits(cfg.d_ff):
+        return row_parallel_dense(silu(g) * u, params["w_down"],
+                                  maybe_lora(lora, "w_down"), s, tp,
+                                  use_lora_kernel)
     return lora_dense(silu(g) * u, params["w_down"],
                       maybe_lora(lora, "w_down"), s,
                       use_kernel=use_lora_kernel)

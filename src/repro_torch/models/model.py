@@ -16,6 +16,18 @@ prefill functions update it IN PLACE and return it.
 Split learning support: ``forward_hidden(..., lo, hi)`` runs layers
 ``[lo, hi)`` only. ``lo == 0`` includes the embedding; ``hi == n_layers``
 is the natural server end (final norm + LM head live with the loss).
+
+Tensor parallelism. Under ``shardctx.mesh_ctx`` of a ``LiveMesh`` of
+several ranks, the full-sequence forward (``forward_hidden``,
+``forward_loss``, ``prefill``) runs Megatron-style on the mesh, with each
+rank's blocks of the parameters (``launch.sharding.shard_params``): the
+inputs are the global batch on every rank, split over the data axes at the
+model's input (``LiveMesh.enter``, where the data axes divide the batch:
+the reference's ``constrain(x, "dp", None, None)``); attention and the
+dense MLP run on the rank's columns and rows; the embedding and the head
+are split over the vocabulary; the prefill's logits (the whole vocabulary)
+and the loss leave the mesh the same on every rank (``LiveMesh.leave``).
+The cached decode paths stay on one rank's whole parameters.
 """
 from __future__ import annotations
 
@@ -24,10 +36,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import shardctx
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.common import (ACC_DTYPE, Params, dtype_of,
-                                       embed_init, init_rms_norm,
+from repro_torch.models.common import (ACC_DTYPE, Params, TensorParallel,
+                                       dtype_of, embed_init, init_rms_norm,
                                        make_generator, resolve_device,
                                        rms_norm, softmax_cross_entropy,
                                        tree_map, tree_take)
@@ -91,12 +104,44 @@ def slice_layers(tree: Params, lo: int, hi: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(frozen: Params, batch_inputs: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
-    """tokens (B,S) int -> (B,S,d); or pass-through for 'embeds' mode."""
+def tensor_parallel(batch: int) -> Optional[TensorParallel]:
+    """The active ``LiveMesh`` of several ranks as the layers see it, for a
+    global batch of ``batch`` rows (split over the data axes where they
+    divide it); None without one."""
+    mesh = shardctx.live()
+    if mesh is None:
+        return None
+    return TensorParallel(mesh, shardctx.guarded_spec((batch,), "dp")[0])
+
+
+def _enter(x: Optional[torch.Tensor], tp: Optional[TensorParallel]):
+    """A global input's block of the batch on this rank."""
+    if x is None or tp is None or tp.batch is None:
+        return x
+    return tp.mesh.enter(x, tp.batch)
+
+
+def embed_inputs(frozen: Params, batch_inputs: torch.Tensor, cfg: ModelConfig,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """tokens (B,S) int -> (B,S,d); or pass-through for 'embeds' mode.
+    With ``tp`` the table is this rank's block: of the vocabulary (a lookup
+    of the rows it holds, zero elsewhere, summed over "model"), or, where
+    the model axis does not divide the vocabulary, of ``d`` (gathered)."""
     if cfg.input_mode == "embeds":
         return batch_inputs.to(dtype_of(cfg.dtype))
-    return frozen["embed"][batch_inputs.to(torch.long)]
+    ids = batch_inputs.to(torch.long)
+    emb = frozen["embed"]
+    if tp is None or not (tp.splits(cfg.padded_vocab)
+                          or tp.splits(cfg.d_model)):
+        return emb[ids]
+    if not tp.splits(cfg.padded_vocab):
+        return tp.mesh.gather(emb[ids], "model", -1)
+    rows = emb.shape[0]
+    local = ids - tp.index * rows
+    inside = (local >= 0) & (local < rows)
+    out = emb[local.clamp(0, rows - 1)]
+    return tp.psum(torch.where(inside[..., None], out,
+                               torch.zeros_like(out)))
 
 
 def forward_hidden(frozen: Params, lora: Optional[Params],
@@ -111,7 +156,10 @@ def forward_hidden(frozen: Params, lora: Optional[Params],
     """Run layers [lo, hi). By default ``lo==0`` means ``inputs`` are
     tokens/embeds and the embedding is applied; otherwise ``inputs`` are
     hidden states (smashed data). ``inputs_embedded=True`` forces the
-    hidden-state interpretation (server stage at cut 0).
+    hidden-state interpretation (server stage at cut 0). On a tensor-
+    parallel mesh (module docstring) ``inputs`` and ``positions`` are
+    global and the hidden states returned are this rank's block of the
+    batch.
 
     ``remat``: under autograd each layer runs inside
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), which
@@ -123,7 +171,9 @@ def forward_hidden(frozen: Params, lora: Optional[Params],
     hi = cfg.n_layers if hi is None else hi
     if inputs_embedded is None:
         inputs_embedded = lo != 0
-    x = inputs if inputs_embedded else embed_inputs(frozen, inputs, cfg)
+    tp = tensor_parallel(inputs.shape[0])
+    inputs, positions = _enter(inputs, tp), _enter(positions, tp)
+    x = inputs if inputs_embedded else embed_inputs(frozen, inputs, cfg, tp)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device).expand(x.shape[0],
@@ -145,12 +195,13 @@ def forward_hidden(frozen: Params, lora: Optional[Params],
         if remat:
             x, aux_l = checkpoint(blocks.layer_forward, lp, ll, x, cfg,
                                   positions=positions, impl=impl,
-                                  use_lora_kernel=use_lora_kernel,
+                                  use_lora_kernel=use_lora_kernel, tp=tp,
                                   use_reentrant=False)
         else:
             x, aux_l = blocks.layer_forward(lp, ll, x, cfg,
                                             positions=positions, impl=impl,
-                                            use_lora_kernel=use_lora_kernel)
+                                            use_lora_kernel=use_lora_kernel,
+                                            tp=tp)
         aux = aux + aux_l
     return x, aux
 
@@ -189,16 +240,90 @@ def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(ACC_DTYPE), w.to(ACC_DTYPE))
 
 
-def logits_from_hidden(frozen: Params, x: torch.Tensor, cfg: ModelConfig
-                       ) -> torch.Tensor:
-    """f32 logits over the padded vocabulary; pad columns at -1e30."""
+def _local_logits(frozen: Params, x: torch.Tensor, cfg: ModelConfig,
+                  tp: Optional[TensorParallel]) -> Tuple[torch.Tensor, bool]:
+    """(f32 logits, whether they are this rank's block of the vocabulary);
+    pad columns at -1e30. With ``tp`` the head is this rank's block of the
+    vocabulary (``head``'s columns, or the tied ``embed``'s rows), or where
+    the model axis does not divide the vocabulary, of ``d`` (the partial
+    logits summed over "model")."""
     x = rms_norm(x, frozen["final_norm"], cfg.rms_eps)
     head = frozen["head"] if not cfg.tie_embeddings else frozen["embed"].T
-    logits = _matmul_f32_out(x, head.to(x.dtype))
+    vocab_split = tp is not None and tp.splits(cfg.padded_vocab)
+    if tp is not None and not vocab_split and tp.splits(cfg.d_model):
+        x = tp.mesh.split(x, "model", -1)
+        logits = tp.psum(_matmul_f32_out(x, head.to(x.dtype)))
+    else:
+        logits = _matmul_f32_out(x, head.to(x.dtype))
     if cfg.padded_vocab != cfg.vocab_size:
-        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        first = tp.index * logits.shape[-1] if vocab_split else 0
+        valid = torch.arange(first, first + logits.shape[-1],
+                             device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    return logits, vocab_split
+
+
+def logits_from_hidden(frozen: Params, x: torch.Tensor, cfg: ModelConfig,
+                       tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """f32 logits over the padded vocabulary; pad columns at -1e30. With
+    ``tp``: ``x`` is this rank's block of the batch, and the logits are its
+    rows over the whole vocabulary (gathered over "model")."""
+    logits, vocab_split = _local_logits(frozen, x, cfg, tp)
+    if vocab_split:
+        logits = tp.mesh.gather(logits, "model", -1)
     return logits
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        tp: TensorParallel) -> torch.Tensor:
+    """Each token's -log p(label) from this rank's block of the
+    vocabulary: the log-sum-exp and the label's logit summed over "model"
+    (the max shift is taken over the whole vocabulary, no gradient)."""
+    logits = logits.to(torch.float32)
+    cols = logits.shape[-1]
+    shift = tp.mesh.pmax(logits.amax(-1), "model")
+    logz = shift + torch.log(tp.psum(
+        torch.exp(logits - shift[..., None]).sum(-1)))
+    local = labels.clamp(min=0).to(torch.long) - tp.index * cols
+    inside = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    return logz - tp.psum(torch.where(inside, gold, torch.zeros_like(gold)))
+
+
+def _mean_nll_tp(logits: torch.Tensor, vocab_split: bool,
+                 labels: torch.Tensor, tp: TensorParallel,
+                 ignore_id: int = -100) -> torch.Tensor:
+    """``softmax_cross_entropy`` of the whole batch from this rank's block
+    of it: the masked sums added over the data axes."""
+    if vocab_split:
+        nll = _vocab_parallel_nll(logits, labels, tp)
+    else:
+        logits = logits.to(torch.float32)
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, labels.clamp(min=0).to(torch.long)[..., None])[..., 0]
+    mask = (labels != ignore_id).to(torch.float32)
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    if tp.batch is not None:
+        total = tp.mesh.psum(total, tp.batch)
+        count = tp.mesh.psum(count, tp.batch)
+    return total / torch.clamp(count, min=1.0)
+
+
+def loss_from_hidden(frozen: Params, x: torch.Tensor, labels: torch.Tensor,
+                     aux: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The mean next-token cross-entropy of ``x`` against ``labels``, plus
+    ``aux``. On a tensor-parallel mesh ``x`` is this rank's block of the
+    batch (``forward_hidden``'s), ``labels`` the global labels, and the
+    loss is the whole batch's on every rank, counted once
+    (``LiveMesh.leave``): the head is split over the vocabulary and the
+    log-softmax with it."""
+    tp = tensor_parallel(labels.shape[0])
+    if tp is None:
+        return softmax_cross_entropy(logits_from_hidden(frozen, x, cfg),
+                                     labels) + aux
+    logits, vocab_split = _local_logits(frozen, x, cfg, tp)
+    loss = _mean_nll_tp(logits, vocab_split, _enter(labels, tp), tp) + aux
+    return tp.mesh.leave(loss, ())
 
 
 def forward_loss(frozen: Params, lora: Optional[Params], batch: Dict[str, Any],
@@ -210,8 +335,7 @@ def forward_loss(frozen: Params, lora: Optional[Params], batch: Dict[str, Any],
     inputs = batch["embeds"] if cfg.input_mode == "embeds" else batch["tokens"]
     x, aux = forward_hidden(frozen, lora, inputs, cfg, impl=impl, remat=remat,
                             use_lora_kernel=use_lora_kernel, unroll=unroll)
-    logits = logits_from_hidden(frozen, x, cfg)
-    return softmax_cross_entropy(logits, batch["labels"]) + aux
+    return loss_from_hidden(frozen, x, batch["labels"], aux, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +422,12 @@ def prefill(frozen: Params, lora: Optional[Params], inputs: torch.Tensor,
             cfg: ModelConfig, *, impl: str = "chunked"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward: returns (last-position logits, full hidden). LoRA
-    goes through the plain ``lora_dense`` path here, as in the reference."""
+    goes through the plain ``lora_dense`` path here, as in the reference.
+    On a tensor-parallel mesh the logits are the whole batch's over the
+    whole vocabulary on every rank, the hidden states this rank's block."""
     x, _ = forward_hidden(frozen, lora, inputs, cfg, impl=impl)
-    logits = logits_from_hidden(frozen, x[:, -1:], cfg)
-    return logits[:, 0], x
+    tp = tensor_parallel(inputs.shape[0])
+    logits = logits_from_hidden(frozen, x[:, -1:], cfg, tp)[:, 0]
+    if tp is not None:
+        logits = tp.mesh.leave(logits, tp.batch or ())
+    return logits, x

@@ -37,6 +37,7 @@ map (the adapter, ``out_adapter``, sits outside it and trains).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -322,22 +323,19 @@ def _local_moe_replicated(x_blk, router, wg, wu, wd, shared, *,
 # ---------------------------------------------------------------------------
 
 
-def moe_forward_dist(params: Params, lora: Optional[Params], x: torch.Tensor,
-                     cfg: ModelConfig, strategy: str
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Distributed MoE layer on the active ``LiveMesh``. ``x``: the global
-    ``(B, S, d)``, the same on every rank; returns the global output and
-    ``aux``, the same on every rank."""
+def _live_mesh(name: str) -> LiveMesh:
     mesh = shardctx.mesh()
     if not isinstance(mesh, LiveMesh):
-        raise ValueError("moe_forward_dist runs on this rank's LiveMesh "
+        raise ValueError(f"{name} runs on this rank's LiveMesh "
                          "(spawn_mesh, or a mesh over a live process group); "
                          f"the active mesh is {mesh!r}")
-    axes = batch_axes(strategy, x.shape[0])
-    if axes is None:
-        # weights replicated anyway: the one-card path is already correct
-        return moe_mod.moe_forward(params, lora, x, cfg)
+    return mesh
 
+
+def _layout(params: Params, cfg: ModelConfig, strategy: str, axes, mesh):
+    """The local function of ``strategy`` for a batch split over ``axes``,
+    the axes its ``aux`` is averaged over, and this rank's blocks of the
+    expert and shared-expert weights."""
     dp = shardctx.dp_axes()
     if strategy == "ep_a2a":
         local = _local_moe_ep if axes else _local_moe_ep_bcast
@@ -355,18 +353,79 @@ def moe_forward_dist(params: Params, lora: Optional[Params], x: torch.Tensor,
         shared = {name: _local(shared[name], shared_shapes[name],
                                shared_specs[name], mesh)
                   for name in ("w_gate", "w_up", "w_down")}
+    return local, local_axes, ws, shared
 
-    out, aux = local(mesh.enter(x, axes), params["router"], *ws, shared,
-                     cfg=cfg, dp_axes=local_axes, mesh=mesh)
-    out = mesh.leave(out, axes)
-    aux = mesh.leave(aux, ())
 
-    if lora is not None:  # shared-path adapter, outside the map
+def _out_adapter(out, lora, x, cfg):
+    """The shared-path adapter, outside the map."""
+    if lora is not None:
         la = lora["out_adapter"]
         adapt = torch.matmul(torch.matmul(x, la["a"].to(x.dtype)),
                              la["b"].to(x.dtype))
         out = out + cfg.lora.scale * adapt
-    return out, aux.to(ACC_DTYPE)
+    return out
+
+
+def moe_forward_dist(params: Params, lora: Optional[Params], x: torch.Tensor,
+                     cfg: ModelConfig, strategy: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed MoE layer on the active ``LiveMesh``. ``x``: the global
+    ``(B, S, d)``, the same on every rank; returns the global output and
+    ``aux``, the same on every rank."""
+    mesh = _live_mesh("moe_forward_dist")
+    axes = batch_axes(strategy, x.shape[0])
+    if axes is None:
+        # weights replicated anyway: the one-card path is already correct
+        return moe_mod.moe_forward(params, lora, x, cfg)
+    local, local_axes, ws, shared = _layout(params, cfg, strategy, axes, mesh)
+    out, aux = local(mesh.enter(x, axes), params["router"], *ws, shared,
+                     cfg=cfg, dp_axes=local_axes, mesh=mesh)
+    out = mesh.leave(out, axes)
+    aux = mesh.leave(aux, ())
+    return _out_adapter(out, lora, x, cfg), aux.to(ACC_DTYPE)
+
+
+def moe_forward_tp(params: Params, lora: Optional[Params], x: torch.Tensor,
+                   cfg: ModelConfig, strategy: str,
+                   batch: Optional[Tuple[str, ...]]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_forward_dist`` inside the tensor-parallel model, which split
+    the batch at its input by the same guard: ``x`` is this rank's block of
+    the batch over ``batch`` (the data axes, or None: the whole batch),
+    replicated over "model", and so is the output; ``aux`` is the same on
+    every rank. No ``enter``/``leave``: the model's own carry the
+    transposes, and each layout's collectives keep ``LiveMesh``'s rule for
+    the cotangents in between. Under ``replicated`` a batch the data and
+    model axes both divide is split over "model" too, and gathered back."""
+    mesh = _live_mesh("moe_forward_tp")
+    shared = params.get("shared")
+    # param_specs splits the shared expert by the dense MLP's rule (its
+    # "replicated" case comes after that rule and is never reached): under
+    # "replicated" it then runs as the dense MLP does, column- and
+    # row-parallel on this rank's tokens, beside the routed experts
+    tp_shared = (strategy == "replicated" and shared is not None
+                 and tuple(shared["w_gate"].shape)
+                 != _expert_shapes(cfg)[1]["w_gate"])
+    if tp_shared:
+        params = {k: v for k, v in params.items() if k != "shared"}
+    axes = batch_axes(strategy, x.shape[0] * mesh.axis_size(batch))
+    if axes is None:
+        out, aux = moe_mod.moe_forward(
+            params, None, x,
+            dataclasses.replace(cfg, n_shared_experts=0) if tp_shared
+            else cfg)
+    else:
+        local, local_axes, ws, blocks = _layout(params, cfg, strategy, axes,
+                                                mesh)
+        extra = tuple(a for a in axes if a not in (batch or ()))
+        out, aux = local(mesh.split(x, extra, 0), params["router"], *ws,
+                         blocks, cfg=cfg, dp_axes=local_axes, mesh=mesh)
+        out = mesh.gather(out, extra, 0)
+    if tp_shared:
+        xf = x.reshape(-1, x.shape[-1])
+        out = out + mesh.psum(_shared_ffn(xf, shared, x.dtype),
+                              _model_axes(mesh)).reshape(out.shape)
+    return _out_adapter(out, lora, x, cfg), aux.to(ACC_DTYPE)
 
 
 # ---------------------------------------------------------------------------

@@ -78,3 +78,71 @@ def run_cases(mesh, cases, inputs):
             res["grad_a"], res["grad_b"] = (g.numpy() for g in grads[1:])
         out[name] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel model steps (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def _capturing_optimizer(store):
+    """An optimizer whose update keeps the gradients it is handed and
+    changes nothing: ``make_train_step``'s gradients, reduced as the step
+    reduces them."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params):
+        store.append(grads)
+        return tree_map(torch.zeros_like, params), state
+    return Optimizer(init=lambda params: {}, update=update)
+
+
+def tp_step(mesh, cfg, params, batch, impl="chunked"):
+    """The prefill step's logits and one train step's loss and gradients on
+    this rank (``mesh``: a ``LiveMesh``), from the global ``params``
+    (numpy) cut to this rank's blocks; gradients as this rank's blocks."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.common import tree_map
+    full = from_numpy_tree(params, "cpu")
+    specs = shd.param_specs(cfg, full, mesh)
+    local = shd.shard_params(full, specs, mesh)
+    grads = []
+    step = make_train_step(cfg, _capturing_optimizer(grads), impl=impl)
+    prefill = make_prefill_step(cfg, impl=impl, device="cpu")
+    tokens = torch.as_tensor(batch["tokens"])
+    with shardctx.mesh_ctx(mesh):
+        logits = prefill(local["frozen"], local["lora"], tokens)
+        loss, _, _ = step(local["frozen"], local["lora"], {}, batch)
+    return {"coords": mesh.coords, "logits": logits.numpy(),
+            "loss": float(loss),
+            "grads": tree_map(lambda g: g.detach().numpy(), grads[0]),
+            "lora_specs": shd._map_with_specs(
+                lambda _leaf, spec: list(spec), local["lora"],
+                shd.lora_specs(cfg, local["lora"], mesh))}
+
+
+def tp_cases(mesh, jobs):
+    """For each (mesh shape, case name, cfg, params, batch) of ``jobs``,
+    that mesh over these ranks and ``tp_step`` on it."""
+    from repro_torch.launch.mesh import LiveMesh
+    out = {}
+    for shape, name, cfg, params, batch in jobs:
+        m = mesh if tuple(shape) == mesh.sizes else LiveMesh.build(
+            shape, ("data", "model"), mesh.device)
+        out[(tuple(shape), name)] = tp_step(m, cfg, params, batch)
+    return out
+
+
+def traced_counts(mesh, cfg, shape):
+    """``analyze_sharded_step`` of the dry run's step (``build_step``) on
+    this rank's real CPU blocks: FLOPs, HBM and peak bytes, collectives."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import analyze_sharded_step
+    step, args = dryrun.build_step(cfg, shape, device="cpu", mesh=mesh)
+    roof, coll, mem = analyze_sharded_step(step, *args, mesh=mesh)
+    return {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
+            "counts": coll.counts, "bytes_by_kind": coll.bytes_by_kind,
+            "peak_bytes": mem["peak_bytes"]}

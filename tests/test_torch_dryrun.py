@@ -304,3 +304,149 @@ def test_chunked_attention_memory_is_bounded_by_a_query_block():
         q, k, v, pos)
     block_scores = TA.BLOCK_Q * s * h * 4
     assert mem["temp_bytes"] < 8 * block_scores < s * s * h * 4
+
+
+# ---------------------------------------------------------------------------
+# The traced sharded records (16x16, 2x16x16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def reduced_combos(monkeypatch):
+    """``combo_config`` at the reduced size (or the config given)."""
+    def use(cfg_of=None):
+        orig = dryrun.combo_config
+        monkeypatch.setattr(dryrun, "combo_config",
+                            cfg_of or (lambda a, s: orig(a, s).reduced()))
+    return use
+
+
+@pytest.mark.parametrize("arch", dryrun.DRYRUN_ARCHS)
+@pytest.mark.parametrize("shape,mesh_id", [("train_4k", "16x16"),
+                                           ("prefill_32k", "2x16x16")])
+def test_traced_sharded_record_at_a_reduced_config(reduced_combos, arch,
+                                                   shape, mesh_id):
+    """One rank of the mesh traced on ``meta`` over a fake process group:
+    a roofline with its collective term, collectives of every layer, a
+    per-rank peak that holds the rank's arguments, the heads' layout, and
+    per-rank FLOPs x chips no less than one chip's; the group torn down."""
+    import torch.distributed as dist
+    reduced_combos()
+    rec = dryrun.lower_combo(arch, shape, mesh=mesh_id)
+    assert rec["ok"] and rec["traced"] is True, rec.get("error")
+    assert rec["chips"] == int(np.prod(dryrun.MESHES[mesh_id][0]))
+    r, coll = rec["roofline"], rec["collectives"]
+    assert r["collective_bytes"] == coll["total_bytes"] > 0
+    assert r["collective_s"] > 0 and r["compute_s"] > 0
+    assert sum(coll["counts"].values()) > 0
+    assert sum(coll["bytes_by_kind"].values()) == coll["total_bytes"]
+    assert set(coll["counts"]) <= set(dryrun_analysis().COLLECTIVE_KINDS)
+    mem = rec["memory"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    assert rec["fits"] == (mem["peak_bytes"] <= 80e9)
+    assert ("heads" in rec) == (arch != "mamba2-370m")
+    assert rec["flops_x_chips_over_one_chip"] >= 1 - 1e-9
+    assert dryrun.summary_line(rec).startswith(
+        f"[OK]   {arch} x {shape} x {mesh_id}: {rec['chips']} chips, traced")
+    assert not dist.is_initialized()
+
+
+def dryrun_analysis():
+    from repro_torch.launch import analysis
+    return analysis
+
+
+def test_decode_on_a_mesh_says_why_it_is_not_traced():
+    for shape in ("decode_32k", "long_500k"):
+        rec = dryrun.lower_combo("qwen3-0.6b", shape, mesh="16x16")
+        assert rec["traced"] is False and rec["roofline"] is None
+        assert "sequence-sharded" in rec["why"]
+
+
+# narrow dense configs whose heads split (every layout "split"), whose kv
+# split cuts a head (qwen3-4b at model = 16), and whose query heads do not
+# split (qwen2-7b: 28 heads)
+CLOSED_FORM = {
+    "split": dict(d_model=256, n_heads=32, n_kv_heads=16, head_dim=16,
+                  d_ff=512),
+    "kv_cut": dict(d_model=256, n_heads=32, n_kv_heads=8, head_dim=16,
+                   d_ff=512),
+    "q_gathered": dict(d_model=256, n_heads=28, n_kv_heads=4, head_dim=16,
+                       d_ff=512),
+}
+
+
+@pytest.mark.parametrize("layout", CLOSED_FORM)
+@pytest.mark.parametrize("mesh_id", ["16x16", "2x16x16"])
+def test_per_layer_collective_bytes_are_the_closed_form(reduced_combos,
+                                                        layout, mesh_id):
+    """A dense layer's collectives, per rank: the two row-parallel
+    all-reduces (``wo``, ``w_down``) of the rank's ``(B / dp, S, d)``, and
+    the all-gather of each projection whose split the heads do not take
+    (``tp_layout``), its whole ``(B / dp, S, cols)``. A train step runs
+    each of them in the forward, in its recomputation and in the backward
+    (a psum's is a psum, a gather's an all-reduce of its result), except
+    ``w_down``'s all-reduce in the recomputation: the non-reentrant
+    checkpoint stops recomputing after the last op whose saved tensors the
+    backward reads. It adds the layer's adapter gradients, summed over the
+    axes that replicate them."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models import attention as TAttn
+
+    def cfg_of(arch, shape):
+        return dataclasses.replace(get_config("qwen3-4b").reduced(),
+                                   **CLOSED_FORM[layout])
+    reduced_combos(cfg_of)
+    cfg = cfg_of(None, None)
+    mesh = make_abstract_mesh(*dryrun.MESHES[mesh_id])
+    dp = mesh.size // mesh.shape["model"]
+    lay = TAttn.tp_layout(cfg, 16)
+    assert {"split": ("split", "split"), "kv_cut": ("split", "gathered"),
+            "q_gathered": ("gathered", "gathered")}[layout] == (lay["q"],
+                                                               lay["kv"])
+    gathered = (cfg.q_dim if lay["q"] == "gathered" else 0) \
+        + (2 * cfg.kv_dim if lay["kv"] == "gathered" else 0)
+    for shape_name in ("prefill_32k", "train_4k"):
+        shape = INPUT_SHAPES[shape_name]
+        tokens = shape.global_batch // dp * shape.seq_len
+        per_layer = 4 * tokens * (2 * cfg.d_model + gathered)     # f32
+        rec = dryrun.lower_combo("qwen3-4b", shape_name, mesh=mesh_id)
+        if shape.kind == "train":
+            lora = TM.init_params(0, dataclasses.replace(cfg, n_layers=1),
+                                  device="meta")["lora"]
+            specs = shd.lora_specs(cfg, lora, mesh)
+            per_layer = 4 * tokens * (5 * cfg.d_model + 3 * gathered) \
+                + shd.bytes_per_chip(lora, specs, mesh)
+        assert rec["collectives"]["per_layer_bytes"] == per_layer, shape_name
+
+
+FAKE_VS_LIVE = {"prefill": dryrun.InputShape("p", 64, 8, "prefill"),
+                "train": dryrun.InputShape("t", 32, 8, "train")}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
+def test_fake_group_trace_equals_a_live_gloo_run(arch, tmp_path):
+    """The (2, 4) step traced on ``meta`` as rank 0 of a fake process group
+    of 8 counts what rank 0 of 8 live ``gloo`` ranks counts running it on
+    real CPU tensors: FLOPs, HBM bytes, peak bytes, collectives by kind."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_shard_ranks as ranks_mod
+    from repro_torch.launch.analysis import analyze_sharded_step
+    from repro_torch.launch.mesh import spawn_mesh
+    cfg = get_config(arch).reduced()
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    for kind, shape in FAKE_VS_LIVE.items():
+        with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
+            step, args = dryrun.build_step(cfg, shape, mesh=mesh)
+            roof, coll, mem = analyze_sharded_step(step, *args, mesh=mesh)
+        live = spawn_mesh(ranks_mod.traced_counts, (2, 4), ("data", "model"),
+                          device="cpu", args=(cfg, shape),
+                          rendezvous=str(tmp_path), timeout_s=300)[0]
+        assert roof.flops == live["flops"] > 0, kind
+        assert roof.hbm_bytes == live["hbm_bytes"], kind
+        assert mem["peak_bytes"] == live["peak_bytes"], kind
+        assert coll.counts == live["counts"], kind
+        assert coll.bytes_by_kind == live["bytes_by_kind"], kind
+        assert sum(coll.counts.values()) > 0

@@ -80,6 +80,74 @@ def test_the_port_has_every_module_of_the_reference_package():
     assert modules(ref_root) - modules(PKG_DIR) == {"kernels/ref.py"}
 
 
+def _public_names(path):
+    """Top-level names a module defines (functions, classes, assigned
+    names), the ones not starting with ``_``."""
+    import ast
+    out = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) \
+                and isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+    return {n for n in out if not n.startswith("_")}
+
+
+#: reference names the port has under another name: (module, name) -> its
+#: counterpart there
+PUBLIC_RENAMED = {
+    ("launch/analysis.py", "parse_collectives"): "StepCounter",
+    ("launch/analysis.py", "analyze_compiled"): "analyze_sharded_step",
+}
+#: reference names never to be ported, and why
+PUBLIC_BY_DESIGN = {
+    ("launch/sharding.py", "to_named"): "JAX NamedShardings; the port reads "
+                                        "a spec with shard_shape/local_shard",
+    ("launch/sharding.py", "attach"): "JAX ShapeDtypeStructs with a "
+                                      "sharding; the dry run traces meta "
+                                      "blocks",
+    ("core/hardware.py", "TPU_V5E_CHIP"): "a TPU's constants",
+    ("core/hardware.py", "TPU_V5E_HBM_BW"): "a TPU's constants",
+    ("core/hardware.py", "TPU_V5E_ICI_BW"): "a TPU's constants",
+    ("core/hardware.py", "TPU_V5E_PEAK_BF16"): "a TPU's constants",
+    ("core/hardware.py", "tpu_pod_profile"): "a TPU pod's profile",
+    ("core/measured_cost.py", "default_probe_backend"): "Pallas on a TPU; "
+                                                        "the port probes "
+                                                        "its CUDA kernels",
+    ("launch/mesh.py", "fleet_shard_map"): "FleetMesh and the scheduler's "
+                                           "chunk loop",
+}
+
+
+def test_every_public_name_of_the_reference_has_a_counterpart():
+    """Each module's public names in the reference are the port's, but for
+    the names ported under another name (which the port must define) and
+    those not to be ported, each with its reason."""
+    ref_root = os.path.join(ROOT, "src", "repro")
+    missing, seen = [], set()
+    for base, _, files in os.walk(ref_root):
+        for f in files:
+            rel = os.path.relpath(os.path.join(base, f), ref_root)
+            port = os.path.join(PKG_DIR, rel)
+            if not f.endswith(".py") or rel == "kernels/ref.py":
+                continue
+            mine = _public_names(port)
+            for name in sorted(_public_names(os.path.join(base, f)) - mine):
+                key = (rel, name)
+                seen.add(key)
+                if key in PUBLIC_RENAMED:
+                    assert PUBLIC_RENAMED[key] in mine, key
+                elif key not in PUBLIC_BY_DESIGN:
+                    missing.append(key)
+    assert not missing, missing
+    # every entry of the two lists is still a difference
+    assert seen == set(PUBLIC_RENAMED) | set(PUBLIC_BY_DESIGN)
+
+
 def test_sources_name_neither_jax_nor_reference_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = [os.path.join(ROOT, "chip_smoke.py")]

@@ -330,8 +330,17 @@ def test_lower_combo_on_the_production_meshes(arch, shape_name, mesh_id):
     got = rec["memory"]["argument_bytes_per_chip_by_argument"]
     assert got == want
     assert rec["memory"]["argument_bytes_per_chip"] == sum(want.values())
-    assert rec["fits"] == (sum(want.values()) <= H100_HBM_BYTES)
+    if INPUT_SHAPES[shape_name].kind not in dryrun.TRACED_KINDS:
+        assert rec["fits"] == (sum(want.values()) <= H100_HBM_BYTES)
     assert rec["chips"] == int(np.prod(MESHES[mesh_id][0]))
-    assert rec["traced"] is False and rec["roofline"] is None and rec["ok"]
+    assert rec["ok"]
+    # train and prefill are traced on one rank of a fake process group
+    # (tests/test_torch_dryrun.py holds those records); decode is not
+    if INPUT_SHAPES[shape_name].kind in dryrun.TRACED_KINDS:
+        assert rec["traced"] is True and rec["roofline"]["collective_s"] > 0
+        assert rec["fits"] == (rec["memory"]["peak_bytes"] <= H100_HBM_BYTES)
+    else:
+        assert rec["traced"] is False and rec["roofline"] is None
+        assert "sequence-sharded" in rec["why"]
     assert dryrun.summary_line(rec).startswith(
         f"[OK]   {arch} x {shape_name} x {mesh_id}:")
