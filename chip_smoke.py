@@ -151,9 +151,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            on each rank's heads, a rank's weight and peak bytes, one f32
            train step of 8 layers on (1, 4), the (2, 4) chunked step traced
            on ``meta`` over a fake process group equal to a live rank's
-           FLOPs and collectives; granite-moe-3b-a800m's flash prefill on
-           (4, 2), (8, 1) and (3, 2) through ``moe_forward_tp``; one
-           kimi-k2 MoE layer at full width on (8, 1)
+           FLOPs and collectives; then on the same ranks the decode step
+           on each rank's block of one card's cache (``cache_specs``: KV
+           slots over "model"), filled once by ``prefill_chunk``: 16
+           greedy steps through ``lora_matmul_grouped`` with per-row
+           adapters, f32 on (1, 4) and bf16 on (2, 4), and the sliding-
+           window ring over the ranks on (1, 4), against one card; the
+           (2, 4) ``make_serve_step`` traced on ``meta`` against a live
+           rank; granite-moe-3b-a800m's flash prefill on (4, 2), (8, 1)
+           and (3, 2) through ``moe_forward_tp``; one kimi-k2 MoE layer at
+           full width on (8, 1)
 
 It imports ``repro_torch`` only (never JAX), needs no network, and prints
 one JSON object per line (and, in the bench phase, the serving twin's CSV
@@ -449,11 +456,12 @@ def bound_3xtf32(bytes_moved: float, flops: float):
     return {"bound_3xtf32_ms": seconds * 1e3, "bound_3xtf32_by": by}
 
 
-def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0, strided=False):
+def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0, strided=False,
+                 simt=True):
     """One row of timings: the version the wrapper picks, the SIMT kernel
-    (x, then W one element off 16-byte alignment), the plain version,
-    ``baddbmm`` and the bound; ``strided`` banks lie as in
-    ``AdapterBank.gather``'s in-place view."""
+    (x, then W one element off 16-byte alignment; ``simt=False`` leaves it
+    out), the plain version, ``baddbmm`` and the bound; ``strided`` banks
+    lie as in ``AdapterBank.gather``'s in-place view."""
     from repro_torch.kernels import lora_matmul as lm
     es = torch.finfo(dtype).bits // 8
     copies = n_copies(k * n * es)
@@ -475,22 +483,23 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0, strided=False):
     calls = [lambda w=w: lm.lora_matmul_grouped(x, w, a, b, ids, scale)
              for w in ws]
     ms = time_ms(calls)
-    # The same work through the SIMT kernel: with x one element off 16-byte
-    # alignment its 16-byte-load variant (the main path's kernel before the
-    # tensor-core version), with W one element off its first variant.
-    xm = misaligned(x)
-    _, simt = run_version(lm.lora_matmul_grouped,
-                          lambda: lm.lora_matmul_grouped(xm, ws[0], a, b, ids,
-                                                         scale))
-    assert simt == "simt", simt
-    simt_ms = time_ms([lambda w=w: lm.lora_matmul_grouped(xm, w, a, b, ids,
-                                                          scale)
-                       for w in ws])
-    offs = [misaligned(w) for w in ws]
-    first_ms = time_ms([lambda w=w: lm.lora_matmul_grouped(x, w, a, b, ids,
-                                                           scale)
-                        for w in offs])
-    del offs
+    simt_ms = first_ms = None
+    if simt:
+        # The same work through the SIMT kernel: with x one element off
+        # 16-byte alignment its 16-byte-load variant (the main path's kernel
+        # before the tensor-core version), with W one element off its first
+        # variant.
+        xm = misaligned(x)
+        _, version = run_version(
+            lm.lora_matmul_grouped,
+            lambda: lm.lora_matmul_grouped(xm, ws[0], a, b, ids, scale))
+        assert version == "simt", version
+        simt_ms = time_ms([lambda w=w: lm.lora_matmul_grouped(
+            xm, w, a, b, ids, scale) for w in ws])
+        offs = [misaligned(w) for w in ws]
+        first_ms = time_ms([lambda w=w: lm.lora_matmul_grouped(
+            x, w, a, b, ids, scale) for w in offs])
+        del offs
     plain = time_ms([lambda w=w: lm.lora_matmul_grouped_ref(x, w, a, b, ids,
                                                             scale)
                      for w in ws], reps=5)
@@ -3610,6 +3619,27 @@ QWEN_BF16_MESH = (2, 4)
 QWEN_TRAIN_LAYERS = 8
 QWEN_TRAIN_TOKENS = (2, 512)
 QWEN_TRAIN_TOL = 1e-4      # loss and each LoRA gradient leaf, relative
+# the decode on the meshes: one card's bf16 cache of QWEN_DECODE_SLOTS
+# slots filled once by prefill_chunk over a prompt of QWEN_PROMPT tokens on
+# QWEN_DECODE_ROWS rows (chunks of QWEN_PREFILL_CHUNK), then
+# QWEN_DECODE_STEPS decode steps with per-row adapters (QWEN_BANKS
+# distinct ones, row i taking adapter i % QWEN_BANKS)
+QWEN_DECODE_ROWS = 8
+QWEN_PROMPT = 1024
+QWEN_DECODE_SLOTS = 2048
+QWEN_PREFILL_CHUNK = 256
+QWEN_DECODE_STEPS = 16
+QWEN_BANKS = 4
+# the ring: a window of 512 slots on the first 8 layers, a prompt of 1148
+# tokens, and QWEN_RING_STEPS steps: the decode writes slots 124..131,
+# across the first two ranks' blocks of 128 on (1, 4)
+QWEN_RING = {"window": 512, "layers": 8, "prompt": 1148}
+QWEN_RING_STEPS = 8
+QWEN_DECODE_TOL = 1e-4     # f32, x max|want| of the step
+# the grouped kernel's shapes on a (2, 4) rank: (K, N) of wq, wk and wv,
+# w_gate and w_up, wo, w_down at G = 4 rows of a bank of 4
+QWEN_RANK_KN = ((2560, 1024), (2560, 256), (2560, 2432), (1024, 2560),
+                (2432, 2560))
 
 
 def _digest(t) -> str:
@@ -3856,8 +3886,152 @@ def qwen_mesh_run(mesh, job):
                         "specs": shd._map_with_specs(
                             lambda _g, spec: list(spec), tlo,
                             shd.lora_specs(tcfg, tlo, mesh))}
+    if job.get("decode"):
+        t0 = time.time()
+        out["decode"] = qwen_mesh_decode(mesh, cfg, frozen, lora, job)
+        out["decode"]["seconds"] = time.time() - t0
     out["seconds"] = time.time() - t_start
     return out
+
+
+def qwen_banks(cfg, seed: int, device):
+    """``QWEN_BANKS`` adapters (``make_adapter``: seeded non-zero B) over
+    ``QWEN_DECODE_ROWS`` rows, row i taking adapter i % ``QWEN_BANKS``: the
+    per-row tree ``decode_step`` takes (leaves ``(L, B, ...)``), as
+    ``AdapterBank.gather`` makes it for the engine."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank
+    bank = AdapterBank([make_adapter(cfg, seed + 20 + i, device)
+                        for i in range(QWEN_BANKS)])
+    ids = torch.arange(QWEN_DECODE_ROWS, device=device) % QWEN_BANKS
+    return tree_map(lambda v: v.contiguous(),
+                    AdapterBank.gather(bank.stacked, ids))
+
+
+def qwen_prompt_cache(cfg, frozen, lora, seed: int, dev, prompt: int):
+    """One card's decode cache (``QWEN_DECODE_SLOTS`` slots, or a ring of
+    the config's window) after ``prefill_chunk`` over a seeded prompt of
+    ``prompt`` tokens on ``QWEN_DECODE_ROWS`` rows, and the argmax of its
+    last logits: the token the decode reads first."""
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, QWEN_DECODE_ROWS, QWEN_DECODE_SLOTS,
+                         device=dev)
+    toks = _shard_inputs(seed + 7, QWEN_DECODE_ROWS, prompt, cfg.vocab_size)
+    with torch.no_grad():
+        for c0 in range(0, prompt, QWEN_PREFILL_CHUNK):
+            logits, cache = M.prefill_chunk(
+                frozen, lora, cache, toks[:, c0:c0 + QWEN_PREFILL_CHUNK], c0,
+                cfg)
+    return cache, logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+
+
+def qwen_decode(mesh, cfg, frozen, banks, cache, first, t0: int,
+                steps: int, feed=None):
+    """``steps`` steps of ``decode_step(use_lora_kernel=True)``
+    (the engine's route: ``lora_matmul_grouped`` on the per-row banks) on
+    ``mesh`` (None: one card) from ``first`` at position ``t0``: greedy (the
+    argmax of a step's logits over the real vocabulary is the next step's
+    token), or fed the tokens ``feed`` (one (B, 1) a step). The launch
+    counts set to 0 just before the steps and read just after; each step's
+    wall seconds (to a synchronize) and CUDA-event milliseconds."""
+    from repro_torch import kernels, shardctx
+    from repro_torch.models import model as M
+    ctx = shardctx.mesh_ctx(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    tok = first.to(frozen["final_norm"].device)
+    logits_all, tokens, wall, device_ms = [], [], [], []
+    with ctx, torch.no_grad():
+        kernels.reset_launch_counts()
+        for s in range(steps):
+            if feed is not None:
+                tok = feed[s].to(tok.device)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            t_0 = time.time()
+            start.record()
+            logits, cache = M.decode_step(frozen, banks, cache, tok, t0 + s,
+                                          cfg, use_lora_kernel=True)
+            end.record()
+            torch.cuda.synchronize()
+            wall.append(time.time() - t_0)
+            device_ms.append(start.elapsed_time(end))
+            logits = logits[:, :cfg.vocab_size].float()
+            tok = logits.argmax(-1, keepdim=True)
+            logits_all.append(logits)
+            tokens.append(tok)
+        counts = kernels.launch_counts()
+        runs = kernels.runs_on_card()
+        versions = kernels.version_counts()
+    return {"logits": torch.stack(logits_all), "tokens": torch.stack(tokens),
+            "steps": steps, "wall_s": wall, "device_ms": device_ms, "launches": counts,
+            "runs_on_card": runs, "launches_by_version": versions}
+
+
+def _cache_block(path, cfg, mesh, dtype):
+    """This rank's block of the cache in ``path`` under ``cache_specs``
+    (read through ``torch.load(mmap=True)``: the rank never holds the
+    whole cache), on its card in ``dtype``."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.common import tree_map
+    whole = torch.load(path, map_location="cpu", mmap=True,
+                       weights_only=True)
+    specs = shd.cache_specs(cfg, whole, mesh, QWEN_DECODE_ROWS)
+    return tree_map(lambda v, spec: shd.local_shard(v, spec, mesh).to(
+        mesh.device, dtype), whole, specs)
+
+
+def qwen_mesh_decode(mesh, cfg, frozen, lora, job):
+    """One rank's decode runs (``qwen_decode``) on its blocks: of the
+    weights, of the per-row banks (``lora_specs``) and of one card's cache
+    (``_cache_block``); the ring on the first layers where ``job`` asks;
+    and where it asks, ``make_serve_step`` under ``analyze_sharded_step``
+    (FLOPs, bytes, collectives of the naive decode on the 2-D adapter).
+    Rank 0 returns the logits, every rank their digest."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.analysis import analyze_sharded_step
+    from repro_torch.launch.serve import make_serve_step
+    dec = job["decode"]
+    dtype = torch.float32 if job["dtype"] == "float32" else torch.bfloat16
+    banks = qwen_banks(cfg, job["seed"], mesh.device)
+    banks = shd.shard_params(banks, shd.lora_specs(cfg, banks, mesh), mesh)
+    runs = {}
+    plans = [("decode", cfg, frozen, banks, dec["cache_path"], dec["first"],
+              QWEN_PROMPT, dec.get("feed"), QWEN_DECODE_STEPS)]
+    if dec.get("ring"):
+        rcfg, rfz, rbanks = first_layers(
+            dataclasses.replace(cfg, sliding_window=QWEN_RING["window"]),
+            frozen, banks, QWEN_RING["layers"])
+        plans.append(("ring", rcfg, rfz, rbanks, dec["ring_path"],
+                      dec["ring_first"], QWEN_RING["prompt"], None,
+                      QWEN_RING_STEPS))
+    for name, rcfg, rfz, rbanks, path, first, t0, feed, steps in plans:
+        cache = _cache_block(path, rcfg, mesh, dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = qwen_decode(mesh, rcfg, rfz, rbanks, cache, first, t0, steps,
+                          feed)
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        run["cache_bytes"] = sum(v.numel() * v.element_size()
+                                 for v in _leaves(cache))
+        run["logits_digest"] = _digest(run["logits"])
+        run["tokens"] = run["tokens"].cpu()
+        if mesh.rank:
+            del run["logits"]
+        runs[name] = run
+        if name == "decode" and job.get("counted"):
+            step = make_serve_step(cfg, device=mesh.device)
+            roof, coll, mem = analyze_sharded_step(
+                step, frozen, lora, cache, first.to(mesh.device),
+                t0 + QWEN_DECODE_STEPS, mesh=mesh)
+            runs["counted"] = {"flops": roof.flops,
+                               "hbm_bytes": roof.hbm_bytes,
+                               "counts": coll.counts,
+                               "bytes_by_kind": coll.bytes_by_kind,
+                               "peak_bytes": mem["peak_bytes"]}
+        del cache
+        torch.cuda.empty_cache()
+    return runs
 
 
 def shard_mesh_run(mesh, job):
@@ -3973,6 +4147,8 @@ def qwen_one_card(seed: int, directory: str, dev):
     out["bf16"] = shard_prefill(None, cfg, frozen, lora, toks)
     out["bf16"]["peak_bytes"] = torch.cuda.max_memory_allocated()
     frozen32 = tree_map(lambda v: v.float(), frozen)
+    out["decode"] = qwen_decode_refs(cfg, frozen, frozen32, lora, seed,
+                                     directory, dev)
     del frozen
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -3987,6 +4163,56 @@ def qwen_one_card(seed: int, directory: str, dev):
                                         _qwen_batch(seed, cfg))
     out["train"] = {"loss": loss.item(), "grads": grads, "seconds": secs}
     del frozen32, lora, tfz, tlo
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_decode_refs(cfg, frozen, frozen32, lora, seed: int,
+                     directory: str, dev):
+    """One card's decode: the bf16 cache filled once by ``prefill_chunk``
+    (``qwen_prompt_cache``) and written beside the weights' file for the
+    ranks, likewise the ring's on the first layers; then ``qwen_decode``
+    on one card: greedy in f32 (the weights and the cache upcast), bf16 fed
+    the f32 run's tokens, and the f32 ring greedy."""
+    from repro_torch.models.common import tree_map
+    t0 = time.time()
+    cache, first = qwen_prompt_cache(cfg, frozen, lora, seed, dev,
+                                     QWEN_PROMPT)
+    rcfg, rfz, rlo = first_layers(
+        dataclasses.replace(cfg, sliding_window=QWEN_RING["window"]),
+        frozen, lora, QWEN_RING["layers"])
+    ring, ring_first = qwen_prompt_cache(rcfg, rfz, rlo, seed, dev,
+                                         QWEN_RING["prompt"])
+    torch.cuda.synchronize()
+    out = {"fill_s": time.time() - t0, "first": first.cpu(),
+           "ring_first": ring_first.cpu(),
+           "cache_path": os.path.join(directory, "qwen3-4b-cache.pt"),
+           "ring_path": os.path.join(directory, "qwen3-4b-ring.pt"),
+           "cache_bytes": {k: sum(v.numel() * (
+                               v.element_size() if v.dtype == torch.int8
+                               else size) for v in _leaves(cache))
+                           for k, size in (("bf16", 2), ("f32", 4))}}
+    t0 = time.time()
+    for path, c in ((out["cache_path"], cache), (out["ring_path"], ring)):
+        torch.save(tree_map(lambda v: v.cpu(), c), path)
+    out["save_s"] = time.time() - t0
+    banks = qwen_banks(cfg, seed, dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out["f32"] = qwen_decode(None, cfg32, frozen32, banks,
+                             tree_map(lambda v: v.float(), cache), first,
+                             QWEN_PROMPT, QWEN_DECODE_STEPS)
+    feed = [first.to(dev)] + list(out["f32"]["tokens"][:-1])
+    out["feed"] = [t.cpu() for t in feed]
+    out["bf16"] = qwen_decode(None, cfg, frozen, banks, cache, first,
+                              QWEN_PROMPT, QWEN_DECODE_STEPS, feed)
+    rcfg32, rfz32, rbanks = first_layers(
+        dataclasses.replace(cfg32, sliding_window=QWEN_RING["window"]),
+        frozen32, banks, QWEN_RING["layers"])
+    out["ring"] = qwen_decode(None, rcfg32, rfz32, rbanks,
+                              tree_map(lambda v: v.float(), ring),
+                              ring_first, QWEN_RING["prompt"],
+                              QWEN_RING_STEPS)
+    del cache, ring, banks
     torch.cuda.empty_cache()
     return out
 
@@ -4163,6 +4389,165 @@ def qwen_report(ref, results, seed: int, gpu: str):
     return report
 
 
+def _add_counts(totals, run):
+    for acc, key in zip(totals, ("launches", "runs_on_card")):
+        for kname, n in run[key].items():
+            acc[kname] = acc.get(kname, 0) + n
+    for kname, by in run["launches_by_version"].items():
+        acc = totals[2].setdefault(kname, {})
+        for ver, n in by.items():
+            acc[ver] = acc.get(ver, 0) + n
+
+
+def qwen_decode_report(ref, results, gpu: str):
+    """The decode on the qwen3-4b meshes against one card: f32 on (1, 4)
+    and its ring within ``QWEN_DECODE_TOL`` x max|want| of each step (the
+    real vocabulary) with the greedy tokens of one card; bf16 on (2, 4),
+    fed one card's f32 tokens, within 2x one card's bf16-vs-f32 gap +
+    0.05; every rank's logits equal bit for bit; each rank's
+    ``lora_matmul_grouped`` launches (7 projections a layer a step) by
+    version; a rank's cache bytes beside one card's; seconds a step (wall,
+    CUDA events) beside one card's; the (2, 4) ``make_serve_step`` traced
+    on ``meta`` over a fake group of 8: FLOPs and collectives equal to live
+    rank 0's, its peak within 10 %. Returns the report (with the ranks'
+    summed launch counts) after asserting it."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import analyze_sharded_step
+    dref = ref["decode"]
+    cfg = ref["cfg"]
+
+    def err(got, want):
+        """Worst error of a step over the steps, each over its max|want|."""
+        got = got.to(want.device)
+        return max(((g - w).abs().max() / w.abs().max()).item()
+                   for g, w in zip(got, want))
+
+    def per_step(run):
+        return {"wall_s": sum(run["wall_s"]) / len(run["wall_s"]),
+                "device_ms": sum(run["device_ms"]) / len(run["device_ms"])}
+
+    gap = max((g - w).abs().max().item()
+              for g, w in zip(dref["bf16"]["logits"], dref["f32"]["logits"]))
+    report = {"gpu": gpu, "arch": QWEN_ARCH, "rows": QWEN_DECODE_ROWS,
+              "prompt": QWEN_PROMPT, "slots": QWEN_DECODE_SLOTS,
+              "steps": QWEN_DECODE_STEPS, "banks": QWEN_BANKS,
+              "ring": QWEN_RING, "ring_steps": QWEN_RING_STEPS,
+              "fill_s": dref["fill_s"],
+              "save_s": dref["save_s"],
+              "one_card": {k: {**per_step(dref[k]),
+                               "launches_by_version": dref[k][
+                                   "launches_by_version"][
+                                   "lora_matmul_grouped"]}
+                           for k in ("f32", "bf16", "ring")},
+              "one_card_cache_bytes": dref["cache_bytes"],
+              "one_card_bf16_vs_f32": gap, "runs": {}}
+    totals = ({}, {}, {})
+    layers = {"decode": cfg.n_layers, "ring": QWEN_RING["layers"]}
+    for shape, ranks in results.items():
+        kind = "f32" if shape == QWEN_F32_MESH else "bf16"
+        for name in ranks[0]["decode"]:
+            if name in ("counted", "seconds"):
+                continue
+            runs = [r["decode"][name] for r in ranks]
+            assert len({r["logits_digest"] for r in runs}) == 1, (shape,
+                                                                  name)
+            ref_run = dref["ring" if name == "ring" else kind]
+            entry = {"mesh": list(shape), "dtype": kind,
+                     "world": len(ranks),
+                     "wall_s": max(sum(r["wall_s"]) / len(r["wall_s"])
+                                   for r in runs),
+                     "device_ms": max(sum(r["device_ms"])
+                                      / len(r["device_ms"]) for r in runs),
+                     "one_card": per_step(ref_run),
+                     "grouped_by_rank": [r["launches"]["lora_matmul_grouped"]
+                                         for r in runs],
+                     "grouped_by_version": runs[0]["launches_by_version"][
+                         "lora_matmul_grouped"],
+                     "flash_attention_by_rank": [
+                         r["launches"]["flash_attention"] for r in runs],
+                     "cache_bytes_by_rank": [r["cache_bytes"] for r in runs],
+                     "peak_bytes_by_rank": [r["peak_bytes"] for r in runs],
+                     "layers": layers[name], "steps": runs[0]["steps"]}
+            whole = dref["cache_bytes"]["f32" if kind == "f32" else "bf16"]
+            if name == "ring":
+                whole = whole * QWEN_RING["layers"] * QWEN_RING["window"] \
+                    // (cfg.n_layers * QWEN_DECODE_SLOTS)
+            entry["cache_share_of_one_card"] = max(
+                entry["cache_bytes_by_rank"]) / whole
+            logits = runs[0]["logits"]
+            entry["finite"] = bool(torch.isfinite(logits).all())
+            tokens_equal = torch.equal(runs[0]["tokens"],
+                                       ref_run["tokens"].cpu())
+            if kind == "f32":
+                entry["err"] = err(logits, ref_run["logits"])
+                entry["tol"] = QWEN_DECODE_TOL
+                entry["greedy_tokens_equal"] = tokens_equal
+            else:
+                want = dref["f32"]["logits"]
+                entry["bf16_vs_f32"] = max(
+                    (g.to(w.device) - w).abs().max().item()
+                    for g, w in zip(logits, want))
+                entry["bf16_cap"] = 2.0 * gap + 0.05
+                entry["argmax_equal_f32_tokens"] = torch.equal(
+                    runs[0]["tokens"], dref["f32"]["tokens"].cpu())
+            for run in runs:
+                _add_counts(totals, run)
+            report["runs"][f"{name} {shape[0]}x{shape[1]}"] = entry
+        if "counted" in ranks[0]["decode"]:
+            live = ranks[0]["decode"]["counted"]
+            t0 = time.time()
+            shape_in = InputShape("shard_decode", QWEN_DECODE_SLOTS,
+                                  QWEN_DECODE_ROWS, "decode")
+            with dryrun.fake_mesh(shape, SHARD_AXES) as mesh:
+                step, args = dryrun.build_step(cfg, shape_in, mesh=mesh)
+                roof, coll, mem = analyze_sharded_step(step, *args, mesh=mesh)
+                del step, args
+            report["meta_trace"] = {
+                "mesh": list(shape), "seconds": time.time() - t0,
+                "flops": roof.flops, "live_flops": live["flops"],
+                "hbm_bytes": roof.hbm_bytes,
+                "live_hbm_bytes": live["hbm_bytes"],
+                "peak_bytes": mem["peak_bytes"],
+                "live_peak_bytes": live["peak_bytes"],
+                "counts": coll.counts, "live_counts": live["counts"],
+                "bytes_by_kind": coll.bytes_by_kind,
+                "live_bytes_by_kind": live["bytes_by_kind"]}
+    report["launches"], report["runs_on_card"] = totals[0], totals[1]
+    report["launches_by_version"] = totals[2]
+    emit({"phase": "shard_qwen3_4b_decode",
+          **{k: v for k, v in report.items()
+             if not k.startswith("launches") and k != "runs_on_card"}})
+    projections = 7
+    assert len(report["runs"]) == 3, report["runs"].keys()
+    for name, entry in report["runs"].items():
+        assert entry["finite"], (name, entry)
+        per_rank = projections * entry["layers"] * entry["steps"]
+        assert entry["grouped_by_rank"] == [per_rank] * entry["world"], \
+            (name, entry)
+        version = "tf32x3" if entry["dtype"] == "f32" else "wgmma"
+        assert entry["grouped_by_version"][version] == per_rank, (name, entry)
+        assert entry["flash_attention_by_rank"] == [0] * entry["world"]
+        if entry["dtype"] == "f32":
+            assert entry["greedy_tokens_equal"], (name, entry)
+            assert entry["err"] <= entry["tol"], (name, entry)
+        else:
+            assert entry["bf16_vs_f32"] <= entry["bf16_cap"], (name, entry)
+    for kind in ("f32", "bf16", "ring"):
+        n = projections * dref[kind]["steps"] * (
+            QWEN_RING["layers"] if kind == "ring" else cfg.n_layers)
+        version = "wgmma" if kind == "bf16" else "tf32x3"
+        assert report["one_card"][kind]["launches_by_version"][version] \
+            == n, (kind, report["one_card"])
+    mt = report["meta_trace"]
+    assert mt["flops"] == mt["live_flops"] > 0, mt
+    assert mt["counts"] == mt["live_counts"], mt
+    assert mt["bytes_by_kind"] == mt["live_bytes_by_kind"], mt
+    assert abs(mt["peak_bytes"] - mt["live_peak_bytes"]) \
+        <= 0.1 * mt["live_peak_bytes"], mt
+    return report
+
+
 def phase_shard(seed: int):
     """The sharding layer on meshes of ranks sharing this card
     (``spawn_mesh``, one process a rank, ``gloo``), the model
@@ -4172,7 +4557,14 @@ def phase_shard(seed: int):
           ``qwen_mesh_run``, ``qwen_report``): the flash prefill step on
           ``QWEN_TOKENS``, f32 on (1, 4) and bf16 on (2, 4); one f32 train
           step of its first layers on (1, 4); the (2, 4) chunked step
-          traced on ``meta`` against live rank 0;
+          traced on ``meta`` against live rank 0; on the same ranks the
+          decode (``qwen_decode_refs``, ``qwen_mesh_decode``,
+          ``qwen_decode_report``): one card's cache filled once, each
+          rank's block of it, 16 steps through ``lora_matmul_grouped``
+          with per-row adapters, f32 on (1, 4) with its ring (8 steps), bf16 on
+          (2, 4), the (2, 4) ``make_serve_step`` traced on ``meta``
+          against live rank 0; the grouped kernel timed at a (2, 4)
+          rank's shapes (``shard_grouped_rows``);
       (a) granite-moe-3b-a800m at its published config: the f32 flash
           prefill step on (4, 1024) tokens (tensor-parallel attention, the
           MoE through ``moe_forward_tp``) on (4, 2) and (8, 1)
@@ -4190,7 +4582,7 @@ def phase_shard(seed: int):
           card after the ranks exit.
 
     Returns the path's (counts, runs, versions), summed over the ranks'
-    prefill runs."""
+    prefill and decode runs, and the grouped kernel's timing rows."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import (choose_backend, make_abstract_mesh,
                                          spawn_mesh)
@@ -4271,6 +4663,8 @@ def phase_shard(seed: int):
         # ---- the meshes -----------------------------------------------------
         base = {"seed": seed, "cf": free_cf, "bcast_batch": bcast_batch}
         qbase = {"kind": "qwen", "seed": seed, "path": qwen_ref["path"]}
+        qdec = qwen_ref["decode"]
+        dec = {"cache_path": qdec["cache_path"], "first": qdec["first"]}
         jobs = [
             ((4, 2), dict(base, layers=SHARD_EP_LAYERS, batch=batch,
                           dtypes=("float32", "bfloat16"),
@@ -4280,10 +4674,15 @@ def phase_shard(seed: int):
             ((8, 1), dict(base, layers=SHARD_EP_LAYERS, batch=batch,
                           dtypes=("float32",), routing=want["routing"],
                           kimi=True)),
-            (QWEN_BF16_MESH, dict(qbase, dtype="bfloat16", counted=True)),
+            (QWEN_BF16_MESH, dict(qbase, dtype="bfloat16", counted=True,
+                                  decode=dict(dec, feed=qdec["feed"]))),
             (rep_shape, dict(base, layers=rep_layers, batch=rep_batch,
                              dtypes=("float32",), routing=want6["routing"])),
-            (QWEN_F32_MESH, dict(qbase, dtype="float32", train=True)),
+            (QWEN_F32_MESH, dict(qbase, dtype="float32", train=True,
+                                 decode=dict(
+                                     dec, ring=True,
+                                     ring_path=qdec["ring_path"],
+                                     ring_first=qdec["ring_first"]))),
         ]
         # one spawn for each world size: the 8-rank meshes share the ranks
         spawns = {}
@@ -4303,6 +4702,8 @@ def phase_shard(seed: int):
     finally:
         shutil.rmtree(qwen_dir, ignore_errors=True)
     qwen = qwen_report(qwen_ref, qwen_results, seed, gpu)
+    qwen_decoded = qwen_decode_report(qwen_ref, qwen_results, gpu)
+    rows = shard_grouped_rows(seed, gpu)
 
     # ---- (c) kimi-k2's layer on one card, on the ranks' routing ------------
     torch.cuda.reset_peak_memory_stats()
@@ -4469,18 +4870,44 @@ def phase_shard(seed: int):
             assert entry["layer_dropped"] == 0, (name, entry)
     assert report["x".join(map(str, rep_shape))]["strategy"] == "replicated"
     assert kimi["err"] <= kimi["tol"] and kimi["dropped"] == 0, kimi
-    for acc, key in zip(totals, ("launches", "runs_on_card")):
-        for kname, n in qwen[key].items():
-            acc[kname] = acc.get(kname, 0) + n
-    for kname, by in qwen["launches_by_version"].items():
-        acc = totals[2].setdefault(kname, {})
-        for ver, n in by.items():
-            acc[ver] = acc.get(ver, 0) + n
+    for part in (qwen, qwen_decoded):
+        for acc, key in zip(totals, ("launches", "runs_on_card")):
+            for kname, n in part[key].items():
+                acc[kname] = acc.get(kname, 0) + n
+        for kname, by in part["launches_by_version"].items():
+            acc = totals[2].setdefault(kname, {})
+            for ver, n in by.items():
+                acc[ver] = acc.get(ver, 0) + n
     assert totals[0]["flash_attention"] > 0, totals
-    for kname in ("lora_matmul", "lora_matmul_grouped", "flash_decode",
-                  "ssd_intra_chunk"):
+    # the decode runs on the meshes launch the grouped kernel
+    assert totals[0]["lora_matmul_grouped"] \
+        == qwen_decoded["launches"]["lora_matmul_grouped"] > 0, totals
+    for kname in ("lora_matmul", "flash_decode", "ssd_intra_chunk"):
         assert totals[0][kname] == 0, totals
-    return totals
+    return (*totals, rows)
+
+
+def shard_grouped_rows(seed: int, gpu: str):
+    """``lora_matmul_grouped`` timed at the shapes a (2, 4) rank of the
+    qwen3-4b decode hands it (``QWEN_RANK_KN``, G = 4 rows of a bank of 4),
+    bf16 (``wgmma``) and f32 (``tf32x3``): rows of the kernels line."""
+    rng = np.random.default_rng(seed + 900)
+    rows = {"lora_matmul_grouped": [
+                time_grouped(rng, 4, k, n, 16, 4, torch.bfloat16, simt=False)
+                for k, n in QWEN_RANK_KN],
+            "lora_matmul_grouped_tf32x3": [
+                time_grouped(rng, 4, k, n, 16, 4, torch.float32, simt=False)
+                for k, n in QWEN_RANK_KN]}
+    for name, version in (("lora_matmul_grouped", "wgmma"),
+                          ("lora_matmul_grouped_tf32x3", "tf32x3")):
+        assert all(r["version"] == version for r in rows[name]), rows[name]
+    emit({"phase": "shard_grouped_rows", "gpu": gpu,
+          "rows": {name: [{k: r[k] for k in ("shape", "version", "ms",
+                                              "bound_ms", "bound_by",
+                                              "plain_ms", "library_ms",
+                                              "simt_ms", "max_abs_err")}
+                          for r in by] for name, by in rows.items()}})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4687,8 +5114,10 @@ def main() -> int:
                                      dryrun_records, serve_logits=False)
     by_path["bench"] = tuple(bench)
     by_path["serve32"] = phase_serve32(args.seed)
-    by_path["shard"] = phase_shard(args.seed)
-    for extra_rows in (registry_rows, bench_rows):  # after the headline rows
+    *shard, shard_rows = phase_shard(args.seed)
+    by_path["shard"] = tuple(shard)
+    # after the headline rows
+    for extra_rows in (registry_rows, bench_rows, shard_rows):
         for name, extra in extra_rows.items():
             rows[name] += extra
 

@@ -247,7 +247,9 @@ def analyze_sharded_step(fn: Callable, *args: Any, mesh
     """``analyze_step`` of ``fn(*args)`` on this rank of ``mesh`` (a
     ``LiveMesh``: a live process group, or a ``fake`` one on ``meta``), run
     under ``shardctx.mesh_ctx(mesh)``; ``args`` are the rank's own
-    (``sharding.shard_params``). The counterpart of the reference's
+    (``sharding.shard_params``: its blocks of the parameters and, for a
+    decode step, of the cache under ``sharding.cache_specs``, which the
+    step updates in place and the memory counts as an argument). The counterpart of the reference's
     ``analyze_compiled`` for one device: FLOPs, HBM bytes and peak bytes of
     this rank, and the collectives it takes part in (module docstring)."""
     from repro_torch import shardctx

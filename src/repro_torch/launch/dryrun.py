@@ -25,17 +25,16 @@ On the production meshes (``mesh="16x16"``, or ``multi_pod=True`` for
 the step's arguments under ``launch/sharding.py``'s specs (``param_specs``,
 ``opt_state_specs``, ``batch_specs_for``, ``cache_specs``), the
 counterpart of the argument bytes in XLA's memory analysis, and whether
-they ``fit`` one H100. The train and prefill steps are also traced there
-(``"traced": true``): the process joins a ``fake`` process group of 256 or
-512 ranks as rank 0, builds its ``LiveMesh`` on ``meta``, and runs the
-tensor-parallel step (``models/model.py``) on that rank's blocks of the
-parameters, so the record has one chip's FLOPs, HBM bytes, peak bytes and
-collectives (``analysis.analyze_sharded_step``), with the depth-1/depth-2
-probe pair as on one chip, the layout of the attention heads
-(``attention.tp_layout``) and the one-chip FLOPs beside them. The group is
-torn down after each record. The decode steps stay untraced (``"why"``):
-their cache is sequence-sharded (``cache_specs``: KV slots over "model"),
-which takes a softmax combined across ranks that the port does not run.
+they ``fit`` one H100. Every step is also traced there (``"traced":
+true``): the process joins a ``fake`` process group of 256 or 512 ranks as
+rank 0, builds its ``LiveMesh`` on ``meta``, and runs the tensor-parallel
+step (``models/model.py``) on that rank's blocks of the parameters and,
+for a decode step, of the cache (``cache_specs``: KV slots over "model",
+the softmax combined across ranks), so the record has one chip's FLOPs,
+HBM bytes, peak bytes and collectives (``analysis.analyze_sharded_step``),
+with the depth-1/depth-2 probe pair as on one chip, the layout of the
+attention heads (``attention.tp_layout``) and the one-chip FLOPs beside
+them. The group is torn down after each record.
 """
 from __future__ import annotations
 
@@ -69,10 +68,7 @@ META = "meta"
 # the reference's production meshes, by the name a record carries
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-TRACED_KINDS = ("train", "prefill")     # traced on the production meshes
-UNTRACED_WHY = ("decode on a mesh reads a sequence-sharded KV cache "
-                "(cache_specs: slots over 'model'), which needs a softmax "
-                "combined across ranks; the port's decode runs unsharded")
+TRACED_KINDS = ("train", "prefill", "decode")   # traced on the meshes
 
 
 def combo_config(arch: str, shape_name: str) -> Optional[ModelConfig]:
@@ -103,7 +99,8 @@ def build_step(cfg: ModelConfig, shape: InputShape, *, cut: int = 0,
     (the card check runs these same programs). With ``mesh`` (a
     ``LiveMesh``) the parameters are this rank's blocks
     (``sharding.shard_params``) and the batch the global one; the step runs
-    tensor-parallel under ``shardctx.mesh_ctx(mesh)``."""
+    tensor-parallel under ``shardctx.mesh_ctx(mesh)``; a decode step's
+    cache is the rank's block under ``sharding.cache_specs``."""
     import torch
     params = model_lib.init_params(0, cfg, device=device)
     if mesh is not None:
@@ -124,7 +121,13 @@ def build_step(cfg: ModelConfig, shape: InputShape, *, cut: int = 0,
         return step, (params["frozen"], params["lora"], batch[key])
     cache = model_lib.init_cache(cfg, shape.global_batch, shape.seq_len,
                                  device=device)
-    step = make_serve_step(cfg, device=device)
+    slots = None
+    if mesh is not None:
+        cspecs = shd.cache_specs(cfg, cache, mesh, shape.global_batch)
+        if "kv" in cache:
+            slots = cache["kv"]["k"].shape[2]
+        cache = shd.shard_params(cache, cspecs, mesh)
+    step = make_serve_step(cfg, device=device, slots=slots)
     return step, (params["frozen"], params["lora"], cache, batch[key],
                   shape.seq_len - 1)
 
@@ -208,8 +211,9 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
 
     ``mesh``: ``"1"`` (one H100, the default) or a production mesh,
     ``"16x16"`` or ``"2x16x16"`` (``multi_pod=True``): then the record has
-    :func:`sharded_arguments`'s per-chip bytes and, for a train or prefill
-    step, one rank's trace on a fake process group (module docstring)."""
+    :func:`sharded_arguments`'s per-chip bytes and, unless
+    ``compile_=False``, one rank's trace on a fake process group (module
+    docstring)."""
     name = mesh or ("2x16x16" if multi_pod else "1")
     if multi_pod and name != "2x16x16":
         raise ValueError(f"multi_pod=True is the 2x16x16 mesh, not {name!r}")
@@ -438,8 +442,6 @@ def _sharded_record(cfg: ModelConfig, shape: InputShape, name: str, *,
         rec["model_flops_per_chip"] = pf
         rec["useful_flops_ratio"] = pf / rec["roofline"]["flops"] \
             if rec["roofline"]["flops"] else None
-    elif shape.kind not in TRACED_KINDS:
-        rec["why"] = UNTRACED_WHY
     rec.update(ok=True, lower_compile_s=round(time.time() - t0, 1))
     return rec
 
@@ -517,8 +519,8 @@ def main(argv=None) -> None:
                    default="single",
                    help="single: one H100 (traced); multi: the 2x16x16 "
                         "mesh; both: 16x16 and 2x16x16 (per-chip argument "
-                        "bytes; train and prefill traced on one rank of a "
-                        "fake process group)")
+                        "bytes; every step traced on one rank of a fake "
+                        "process group)")
     p.add_argument("--cut", type=int, default=0)
     p.add_argument("--no-compile", action="store_true",
                    help="trace only, count nothing")

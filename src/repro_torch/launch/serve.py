@@ -17,14 +17,21 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.common import Params, resolve_device
 
 
-def make_serve_step(cfg: ModelConfig, *, device=None) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, device=None,
+                    slots: Optional[int] = None) -> Callable:
+    """The naive decode step (no kernel, as the reference's). Under
+    ``shardctx.mesh_ctx`` of a ``LiveMesh`` it runs on the mesh
+    (``model.decode_step``): the parameters and the cache are this rank's
+    blocks, ``slots`` the cache's global slot count where the block alone
+    does not tell it."""
     device = resolve_device(device)
 
     @torch.no_grad()
     def serve_step(frozen: Params, lora: Optional[Params], cache: Params,
                    inputs: torch.Tensor, t) -> Tuple[torch.Tensor, Params]:
         inputs = torch.as_tensor(inputs, device=device)
-        return model_lib.decode_step(frozen, lora, cache, inputs, t, cfg)
+        return model_lib.decode_step(frozen, lora, cache, inputs, t, cfg,
+                                     slots=slots)
 
     return serve_step
 

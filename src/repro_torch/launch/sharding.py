@@ -204,6 +204,19 @@ def cache_specs(cfg: ModelConfig, cache: Params, mesh, batch: int) -> Params:
     return walk(cache)
 
 
+def slot_range(cfg: ModelConfig, mesh, slots: int, batch: int
+               ) -> Tuple[int, int]:
+    """This rank's global slot range ``[lo, hi)`` of a decode cache of
+    ``slots`` slots and ``batch`` rows on the ``LiveMesh`` ``mesh``, by
+    ``cache_specs``: a block over "model" where the axis divides the
+    slots, else every slot (the cache replicated over "model")."""
+    kv = _Shape((1, batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim))
+    spec = cache_specs(cfg, {"kv": {"k": kv}}, mesh, batch)["kv"]["k"]
+    n = slots // _axis_size(mesh, spec[2])
+    lo = mesh.axis_index(spec[2]) * n if spec[2] is not None else 0
+    return lo, lo + n
+
+
 # ---------------------------------------------------------------------------
 # Reading a spec
 # ---------------------------------------------------------------------------
@@ -287,20 +300,43 @@ _COLUMN_OUT = {"wq": "q_dim", "wk": "kv_dim", "wv": "kv_dim", "w_gate": "d_ff",
                "w_up": "d_ff"}
 
 
+def _per_row(path, leaf) -> bool:
+    """A leaf of a per-row adapter bank (serving: one pair a request row,
+    ``engine.AdapterBank.gather``): ``(L, B, K, r)`` / ``(L, B, r, N)``."""
+    return path[0] == "layers" and len(leaf.shape) == 4
+
+
 def lora_specs(cfg: ModelConfig, lora: Params, mesh) -> Params:
     """``param_specs``' specs of the adapters, from the adapter tree as
     given (whole, or this rank's blocks: a column-parallel B's whole width
     is the config's), without making a tensor: a step can ask inside a
-    traced call."""
+    traced call. A per-row bank (leaves ``(L, B, ...)``, given with its
+    whole batch) takes its pair's spec shifted by one dim, and its batch
+    dim goes over the data axes where they divide it (the model's own
+    guard on the batch, ``shardctx.guarded_spec``)."""
     def shapes(tree, path=()):
         if isinstance(tree, dict):
             return {k: shapes(v, path + (k,)) for k, v in tree.items()}
         shape = list(tree.shape)
+        if _per_row(path, tree):
+            del shape[1]
         if path[-1] == "b" and path[-2] in _COLUMN_OUT:
             shape[-1] = getattr(cfg, _COLUMN_OUT[path[-2]])
         return _Shape(shape)
-    return param_specs(cfg, {"frozen": {}, "lora": shapes(lora)},
-                       mesh)["lora"]
+    specs = param_specs(cfg, {"frozen": {}, "lora": shapes(lora)},
+                        mesh)["lora"]
+    dp = data_axes(mesh)
+
+    def batched(tree, spec, path=()):
+        if isinstance(tree, dict):
+            return {k: batched(v, spec[k], path + (k,))
+                    for k, v in tree.items()}
+        if not _per_row(path, tree):
+            return spec
+        n = _axis_size(mesh, dp)
+        axis = dp if n > 1 and tree.shape[1] % n == 0 else None
+        return P(spec[0], axis, *spec[1:])
+    return batched(lora, specs)
 
 
 def replicated_axes(spec: P, mesh) -> Tuple[str, ...]:

@@ -86,13 +86,12 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, -1)
 
 
-def naive_attention(q, k, v, *, causal: bool, window: int,
-                    q_positions, k_positions) -> torch.Tensor:
-    """q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D). Oracle path."""
+def _masked_scores(q, k, *, causal: bool, window: int, q_positions,
+                   k_positions) -> torch.Tensor:
+    """f32 scores (B, Hkv, group, Sq, Skv), masked positions at NEG_INF."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
-    group = hq // hkv
-    qg = q.reshape(b, sq, hkv, group, d)
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(ACC_DTYPE),
                           k.to(ACC_DTYPE)) / math.sqrt(float(d))
     mask = k_positions[:, None, :] <= q_positions[:, :, None]  # (B,Sq,Skv)
@@ -101,11 +100,40 @@ def naive_attention(q, k, v, *, causal: bool, window: int,
     if window:
         mask = mask & (k_positions[:, None, :]
                        > (q_positions[:, :, None] - window))
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.full_like(scores, NEG_INF))
+    return torch.where(mask[:, None, None, :, :], scores,
+                       torch.full_like(scores, NEG_INF))
+
+
+def naive_attention(q, k, v, *, causal: bool, window: int,
+                    q_positions, k_positions) -> torch.Tensor:
+    """q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D). Oracle path."""
+    b, sq, hq, d = q.shape
+    scores = _masked_scores(q, k, causal=causal, window=window,
+                            q_positions=q_positions, k_positions=k_positions)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(ACC_DTYPE))
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def combined_attention(q, k, v, *, window: int, q_positions, k_positions,
+                       tp: TensorParallel) -> torch.Tensor:
+    """``naive_attention`` (causal) over the keys of every rank of the model
+    axis, each rank holding a block of them (a decode cache's slots): each
+    rank's softmax over its keys, unnormalised (row max ``m_r``, sum
+    ``l_r``, ``o_r = sum_k p v``), rescaled by ``exp(m_r - M)`` to the
+    global max ``M`` (one pmax) and summed (one psum of ``o`` and ``l``
+    together): ``o / l``, the same on every rank of "model"."""
+    b, sq, hq, d = q.shape
+    scores = _masked_scores(q, k, causal=True, window=window,
+                            q_positions=q_positions, k_positions=k_positions)
+    m = scores.amax(dim=-1)                                  # (b,h,g,q)
+    p = torch.exp(scores - m[..., None])
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(ACC_DTYPE))
+    alpha = torch.exp(m - tp.mesh.pmax(m, "model"))
+    ol = tp.psum(torch.cat([o * alpha[..., None],
+                            (p.sum(dim=-1) * alpha)[..., None]], dim=-1))
+    out = ol[..., :d] / ol[..., d:]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
 #: the reference's block sizes: inputs within one block take the naive path
@@ -239,11 +267,30 @@ def _tp_heads(q, k, v, cfg: ModelConfig, tp: TensorParallel):
     return q, k, v
 
 
+def _gather_columns(ys, widths, tp: TensorParallel):
+    """Each of ``ys`` whole along its last dim of global width ``widths``:
+    those ``param_specs`` split over "model" (its guard: the axis divides
+    the width) gathered in one all-gather of their blocks side by side."""
+    split = [tp.splits(n) for n in widths]
+    parts = [y for y, s in zip(ys, split) if s]
+    if not parts:
+        return ys
+    sizes = [y.shape[-1] for y in parts]
+    joined = tp.mesh.gather(torch.cat(parts, dim=-1), "model", -1)
+    joined = joined.reshape(*joined.shape[:-1], tp.size, sum(sizes))
+    blocks = iter(torch.split(joined, sizes, dim=-1))
+    return tuple(next(blocks).flatten(-2) if s else y
+                 for y, s in zip(ys, split))
+
+
 def _qkv(params: Params, lora: Optional[Params], x: torch.Tensor,
          cfg: ModelConfig, positions: torch.Tensor, use_lora_kernel: bool,
-         tp: Optional[TensorParallel] = None):
-    """Projections, head split, qk-norm and RoPE shared by every path
-    (``tp``: this rank's heads, from its column blocks)."""
+         tp: Optional[TensorParallel] = None, heads: str = "rank"):
+    """Projections, head split, qk-norm and RoPE shared by every path.
+    ``tp``: the projections are this rank's column blocks, and the heads
+    returned this rank's (``heads="rank"``, ``_tp_heads``) or all of them
+    (``heads="all"``: the split columns gathered over "model",
+    ``_gather_columns``)."""
     scale = cfg.lora.scale
     q = lora_dense(x, params["wq"], maybe_lora(lora, "wq"), scale,
                    params.get("bq"), use_kernel=use_lora_kernel)
@@ -251,9 +298,12 @@ def _qkv(params: Params, lora: Optional[Params], x: torch.Tensor,
                    params.get("bk"), use_kernel=use_lora_kernel)
     v = lora_dense(x, params["wv"], maybe_lora(lora, "wv"), scale,
                    params.get("bv"), use_kernel=use_lora_kernel)
-    if tp is not None:
+    if tp is not None and heads == "rank":
         q, k, v = _tp_heads(q, k, v, cfg, tp)
     else:
+        if tp is not None:
+            q, k, v = _gather_columns((q, k, v),
+                                      (cfg.q_dim, cfg.kv_dim, cfg.kv_dim), tp)
         q = _split_heads(q, cfg.n_heads)
         k = _split_heads(k, cfg.n_kv_heads)
         v = _split_heads(v, cfg.n_kv_heads)
@@ -281,17 +331,27 @@ def attention_forward(params: Params, lora: Optional[Params], x: torch.Tensor,
                            window=cfg.sliding_window,
                            q_positions=positions, k_positions=positions)
     out = out.reshape(x.shape[0], x.shape[1], q.shape[2] * q.shape[3])
+    return _out_proj(params, lora, out, cfg, use_lora_kernel, tp), \
+        {"k": k, "v": v}
+
+
+def _out_proj(params: Params, lora: Optional[Params], out: torch.Tensor,
+              cfg: ModelConfig, use_lora_kernel: bool,
+              tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``wo`` on the heads' output: with ``tp``, ``out`` is this rank's
+    heads or all of them, and ``wo`` row-parallel where the model axis
+    divides ``q_dim``: the rank's block of the columns times its rows,
+    summed over "model"."""
     if tp is not None and tp.splits(cfg.q_dim):
         # every rank ran all heads where the heads do not split: its block
         out = shardctx.constrain(out, "dp", None, "model",
                                  have=(tp.batch, None, "model"
-                                       if q.shape[2] < cfg.n_heads else None))
-        out = row_parallel_dense(out, params["wo"], maybe_lora(lora, "wo"),
-                                 cfg.lora.scale, tp, use_lora_kernel)
-    else:
-        out = lora_dense(out, params["wo"], maybe_lora(lora, "wo"),
-                         cfg.lora.scale, use_kernel=use_lora_kernel)
-    return out, {"k": k, "v": v}
+                                       if out.shape[-1] < cfg.q_dim
+                                       else None))
+        return row_parallel_dense(out, params["wo"], maybe_lora(lora, "wo"),
+                                  cfg.lora.scale, tp, use_lora_kernel)
+    return lora_dense(out, params["wo"], maybe_lora(lora, "wo"),
+                      cfg.lora.scale, use_kernel=use_lora_kernel)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -323,21 +383,24 @@ def _quant_kv(x: torch.Tensor):
     return q, scale
 
 
-def _cache_abs_positions(t: torch.Tensor, slots: int, window: int, b: int
+def _cache_abs_positions(t: torch.Tensor, slots: int, window: int, b: int,
+                         lo: int = 0, hi: Optional[int] = None
                          ) -> torch.Tensor:
-    """(B, slots) absolute position held by each cache slot after the write
-    at position(s) ``t`` (scalar or per-row (B,) vector).
+    """(B, hi - lo) absolute position held by each cache slot ``lo..hi-1``
+    (default all ``slots``; on a mesh, this rank's global slots) after the
+    write at position(s) ``t`` (scalar or per-row (B,) vector).
 
     Linear cache: slot j holds position j (stale j > t masked causally).
     Ring (SWA):   slot j holds ``t - ((t - j) mod W)`` — valid iff >= 0.
     """
-    j = torch.arange(slots, dtype=torch.int32, device=t.device)
+    hi = slots if hi is None else hi
+    j = torch.arange(lo, hi, dtype=torch.int32, device=t.device)
     if window and window <= slots:
         tb = t[:, None] if t.ndim else t.expand(b)[:, None]
         abs_pos = tb - torch.remainder(tb - j[None, :], slots)
         return torch.where(abs_pos >= 0, abs_pos,
                            torch.full_like(abs_pos, 2**30))  # unwritten slots
-    return j.expand(b, slots)
+    return j.expand(b, hi - lo)
 
 
 def _dequant_views(cache: Dict[str, torch.Tensor], dtype, int8: bool):
@@ -349,9 +412,13 @@ def _dequant_views(cache: Dict[str, torch.Tensor], dtype, int8: bool):
 
 
 def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
-              v: torch.Tensor, slot: torch.Tensor, dtype, int8: bool
+              v: torch.Tensor, slot: torch.Tensor, dtype, int8: bool,
+              lo: Optional[int] = None
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """Write one token per row at ``slot`` (scalar or (B,) vector), in place.
+    ``lo``: the cache is this rank's block of the slots from global slot
+    ``lo`` on, and a row is written only where the block holds its slot
+    (a masked write: the owner may differ row by row).
 
     Returns (cache, dequantized k view, dequantized v view)."""
     if int8:
@@ -361,12 +428,23 @@ def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
     else:
         entries = (("k", k), ("v", v))
     slot = slot.to(torch.long)
+    if lo is not None:
+        n = cache["k"].shape[1]
+        slot = slot - lo
+        mine = (slot >= 0) & (slot < n)
+        slot = slot.clamp(0, n - 1)
     for name, val in entries:
         val = val.to(cache[name].dtype)
         if slot.ndim:                                      # per-row slots
             rows = torch.arange(val.shape[0], device=val.device)
+            if lo is not None:
+                val = torch.where(mine[:, None, None, None], val,
+                                  cache[name][rows, slot][:, None])
             cache[name][rows, slot] = val[:, 0]
         else:
+            if lo is not None:
+                val = torch.where(mine, val, cache[name].index_select(
+                    1, slot.reshape(1)))
             cache[name].index_copy_(1, slot.reshape(1), val)
     k_cache, v_cache = _dequant_views(cache, dtype, int8)
     return cache, k_cache, v_cache
@@ -374,7 +452,8 @@ def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
 
 def attention_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
                      cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-                     t, use_lora_kernel: bool = False
+                     t, use_lora_kernel: bool = False,
+                     tp: Optional[TensorParallel] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: (B,1,d); t: int32 absolute position — a scalar
     (whole batch at one position) or a (B,) vector (continuous-batching
@@ -383,10 +462,17 @@ def attention_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
     Full cache: write at slot ``t``, attend over slots ``<= t``.
     Ring (SWA): write at ``t % W``; slot j holds absolute position
     ``t - ((t - j) mod W)`` — valid iff >= 0.
+
+    ``tp``: this rank of a mesh, ``x`` and ``t`` its block of the batch,
+    ``cache`` its block under ``sharding.cache_specs`` (``tp.slots``: its
+    global slot range). See ``_attention_decode_tp``.
     """
     b = x.shape[0]
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     pos = t[:, None] if t.ndim else t.expand(b)[:, None]
+    if tp is not None:
+        return _attention_decode_tp(params, lora, x, cache, cfg, t, pos,
+                                    use_lora_kernel, tp)
     q, k, v = _qkv(params, lora, x, cfg, pos, use_lora_kernel)
 
     slots = cache["k"].shape[1]
@@ -402,6 +488,56 @@ def attention_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
     out = lora_dense(out, params["wo"], maybe_lora(lora, "wo"),
                      cfg.lora.scale, None, use_lora_kernel)
     return out, cache
+
+
+def _attention_decode_tp(params: Params, lora: Optional[Params],
+                         x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                         cfg: ModelConfig, t: torch.Tensor, pos: torch.Tensor,
+                         use_lora_kernel: bool, tp: TensorParallel
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``attention_decode`` on a rank of a mesh. The projections run on the
+    rank's column blocks and are gathered into every head (the new token's
+    k and v go into the cache whole). The cache holds all kv heads of a
+    block of the slots (``cache_specs``: slots over "model"): the slot's
+    owner writes it (a masked write), slot ``j`` of the block is global
+    slot ``lo + j`` (the ring's modulus the global count), and each rank's
+    softmax over its slots is combined over "model"
+    (``combined_attention``). Where the model axis does not divide the
+    slots the cache is whole on every rank: each rank runs its heads
+    (``tp_layout``) over all slots, no combine. ``wo`` as in the forward
+    (``_out_proj``)."""
+    b = x.shape[0]
+    q, k, v = _qkv(params, lora, x, cfg, pos, use_lora_kernel, tp,
+                   heads="all")
+    lo, hi, slots = tp.slots
+    split = hi - lo < slots
+    cache, k_cache, v_cache = _write_kv(
+        cache, k, v, torch.remainder(t, slots), x.dtype,
+        cfg.kv_cache_dtype == "int8", lo if split else None)
+    k_positions = _cache_abs_positions(t, slots, cfg.sliding_window, b,
+                                       lo, hi)
+    if split:
+        out = combined_attention(q, k_cache, v_cache,
+                                 window=cfg.sliding_window, q_positions=pos,
+                                 k_positions=k_positions, tp=tp)
+    else:
+        lay = tp_layout(cfg, tp.size)
+        if lay["q"] == "split":
+            hq = lay["q_heads_per_rank"]
+            q = q[:, :, tp.index * hq:(tp.index + 1) * hq]
+        sel = _kv_heads(cfg, tp.size, tp.index)
+        if isinstance(sel, tuple):
+            k_cache, v_cache = (c[:, :, sel[0]:sel[1]]
+                                for c in (k_cache, v_cache))
+        else:
+            idx = torch.as_tensor(sel, device=x.device)
+            k_cache, v_cache = (c.index_select(2, idx)
+                                for c in (k_cache, v_cache))
+        out = naive_attention(q, k_cache, v_cache, causal=True,
+                              window=cfg.sliding_window, q_positions=pos,
+                              k_positions=k_positions)
+    out = out.reshape(b, 1, q.shape[2] * q.shape[3])
+    return _out_proj(params, lora, out, cfg, use_lora_kernel, tp), cache
 
 
 def attention_prefill(params: Params, lora: Optional[Params], x: torch.Tensor,

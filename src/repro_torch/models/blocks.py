@@ -151,23 +151,27 @@ def layer_prefill(params: Params, lora: Optional[Params], x: torch.Tensor,
 
 def layer_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
                  cache: Params, cfg: ModelConfig, *, t,
-                 use_lora_kernel: bool = False
+                 use_lora_kernel: bool = False,
+                 tp: Optional[TensorParallel] = None
                  ) -> Tuple[torch.Tensor, Params]:
     """One-token decode through a layer. x: (B,1,d). The cache is updated
-    in place."""
+    in place. ``tp``: this rank of a mesh (``x``, ``t`` and the cache its
+    blocks): attention over the rank's slots, the Mamba block on its
+    channels and state, the dense MLP column- and row-parallel and the MoE
+    through ``moe_forward_tp``, as in ``layer_forward``."""
     h = rms_norm(x, params["norm1"], cfg.rms_eps)
     if cfg.family == "ssm":
         out, cache["ssm"] = mamba_mod.mamba_decode(
-            params["mamba"], _lget(lora, "mamba"), h, cache["ssm"], cfg)
+            params["mamba"], _lget(lora, "mamba"), h, cache["ssm"], cfg, tp)
         return x + out, cache
     attn_out, cache["kv"] = attn_mod.attention_decode(
         params["attn"], _lget(lora, "attn"), h, cache["kv"], cfg, t=t,
-        use_lora_kernel=use_lora_kernel)
+        use_lora_kernel=use_lora_kernel, tp=tp)
     if cfg.family == "hybrid":
         ssm_out, cache["ssm"] = mamba_mod.mamba_decode(
-            params["mamba"], _lget(lora, "mamba"), h, cache["ssm"], cfg)
+            params["mamba"], _lget(lora, "mamba"), h, cache["ssm"], cfg, tp)
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    x, _ = _ffn(params, lora, x, cfg, use_lora_kernel)
+    x, _ = _ffn(params, lora, x, cfg, use_lora_kernel, tp)
     return x, cache

@@ -229,6 +229,9 @@ class TensorParallel:
     the batch, replicated over ``"model"`` between the layers."""
     mesh: Any
     batch: Optional[Tuple[str, ...]]
+    #: a decode step's cache slots: this rank's global range and the global
+    #: count ``(lo, hi, total)`` (``launch.sharding.slot_range``)
+    slots: Optional[Tuple[int, int, int]] = None
 
     @property
     def size(self) -> int:
@@ -253,13 +256,14 @@ def row_parallel_dense(x: torch.Tensor, w: torch.Tensor,
                        ) -> torch.Tensor:
     """``lora_dense`` with ``W`` split by rows over "model" (``wo``,
     ``w_down``): ``x`` is this rank's block of columns, ``W`` its block of
-    rows, and ``A`` (replicated) gives the same rows. The product is linear
-    in the rank-``r`` term too, so the partial products summed over the
-    model axis are the whole product: the fused kernel takes the blocks as
-    they are."""
+    rows, and ``A`` (replicated) gives the same rows along ``K``: dim 0 of
+    a pair ``(K, r)``, dim 1 of a per-row bank ``(B, K, r)``. The product
+    is linear in the rank-``r`` term too, so the partial products summed
+    over the model axis are the whole product: the fused kernel takes the
+    blocks as they are."""
     if lora is not None:
         k = w.shape[0]
-        lora = {"a": lora["a"].narrow(0, tp.index * k, k), "b": lora["b"]}
+        lora = {"a": lora["a"].narrow(-2, tp.index * k, k), "b": lora["b"]}
     return tp.psum(lora_dense(x, w, lora, scale, use_kernel=use_kernel))
 
 

@@ -16,8 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ACC_DTYPE, Params, dense_init,
-                                       dtype_of, init_lora_pair,
+from repro_torch.models.common import (ACC_DTYPE, Params, TensorParallel,
+                                       dense_init, dtype_of, init_lora_pair,
                                        init_rms_norm, lora_dense, maybe_lora,
                                        rms_norm, silu)
 
@@ -190,11 +190,20 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None
 
 
 def mamba_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
-                 cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                 cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 tp: Optional[TensorParallel] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,1,d) -> (y: (B,1,d), cache). The new state and the shifted
     conv window are written into ``cache`` in place. The adapters take the
-    plain product whatever the caller's kernel route, as in the reference."""
+    plain product whatever the caller's kernel route, as in the reference.
+
+    ``tp``: this rank of a mesh, ``x`` its block of the batch and ``cache``
+    its block under ``sharding.cache_specs``. The projections are
+    replicated (``param_specs``); the rank convolves its block of the conv
+    channels and updates its block of ``h`` (over heads, or over the head
+    dim where "model" does not divide the heads: both updates are
+    elementwise in the head dim, so either split is exact), each gathered
+    over "model" after."""
     di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
     hp = cfg.ssm_head_dim
     f32 = torch.float32
@@ -202,12 +211,18 @@ def mamba_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
                       cfg.lora.scale)
     z, xs, B, C, dt_raw = _split_proj(proj, cfg)
     xbc_t = torch.cat([xs, B, C], dim=-1)                # (B,1,conv_ch)
+    w, bias = params["conv_w"], params["conv_b"]
+    conv_split = tp is not None and cache["conv"].shape[-1] < xbc_t.shape[-1]
+    if conv_split:
+        xbc_t, w, bias = (tp.mesh.split(v, "model", -1)
+                          for v in (xbc_t, w, bias))
     conv_in = torch.cat([cache["conv"], xbc_t], dim=1)   # (B,W,conv_ch)
-    w = params["conv_w"]
     out = conv_in[:, 0:1] * w[0]
     for i in range(1, w.shape[0]):
         out = out + conv_in[:, i:i + 1] * w[i]
-    xbc = silu(out + params["conv_b"])                   # (B,1,conv_ch)
+    xbc = silu(out + bias)                               # (B,1,conv_ch)
+    if conv_split:
+        xbc = tp.mesh.gather(xbc, "model", -1)
     xs, B, C = torch.split(xbc, [di, ns, ns], dim=-1)
     dt = _softplus(dt_raw.to(f32) + params["dt_bias"])[:, 0]
     A = -torch.exp(params["a_log"])
@@ -215,9 +230,22 @@ def mamba_decode(params: Params, lora: Optional[Params], x: torch.Tensor,
     xh = xs[:, 0].reshape(-1, nh, hp).to(f32)
     xt = xh * dt[..., None]
     Bv, Cv = B[:, 0].to(f32), C[:, 0].to(f32)
+    d_skip = params["d_skip"][:, None]
+    h_dim = None
+    if tp is not None:
+        # the dim of h this rank holds a block of: heads, else head dim
+        h_dim = next((dim for dim, n in ((1, nh), (2, hp))
+                      if cache["h"].shape[dim] < n), None)
+    if h_dim is not None:
+        xh, xt = (tp.mesh.split(v, "model", h_dim) for v in (xh, xt))
+        if h_dim == 1:
+            a, d_skip = tp.mesh.split(a, "model", 1), \
+                tp.mesh.split(d_skip, "model", 0)
     h = (cache["h"] * a[:, :, None, None]
          + torch.einsum("bhp,bn->bhpn", xt, Bv))
-    y = torch.einsum("bhpn,bn->bhp", h, Cv) + params["d_skip"][:, None] * xh
+    y = torch.einsum("bhpn,bn->bhp", h, Cv) + d_skip * xh
+    if h_dim is not None:
+        y = tp.mesh.gather(y, "model", h_dim)
     cache["h"].copy_(h)
     cache["conv"].copy_(conv_in[:, 1:])
     y = y.reshape(-1, 1, di).to(x.dtype)

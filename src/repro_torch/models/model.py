@@ -27,10 +27,19 @@ the reference's ``constrain(x, "dp", None, None)``); attention and the
 dense MLP run on the rank's columns and rows; the embedding and the head
 are split over the vocabulary; the prefill's logits (the whole vocabulary)
 and the loss leave the mesh the same on every rank (``LiveMesh.leave``).
-The cached decode paths stay on one rank's whole parameters.
+The decode step (``decode_step``, ``decode_scan``) runs on the mesh too,
+against this rank's block of the cache under ``launch.sharding.
+cache_specs`` (KV slots over "model", the SSM state over heads or head
+dim, the conv window over channels, the batch over the data axes), which
+it updates in place: attention combines each rank's softmax over its
+slots (``attention.combined_attention``); per-row adapter banks come as
+this rank's blocks under ``launch.sharding.lora_specs``; the logits leave
+the mesh the same on every rank. The cache-writing chunked prefill
+(``prefill_chunk``) runs on one rank's whole parameters.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -355,39 +364,80 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None
                               device=device), one)
 
 
+def _decode_slots(cache: Params, tp: TensorParallel, batch: int,
+                  cfg: ModelConfig, slots: Optional[int]
+                  ) -> Tuple[int, int, int]:
+    """This rank's global slot range and the global slot count of a decode
+    cache given as its block (``TensorParallel.slots``). ``slots`` is the
+    global count; None reads it from the block, which is unambiguous
+    unless the model axis does not divide the block's slots (a whole cache
+    of such a count, or a block of ``m`` times it): then it raises."""
+    from repro_torch.launch.sharding import slot_range
+    local = cache["kv"]["k"].shape[2]
+    if slots is None:
+        if local % tp.size:
+            raise ValueError(
+                f"a cache block of {local} slots on a model axis of "
+                f"{tp.size}: whole, or a block of {local * tp.size}; pass "
+                "the global slot count (slots=)")
+        slots = local * tp.size
+    lo, hi = slot_range(cfg, tp.mesh, slots, batch)
+    if hi - lo != local:
+        raise ValueError(f"the cache block holds {local} slots; "
+                         f"cache_specs gives this rank {hi - lo} of {slots}")
+    return lo, hi, slots
+
+
 def decode_step(frozen: Params, lora: Optional[Params], cache: Params,
                 inputs: torch.Tensor, t, cfg: ModelConfig,
-                *, use_lora_kernel: bool = False
+                *, use_lora_kernel: bool = False,
+                slots: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for the whole stack. inputs: (B,1) tokens or (B,1,d) embeds;
     t: int32 position — scalar (lock-step batch) or (B,) vector (continuous
     batching: each row decodes at its own position). Returns
-    (logits (B,vocab), cache); the cache is updated in place."""
-    x = embed_inputs(frozen, inputs, cfg)
+    (logits (B,vocab), cache); the cache is updated in place.
+
+    On a tensor-parallel mesh (module docstring) ``inputs`` and ``t`` are
+    global, ``frozen`` and ``lora`` this rank's blocks, ``cache`` its block
+    under ``cache_specs`` (``slots``: the cache's global slot count, read
+    from the block when that is unambiguous), and the logits the whole
+    batch's on every rank."""
+    tp = tensor_parallel(inputs.shape[0])
+    if tp is not None and cfg.family != "ssm":
+        tp = dataclasses.replace(tp, slots=_decode_slots(
+            cache, tp, inputs.shape[0], cfg, slots))
+    x = embed_inputs(frozen, _enter(inputs, tp), cfg, tp)
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
+    if t.ndim:
+        t = _enter(t, tp)
     for i in range(cfg.n_layers):
         lp = tree_take(frozen["layers"], i)
         ll = tree_take(lora["layers"], i) if lora is not None else None
         x, _ = blocks.layer_decode(lp, ll, x, tree_take(cache, i), cfg, t=t,
-                                   use_lora_kernel=use_lora_kernel)
-    logits = logits_from_hidden(frozen, x, cfg)
+                                   use_lora_kernel=use_lora_kernel, tp=tp)
+    logits = logits_from_hidden(frozen, x, cfg, tp)
+    if tp is not None:
+        logits = tp.mesh.leave(logits, tp.batch or ())
     return logits[:, 0], cache
 
 
 def decode_scan(frozen: Params, lora: Optional[Params], cache: Params,
                 tokens: torch.Tensor, t0, cfg: ModelConfig,
-                *, use_lora_kernel: bool = False
+                *, use_lora_kernel: bool = False,
+                slots: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """Consume C tokens with C sequential ``decode_step``s. tokens: (B, C)
     int; t0: scalar int32 position of tokens[:, 0]. Returns (logits after
-    the last token (B, vocab), cache)."""
+    the last token (B, vocab), cache). On a mesh as ``decode_step``."""
     t0 = torch.as_tensor(t0, dtype=torch.int32, device=tokens.device)
     logits = torch.zeros((tokens.shape[0], cfg.padded_vocab), dtype=ACC_DTYPE,
                          device=tokens.device)
     for i in range(tokens.shape[1]):
         logits, cache = decode_step(frozen, lora, cache, tokens[:, i:i + 1],
                                     t0 + i, cfg,
-                                    use_lora_kernel=use_lora_kernel)
+                                    use_lora_kernel=use_lora_kernel,
+                                    slots=slots)
     return logits, cache
 
 

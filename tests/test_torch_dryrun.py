@@ -204,10 +204,12 @@ def test_depth_cut_is_recorded():
 
 
 def test_multi_pod_raises():
-    """``multi_pod=True`` is the 2x16x16 mesh (an untraced per-chip record,
-    ``tests/test_torch_sharding.py`` holds its bytes); it raises beside
-    another mesh, and for a mesh that does not exist."""
-    rec = dryrun.lower_combo("qwen3-0.6b", "decode_32k", multi_pod=True)
+    """``multi_pod=True`` is the 2x16x16 mesh (untraced with
+    ``compile_=False``: the per-chip record, ``tests/test_torch_sharding.py``
+    holds its bytes); it raises beside another mesh, and for a mesh that
+    does not exist."""
+    rec = dryrun.lower_combo("qwen3-0.6b", "decode_32k", multi_pod=True,
+                             compile_=False)
     assert rec["mesh"] == "2x16x16" and rec["chips"] == 512
     assert rec["traced"] is False and rec["roofline"] is None
     with pytest.raises(ValueError, match="2x16x16"):
@@ -356,11 +358,49 @@ def dryrun_analysis():
     return analysis
 
 
-def test_decode_on_a_mesh_says_why_it_is_not_traced():
-    for shape in ("decode_32k", "long_500k"):
-        rec = dryrun.lower_combo("qwen3-0.6b", shape, mesh="16x16")
-        assert rec["traced"] is False and rec["roofline"] is None
-        assert "sequence-sharded" in rec["why"]
+def test_decode_on_a_mesh_says_why_it_is_not_traced(reduced_combos,
+                                                    tmp_path):
+    """Decode on a mesh is traced (its cache sequence-sharded by
+    ``cache_specs``, the softmax combined across ranks), and no record says
+    why it is not. At a narrow config whose heads, kv heads, vocabulary
+    and slots the model axis of 16 divides: per-chip FLOPs x chips within
+    1.05 of one chip's for decode_32k (the batch over the data axes), and
+    of the data axes' size times one chip's for long_500k (its one row
+    whole on every data rank); a collective for each layer. Then the
+    (2, 4) decode step traced as rank 0 of a fake group of 8 counts what
+    rank 0 of 8 live ``gloo`` ranks counts running it on CPU tensors."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_shard_ranks as ranks_mod
+    from repro_torch.launch.analysis import analyze_sharded_step
+    from repro_torch.launch.mesh import spawn_mesh
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              **CLOSED_FORM["split"])
+    reduced_combos(lambda arch, shape: dryrun.long_context_variant(cfg)
+                   if shape == "long_500k" else cfg)
+    for mesh_id in ("16x16", "2x16x16"):
+        dp = int(np.prod(dryrun.MESHES[mesh_id][0][:-1]))
+        for shape, over in (("decode_32k", 1), ("long_500k", dp)):
+            rec = dryrun.lower_combo("qwen3-4b", shape, mesh=mesh_id)
+            assert rec["ok"] and rec["traced"] is True, rec.get("error")
+            assert "why" not in rec and rec["roofline"]["flops"] > 0
+            ratio = rec["flops_x_chips_over_one_chip"] / over
+            assert 1 - 1e-9 <= ratio <= 1.05, (mesh_id, shape, ratio)
+            assert rec["collectives"]["per_layer_bytes"] > 0
+            assert rec["batch_split"] == (None if over > 1 else list(
+                dryrun.MESHES[mesh_id][1][:-1]))
+    shape = dryrun.InputShape("d", 64, 8, "decode")
+    with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
+        step, args = dryrun.build_step(cfg, shape, mesh=mesh)
+        roof, coll, mem = analyze_sharded_step(step, *args, mesh=mesh)
+    live = spawn_mesh(ranks_mod.traced_counts, (2, 4), ("data", "model"),
+                      device="cpu", args=(cfg, shape),
+                      rendezvous=str(tmp_path), timeout_s=300)[0]
+    assert roof.flops == live["flops"] > 0
+    assert coll.counts == live["counts"]
+    assert coll.bytes_by_kind == live["bytes_by_kind"]
+    assert roof.hbm_bytes == live["hbm_bytes"]
+    assert mem["peak_bytes"] == live["peak_bytes"]
+    assert set(coll.counts) == {"all-reduce", "all-gather"}
 
 
 # narrow dense configs whose heads split (every layout "split"), whose kv
