@@ -13,6 +13,8 @@
     python3 chip_smoke.py --only flash     # bf16 flash_attention timing rows
     python3 chip_smoke.py --only serve32   # build + the serve32 phase
     python3 chip_smoke.py --only shard     # build + the shard phase
+    python3 chip_smoke.py --only kimi      # build + the kimi phase
+    python3 chip_smoke.py --only decode    # flash_decode timing rows
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -34,7 +36,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
            ``ssd_intra_chunk`` also at hymba-1.5b's
            width and under steep decay;
            ``flash_decode`` at runs of one piece and of the most pieces,
-           linear and ring; every call of the calibrate
+           linear and ring; the shapes the kernels were widened to: head
+           dims 72..128 on the tensor cores (kimi-k2-1t-a32b's 112), the
+           SIMT kernel at 40, 100 and 256, ``flash_decode`` at groups 9 to
+           40 and head dims 36 to 256 with ``t`` on the card, LoRA ranks
+           65 to 256 on the SIMT kernels; every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
            timed with CUDA events beside the plain version, one PyTorch
            library call for the same function, and the card's bound (f32
@@ -84,7 +90,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
            published configs (bf16, random weights from a seed, four
            non-zero adapters): ``ServingEngine`` with the fused kernels on
            8 requests a config (mamba2-370m and hymba-1.5b on their first
-           24 / 16 layers; launch counts by kernel and version, tokens),
+           12 / 8 layers; launch counts by kernel and version, tokens),
            logits against the f32 plain path;
            ``make_prefill_step(impl="flash")`` on (4, 1024) against
            ``impl="chunked"`` (``ssd_intra_chunk`` on its model path, its
@@ -105,6 +111,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
            epoch at a CARD cut where the full-depth step fits the card (its
            memory predicted from 2 and 4 layers, and traced at full
            depth on ``meta`` by the analysis layer), no kernel
+  kimi     kimi-k2-1t-a32b at its published width on its first layer
+           (bf16, ~38.9 GB, four non-zero adapters): bf16
+           ``flash_attention`` at its prefill's (4, 1024, 64, 8, 112)
+           against the plain version and timed beside SDPA and the bound;
+           ``ServingEngine`` with the fused kernels on 4 requests;
+           ``make_prefill_step(impl="flash")`` on (4, 1024), every
+           attention launch ``wgmma_ws``, its logits against
+           ``impl="chunked"`` on the same routing (replayed); the peak of
+           ``max_memory_allocated`` under 92 % of the card
   dryrun   ``launch/dryrun``: every (arch x input shape) combo of the
            reference's dry run traced on ``meta`` at full published width
            (40, kimi-k2-1t-a32b included; FLOPs, HBM bytes, peak bytes,
@@ -650,17 +665,20 @@ def ssd_version(cl, hp, ns):
     return ss.ssd_intra_chunk_version(cl, hp, ns, True)
 
 
-def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0, offset=False):
+def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0, offset=False,
+                 t_device=False):
     """Kernel against plain version; ``offset=True`` hands the wrapper
     caches one element off 16-byte alignment (it copies them before the
-    launch: the kernel's copies are 16 bytes)."""
+    launch: the kernel's copies are 16 bytes); ``t_device=True`` hands it
+    ``t`` as a 0-d tensor on the card, which the kernel reads."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     q = randn(rng, (b, 1, hq, d), dtype)
     k = randn(rng, (b, s, hkv, d), dtype)
     v = randn(rng, (b, s, hkv, d), dtype)
     k_in, v_in = (misaligned(k), misaligned(v)) if offset else (k, v)
-    got = ops.flash_decode(q, k_in, v_in, t, window=window).float()
+    t_in = torch.tensor(t, device="cuda") if t_device else t
+    got = ops.flash_decode(q, k_in, v_in, t_in, window=window).float()
     torch.cuda.synchronize()
     want = fd.flash_decode_ref(
         q[:, 0].reshape(b, hkv, hq // hkv, d), k.permute(0, 2, 1, 3),
@@ -670,11 +688,13 @@ def check_decode(rng, b, s, hq, hkv, d, t, dtype, window=0, offset=False):
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(
             f"flash_decode {(b, s, hq, hkv, d)} t={t} window={window} "
-            f"{dtype}: max err {err} > tol {tol}")
+            f"t_device={t_device} {dtype}: max err {err} > tol {tol}")
     return err, tol
 
 
-def time_decode(rng, b, s, hq, hkv, d, t, dtype, window=0):
+def time_decode(rng, b, s, hq, hkv, d, t, dtype, window=0, t_device=False):
+    """One row of timings; ``t_device=True``: ``t`` a 0-d tensor on the
+    card (the kernel reads it; the split is sized from the cache length)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
@@ -683,8 +703,11 @@ def time_decode(rng, b, s, hq, hkv, d, t, dtype, window=0):
     q = randn(rng, (b, 1, hq, d), dtype)
     kvs = [(randn(rng, (b, s, hkv, d), dtype), randn(rng, (b, s, hkv, d), dtype))
            for _ in range(copies)]
-    err, tol = check_decode(rng, b, s, hq, hkv, d, t, dtype, window)
-    ms = time_ms([lambda k=k, v=v: ops.flash_decode(q, k, v, t, window=window)
+    err, tol = check_decode(rng, b, s, hq, hkv, d, t, dtype, window,
+                            t_device=t_device)
+    t_in = torch.tensor(t, device="cuda") if t_device else t
+    ms = time_ms([lambda k=k, v=v: ops.flash_decode(q, k, v, t_in,
+                                                    window=window)
                   for k, v in kvs])
     qf = q[:, 0].reshape(b, hkv, hq // hkv, d)
     plain = time_ms([lambda k=k, v=v: fd.flash_decode_ref(
@@ -700,10 +723,52 @@ def time_decode(rng, b, s, hq, hkv, d, t, dtype, window=0):
     flops = 4.0 * d * n_valid * b * hq
     b_ms, by = bound(bytes_moved, flops, dtype)
     return {"shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "t": t,
-                      "window": window, "valid_slots": n_valid},
+                      "window": window, "valid_slots": n_valid,
+                      "t_on_card": t_device},
             "dtype": str(dtype), "max_abs_err": err, "tol": tol, "ms": ms,
             "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
             "bound_by": by}
+
+
+# flash_decode timing rows (B, S, Hq, Hkv, D, t): llama32-1b's serving
+# cache, the calibrate bench's, a ragged one, and kimi-k2-sized caches at
+# groups 4 to 16 and head dims 64, 112, 128; t on the card as well at
+# those marked (a commit before the kernel took G > 8, D = 112 or a tensor
+# t refuses those rows)
+DECODE_TIMES = (((8, 512, 32, 8, 64, 511), True), ((8, 512, 32, 8, 64, 200), False),
+                ((2, 1024, 8, 4, 64, 1023), False), ((3, 77, 25, 5, 128, 50), False),
+                ((4, 1024, 32, 8, 64, 1000), False),
+                ((4, 1024, 64, 8, 128, 1000), False),
+                ((4, 1024, 128, 8, 128, 1000), False),
+                ((4, 1024, 64, 8, 112, 1000), False),
+                ((4, 1024, 128, 8, 112, 1000), True))
+
+
+def phase_decode(seed: int):
+    """``flash_decode`` timed alone at ``DECODE_TIMES`` in bf16 and f32,
+    each row beside its check, the plain version, SDPA and its bound.
+    Copied into a ``git archive`` of an earlier commit, it times that
+    commit's kernel at the shapes it takes (those it refuses are listed)
+    for a before/after comparison on one machine."""
+    from repro_torch.kernels import flash_decode as fd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 900)
+    rows, refused = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, on_card in DECODE_TIMES:
+            for t_device in (False, True) if on_card else (False,):
+                try:
+                    rows.append(time_decode(rng, *shape, dtype,
+                                            t_device=t_device))
+                except (ValueError, TypeError) as exc:
+                    refused.append({"shape": shape, "dtype": str(dtype),
+                                    "t_on_card": t_device,
+                                    "error": str(exc)})
+    emit({"phase": "decode_times", "gpu": gpu_line(), "by_shape": rows,
+          "refused": refused})
+    # this tree's kernel takes every row
+    assert not refused or not hasattr(fd, "MAX_HEAD_DIM"), refused
+    return rows
 
 
 def ssd_library(xt, a, B, C):
@@ -933,6 +998,34 @@ def check_ladder(rng):
                 yield name, res
 
 
+# the shapes the reference takes and the port's kernels were widened to:
+# LoRA ranks above 64 (M, K, N, r) and (G, M, K, N, r, E)
+WIDE_RANK_SHAPES = ((64, 512, 256, 128), (37, 300, 200, 200),
+                    (16, 256, 136, 256), (70, 130, 90, 65))
+WIDE_RANK_GROUPED = ((5, 1, 512, 256, 128, 3), (4, 2, 300, 96, 256, 2),
+                     (8, 1, 264, 72, 100, 4))
+# flash_attention ((B, Sq, Skv, Hq, Hkv, D), kwargs)
+WIDE_HEAD_FLASH = (((1, 300, 300, 16, 2, 112), {}),
+                   ((2, 130, 130, 16, 2, 112), {"window": 64}),
+                   ((1, 200, 200, 8, 1, 72), {}),
+                   ((2, 150, 70, 4, 2, 112), {"causal": False}),
+                   ((2, 130, 130, 4, 2, 40), {"window": 64}),
+                   ((1, 150, 150, 4, 1, 100), {}),
+                   ((1, 200, 200, 4, 2, 256), {}))
+# flash_decode (B, S, Hq, Hkv, D, t[, window])
+WIDE_DECODE = ((4, 1024, 128, 8, 112, 1000), (4, 512, 128, 8, 112, 1500, 512),
+               (1, 300, 80, 2, 112, 200, 100), (2, 90, 9, 1, 40, 80),
+               (1, 90, 4, 1, 36, 80), (1, 600, 12, 1, 256, 500))
+# timing rows: flash_decode (bf16, t on the card), tf32x3 at head dim 112,
+# SIMT flash_attention (B, S, Hq, Hkv, D), LoRA at r = 128
+WIDE_DECODE_TIMES = ((4, 1024, 128, 8, 112, 1000),
+                     (4, 512, 128, 8, 112, 1500, 512))
+WIDE_TF32_FLASH_TIME = (1, 1024, 64, 8, 112)
+WIDE_SIMT_FLASH_TIMES = ((4, 1024, 32, 8, 40), (4, 1024, 16, 4, 256))
+WIDE_RANK_LORA_TIME = (64, 7168, 7168, 128)
+WIDE_RANK_GROUPED_TIME = (8, 7168, 896, 128, 4)
+
+
 def phase_kernels(seed: int):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.launch.calibrate import BENCH_SHAPES
@@ -972,6 +1065,11 @@ def phase_kernels(seed: int):
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
                                        simt=simt))
+            # ranks above the tensor-core versions' 64: the SIMT kernel
+            # (RC = 8 and 16, the epilogue in chunks of 64 ranks)
+            for mkn in WIDE_RANK_SHAPES:
+                note("lora_matmul", dtype,
+                     check_lora_matmul(rng, *mkn, dtype, simt=simt))
         # the version the wrapper picks (tensor cores where K, N, r allow:
         # bf16 wgmma, f32 tf32x3), and the SIMT kernel's two variants (x or
         # W misaligned)
@@ -997,6 +1095,11 @@ def phase_kernels(seed: int):
                      check_grouped(rng, 8, 1, k, n, 16, 4, dtype,
                                    ids=[0, 1, 2, 3, 0, 1, 2, 3], scale=2.0,
                                    simt=simt))
+            # ranks above 64: the first SIMT variant (256 / r K groups)
+            for gmknre in WIDE_RANK_GROUPED:
+                note("lora_matmul_grouped", dtype,
+                     check_grouped(rng, *gmknre, dtype, simt=simt,
+                                   strided=True))
         for args, kw in (((2, 65, 65, 4, 4, 16), {}),
                          ((2, 63, 63, 4, 4, 16), {}),
                          ((2, 130, 130, 4, 4, 16), {"window": 64}),
@@ -1022,6 +1125,10 @@ def phase_kernels(seed: int):
                          ((2, 200, 200, 8, 1, 128), {}),
                          ((2, 300, 70, 4, 2, 128), {"causal": False}),
                          ((8, 1024, 1024, 16, 8, 128), {}),
+                         # head dims 72..120 on the D = 128 instantiations
+                         # (kimi-k2-1t-a32b's 112, group 8), and the SIMT
+                         # kernel's padded widths (40, 100, 256)
+                         *WIDE_HEAD_FLASH,
                          *(((b, s, s, hq, hkv, d), {})
                            for b, s, hq, hkv, d in F32_FLASH_SHAPES)):
             for simt in simts:
@@ -1051,6 +1158,15 @@ def phase_kernels(seed: int):
                      "t": t, "window": sum(w), "splits": fd.n_splits(
                          b * hkv, fd.valid_run(t, s, sum(w)), sms,
                          fd.block_slots(d, 2, hq // hkv))})
+        # groups above 8 (16: one m16 tile; 40: chunks along z), head dims
+        # 112, 40, 36 (padded by the wrapper) and 256, t a 0-d tensor on the
+        # card (and once as an int), linear caches and rings
+        for args in WIDE_DECODE:
+            note("flash_decode", dtype,
+                 check_decode(rng, *args[:6], dtype, *args[6:],
+                              t_device=True))
+        note("flash_decode", dtype,
+             check_decode(rng, *WIDE_DECODE[0][:6], dtype))
     # mamba2-370m at full width (d_inner 2048 = 32 heads of 64, state 128,
     # chunk 256; batch 4, length 512), hymba-1.5b's (d_inner 3200 = 50 heads
     # of 64, state 16, chunk 128; length 512) and ragged shapes; f32 only;
@@ -1104,6 +1220,22 @@ def phase_kernels(seed: int):
                 time_decode(rng, 8, 512, 32, 8, 64, t, dtype))
     rows["flash_decode"].append(
         time_decode(rng, *decode_bench, decode_bench[1] - 1, f32))
+    # group 16, head dim 112, t on the card: a linear cache and a ring
+    for args in WIDE_DECODE_TIMES:
+        rows["flash_decode"].append(
+            time_decode(rng, *args[:6], bf16, *args[6:], t_device=True))
+    # f32 tf32x3 at head dim 112 (kimi-k2-1t-a32b's heads, one row); bf16
+    # SIMT at head dims outside the tensor-core set
+    rows["flash_attention_tf32x3"].append(
+        time_flash(rng, *WIDE_TF32_FLASH_TIME, f32))
+    for shape in WIDE_SIMT_FLASH_TIMES:
+        rows["flash_attention"].append(time_flash(rng, *shape, bf16))
+    # ranks above 64 (the SIMT kernels) at kimi-k2-1t-a32b's q projection
+    # over a prefill chunk and its kv projection over a tick of 8 rows
+    rows["lora_matmul"].append(
+        time_lora_matmul(rng, *WIDE_RANK_LORA_TIME, bf16))
+    rows["lora_matmul_grouped"].append(
+        time_grouped(rng, *WIDE_RANK_GROUPED_TIME, bf16, strided=True))
     # ssd_intra_chunk at the shapes mamba_forward(impl="flash") hands it on
     # (4, 1024) tokens: mamba2-370m's and hymba-1.5b's
     rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 4, 256, 32, 64, 128))
@@ -2085,8 +2217,9 @@ LOGIT_TOKENS = 8           # the prompt of the serve logits check
 TRAIN_LR = {"moe": 3e-4}
 # the serve of the SSM configs on their first layers: a prompt chunk is 32
 # decode steps at batch 1, host-bound, and hymba-1.5b's whole-model serve
-# alone took 123.6 s on a slow host
-FAMILY_SERVE_LAYERS = {"mamba2-370m": 24, "hymba-1.5b": 16}
+# alone took 123.6 s on a slow host (on 24 / 16 layers 16.2 / 41.7 s of a
+# 984.8 s script: halved again to leave room under the 1200 s)
+FAMILY_SERVE_LAYERS = {"mamba2-370m": 12, "hymba-1.5b": 8}
 
 
 def lora_projections(cfg) -> int:
@@ -2181,15 +2314,14 @@ def prefill_ssd_share(fn):
 
 
 def family_serve(cfg, frozen, bank, seed, gpu, chunk=FAMILY_CHUNK,
-                 phase="families_serve"):
-    """(a) ``ServingEngine`` with the fused kernels on ``FAMILY_REQUESTS``
+                 phase="families_serve", n_requests=FAMILY_REQUESTS):
+    """(a) ``ServingEngine`` with the fused kernels on ``n_requests``
     requests, prefill chunks of ``chunk`` tokens; its launch counts read
     around the run. Returns (counts, versions)."""
     from repro_torch import kernels
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.serving import Request, ServingEngine
     rng = np.random.default_rng(seed)
-    n_requests = FAMILY_REQUESTS
     lens = rng.integers(40, 101, n_requests)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size, int(lens[i]),
@@ -2624,8 +2756,10 @@ FIT_SHARE = 0.92           # of the card's memory a full-depth step may plan
 # down projection over a (4, 1024) batch
 REGISTRY_FLASH_TIMES = ((4, 1024, 28, 4, 128), (4, 1024, 48, 8, 128))
 REGISTRY_LORA_TIMES = ((4096, 18944, 3584, 16),)
-# every bf16 flash_attention timing row: the registry's and llama32-1b's
-FLASH_TIMES = REGISTRY_FLASH_TIMES + ((4, 1024, 32, 8, 64),)
+# every bf16 flash_attention timing row: the registry's, llama32-1b's and
+# kimi-k2-1t-a32b's (head dim 112)
+FLASH_TIMES = REGISTRY_FLASH_TIMES + ((4, 1024, 32, 8, 64),
+                                      (4, 1024, 64, 8, 112))
 
 
 def first_layers(cfg, frozen, lora, n: int):
@@ -2995,6 +3129,138 @@ def phase_registry(seed: int):
           "launches_by_version": versions, "seconds": time.time() - t_phase})
     assert total["flash_attention"] > 0 and total["lora_matmul"] > 0
     return total, dict(total), versions, rows
+
+# ---------------------------------------------------------------------------
+# kimi-k2-1t-a32b: one layer at full width on one card
+# ---------------------------------------------------------------------------
+
+KIMI_LAYERS = 1            # ~19.4e9 parameters, ~38.9 GB in bf16
+KIMI_REQUESTS = 4          # served, 16 new tokens each
+KIMI_FLASH_TIME = (4, 1024, 64, 8, 112)   # the prefill's attention
+KIMI_BF16_TOL = 1.0        # flash vs chunked logits: the families' cap
+
+
+def phase_kimi(seed: int):
+    """kimi-k2-1t-a32b cut to ``KIMI_LAYERS`` layer at its published width
+    (d_model 7168, 64 heads over 8 kv heads of dim 112, 384 experts top-8
+    plus one shared, vocabulary 163840), bf16, random weights from
+    ``seed``, four adapters with non-zero B: its attention kernel checked
+    and timed at the prefill's shape, then (a) ``ServingEngine`` with the
+    fused kernels on ``KIMI_REQUESTS`` requests, (b) the flash prefill
+    step on (4, 1024), every ``flash_attention`` launch ``"wgmma_ws"``,
+    its logits against the chunked bf16 path on the flash run's routing.
+    No f32 copy (it would take ~77 GB): the f32 anchor of its attention is
+    the ``tf32x3`` row at head dim 112 of the kernels phase. The peak of
+    ``max_memory_allocated`` is held to ``FIT_SHARE`` of the card. Returns
+    (counts, runs, versions, timing rows)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterBank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(seed + 800)
+    # the attention kernel at the prefill's shape: checked against the plain
+    # f32 version at the registry's 2e-2, then timed beside SDPA and its bound
+    res = check_flash(rng, 4, 1024, 1024, 64, 8, 112, bf16, causal=True)
+    assert res[2] == "wgmma_ws", res
+    rows = {"flash_attention": [time_flash(rng, *KIMI_FLASH_TIME, bf16)]}
+    assert rows["flash_attention"][0]["version"] == "wgmma_ws", rows
+    emit({"phase": "kimi_kernels", "gpu": gpu,
+          "checked": {"shape": [4, 1024, 1024, 64, 8, 112],
+                      "max_abs_err": res[0], "tol": res[1],
+                      "version": res[2]},
+          "by_shape": rows})
+
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), n_layers=KIMI_LAYERS)
+    assert cfg.dtype == "bfloat16" and cfg.head_dim == 112, cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    frozen = M.init_params(seed, cfg)["frozen"]      # device=None: the card
+    adapters = [make_adapter(cfg, seed + 1 + j, dev) for j in range(4)]
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "kimi_init", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "head_dim": cfg.head_dim, "experts": [cfg.n_experts, cfg.top_k,
+                                                cfg.n_shared_experts],
+          "vocab": [cfg.vocab_size, cfg.padded_vocab],
+          "param_bytes": sum(x.numel() * x.element_size()
+                             for x in _leaves(frozen)),
+          "init_peak_bytes": init_peak, "seconds": time.time() - t0})
+    counts, by = family_serve(cfg, frozen, AdapterBank(adapters), seed, gpu,
+                              chunk=REGISTRY_CHUNK, phase="kimi_serve",
+                              n_requests=KIMI_REQUESTS)
+    lora = adapters[0]
+    del adapters
+
+    toks = torch.as_tensor(np.random.default_rng(seed + 100).integers(
+        0, cfg.vocab_size, (4, 1024)), device=dev)
+    flash = make_prefill_step(cfg, impl="flash")
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    with RoutingLog() as flash_route:
+        logits_flash = flash(frozen, lora, toks)
+    torch.cuda.synchronize()
+    pc = kernels.launch_counts()
+    pby = {"flash_attention": dict(fa.flash_attention.by_version)}
+    # ----------------------------------------------------------------------
+    t0 = time.time()
+    flash(frozen, lora, toks)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    chunked = make_prefill_step(cfg, impl="chunked")
+    with RoutingLog() as chunked_route:
+        own = chunked(frozen, lora, toks)
+    with RoutingLog(replay=flash_route.idx) as pinned_route:
+        pinned = chunked(frozen, lora, toks)
+    torch.cuda.synchronize()
+    v = cfg.vocab_size
+
+    def err(x, y):
+        return (x[:, :v].float() - y[:, :v].float()).abs().max().item()
+    pre = {"bf16_flash_vs_chunked_same_routing": err(logits_flash, pinned),
+           "bf16_flash_vs_chunked_own_routing": err(logits_flash, own),
+           "routing_flips": sum(int((a != b).sum()) for a, b in zip(
+               flash_route.idx, chunked_route.idx)),
+           "routing_choices": sum(a.numel() for a in flash_route.idx),
+           "replay_flips": pinned_route.flips,
+           "logit_abs_max": logits_flash[:, :v].float().abs().max().item()}
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "kimi_prefill", "gpu": gpu, "arch": cfg.name,
+          "n_layers": cfg.n_layers, "batch": 4, "seq": 1024, "impl": "flash",
+          "step_s": step_s, "bf16_tol": KIMI_BF16_TOL, **pre,
+          "launches": pc, "launches_by_version": pby})
+    emit({"phase": "kimi", "gpu": gpu, "seconds": time.time() - t_phase,
+          "peak_bytes": peak, "init_peak_bytes": init_peak,
+          "card_bytes": card, "fit_share": FIT_SHARE,
+          "peak_share": peak / card})
+    assert logits_flash.shape == (4, cfg.padded_vocab)
+    assert torch.isfinite(logits_flash[:, :v]).all()
+    assert math.isfinite(pre["bf16_flash_vs_chunked_same_routing"]), pre
+    assert pre["bf16_flash_vs_chunked_same_routing"] <= KIMI_BF16_TOL, pre
+    # one attention a layer, every one on the warp-specialised kernel at
+    # head dim 112; the LoRA goes the plain way in a prefill step
+    assert pc["flash_attention"] == cfg.n_layers, pc
+    assert pby["flash_attention"] == {
+        "wgmma_ws": cfg.n_layers, "wgmma": 0, "tf32x3": 0, "simt": 0}, pby
+    for name in ("lora_matmul", "lora_matmul_grouped", "flash_decode",
+                 "ssd_intra_chunk"):
+        assert pc[name] == 0, pc
+    assert peak <= FIT_SHARE * card, (peak, card)
+    del frozen, lora
+    torch.cuda.empty_cache()
+    total = {name: counts[name] + pc[name] for name in counts}
+    versions = dict(by, **pby)
+    return total, dict(total), versions, rows
+
 
 # ---------------------------------------------------------------------------
 # The dry run: meta-device records, held against the same steps on the card
@@ -3590,14 +3856,14 @@ SHARD_ARCH = "granite-moe-3b-a800m"
 SHARD_TOKENS = (4, 1024)
 SHARD_AXES = ("data", "model")
 # ep_a2a on both; at batch 4, dp 8 does not divide the batch: the broadcast
-# layout; their first 16 layers (at 32 the whole script took 1165.9 s of its
-# 1200 on a slow host)
+# layout; their first 8 layers (at 32 the whole script took 1165.9 s of its
+# 1200 on a slow host, at 16 984.8 s on a fast one)
 SHARD_EP_MESHES = ((4, 2), (8, 1))
-SHARD_EP_LAYERS = 16
+SHARD_EP_LAYERS = 8
 # replicated (dp 3 does not divide 40 experts) at batch 6, over dp x model;
-# its first 16 layers: six f32 copies of the 32-layer expert bank (12 GB
+# its first 8 layers: six f32 copies of the 32-layer expert bank (12 GB
 # each) do not fit the card beside one another
-SHARD_REPLICATED = ((3, 2), 6, 16)
+SHARD_REPLICATED = ((3, 2), 6, 8)
 SHARD_TOL = 1e-4           # f32, x max|want|
 PUBLISHED_CF = 1.25
 KIMI_ARCH = "kimi-k2-1t-a32b"
@@ -4569,7 +4835,7 @@ def phase_shard(seed: int):
           prefill step on (4, 1024) tokens (tensor-parallel attention, the
           MoE through ``moe_forward_tp``) on (4, 2) and (8, 1)
           (``ep_a2a``) and on (3, 2) at batch 6
-          (``replicated``, first 16 layers), each against the same weights'
+          (``replicated``), first 8 layers, each against the same weights'
           run on one card, the routing replayed from it, at the capacity
           factor E / k, at which no path drops; the flash_attention
           launches of every rank counted; the dropped share of every path
@@ -4974,7 +5240,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("kernels", "train", "families",
                                        "fleet", "calibrate", "registry",
                                        "dryrun", "bench", "flash",
-                                       "serve32", "shard"),
+                                       "serve32", "shard", "kimi",
+                                       "decode"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -4991,7 +5258,10 @@ def main() -> int:
                          "flash_attention timing rows alone (the first "
                          "launch builds the kernels); serve32: build, then "
                          "the f32 serve phase alone; shard: build, then the "
-                         "shard phase alone")
+                         "shard phase alone; kimi: build, then the kimi "
+                         "phase alone; decode: the flash_decode timing "
+                         "rows alone (the first launch builds the "
+                         "kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -5028,6 +5298,11 @@ def main() -> int:
     if args.only == "flash":
         phase_flash(args.seed)
         emit({"phase": "done", "only": "flash",
+              "seconds": time.time() - t_start})
+        return 0
+    if args.only == "decode":
+        phase_decode(args.seed)
+        emit({"phase": "done", "only": "decode",
               "seconds": time.time() - t_start})
         return 0
 
@@ -5076,6 +5351,11 @@ def main() -> int:
         emit({"phase": "done", "only": "serve32",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "kimi":
+        phase_kimi(args.seed)
+        emit({"phase": "done", "only": "kimi",
+              "seconds": time.time() - t_start})
+        return 0
     if args.only == "shard":
         phase_shard(args.seed)
         emit({"phase": "done", "only": "shard",
@@ -5108,6 +5388,8 @@ def main() -> int:
     by_path["families"] = phase_families(args.seed)
     *registry, registry_rows = phase_registry(args.seed)
     by_path["registry"] = tuple(registry)
+    *kimi, kimi_rows = phase_kimi(args.seed)
+    by_path["kimi"] = tuple(kimi)
     _, dryrun_records = phase_dryrun(args.seed)
     # the served weights' logits check runs once, in serve32
     *bench, bench_rows = phase_bench(args.seed, False, calibration,
@@ -5117,7 +5399,7 @@ def main() -> int:
     *shard, shard_rows = phase_shard(args.seed)
     by_path["shard"] = tuple(shard)
     # after the headline rows
-    for extra_rows in (registry_rows, bench_rows, shard_rows):
+    for extra_rows in (registry_rows, kimi_rows, bench_rows, shard_rows):
         for name, extra in extra_rows.items():
             rows[name] += extra
 

@@ -17,6 +17,12 @@
 // This is the simple version: f32 FMA on shared-memory tiles, no tensor
 // cores. At the prefill shape (S = 1024, D = 64) the work is bound by
 // operations, not bytes, so this version sits far above the card's bound.
+//
+// Every head dim up to 256: the kernel is compiled for a few padded widths
+// D (16, 32, 64, 128, 256) and takes the true head dim dt <= D at run
+// time; the columns dt..D-1 of the Q, K and V tiles are zeros (they add
+// nothing to a score), the output's are not stored, and the softmax scale
+// is 1/sqrt(dt), the true head dim's.
 
 #include <cmath>
 
@@ -39,6 +45,7 @@ struct Strides {
 
 // Thread (ty, tx) owns query rows ty + 16 i (i < 4); of the score tile the
 // columns tx + 16 j (j < 4), of the output the dims tx + 16 jd (jd < D/16).
+// D is the padded width; dt <= D the true head dim.
 // The 16 threads of one row are 16 neighbouring lanes of a warp, so the row
 // reductions are shuffles.
 template <typename T, int D>
@@ -47,7 +54,7 @@ flash_attention_kernel(const T* __restrict__ Q, const T* __restrict__ Kp,
                        const T* __restrict__ V, T* __restrict__ O, int Hq,
                        int group, int Sq, int Skv, Strides qs, Strides ks,
                        Strides vs, Strides os, int causal, int window,
-                       float sm_scale) {
+                       int dt, float sm_scale) {
   constexpr int DJ = D / 16;
   constexpr int LDQ = D + 1;
   constexpr int LDK = D + 1;
@@ -75,7 +82,8 @@ flash_attention_kernel(const T* __restrict__ Q, const T* __restrict__ Kp,
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int rr = idx / D, d = idx % D;
     const int row = q0 + rr;
-    Qs[rr * LDQ + d] = row < Sq ? to_f32<T>(qp[row * qs.s + d]) : 0.f;
+    Qs[rr * LDQ + d] =
+        row < Sq && d < dt ? to_f32<T>(qp[row * qs.s + d]) : 0.f;
   }
 
   float m_i[4], l_i[4], acc[4][DJ];
@@ -100,7 +108,7 @@ flash_attention_kernel(const T* __restrict__ Q, const T* __restrict__ Kp,
     for (int idx = tid; idx < BKV * D; idx += NT) {
       const int rr = idx / D, d = idx % D;
       const int key = k0 + rr;
-      const bool ok = key < Skv;
+      const bool ok = key < Skv && d < dt;
       Ks[rr * LDK + d] = ok ? to_f32<T>(kp[key * ks.s + d]) : 0.f;
       Vs[rr * LDV + d] = ok ? to_f32<T>(vp[key * vs.s + d]) : 0.f;
     }
@@ -181,14 +189,15 @@ flash_attention_kernel(const T* __restrict__ Q, const T* __restrict__ Kp,
     const float l = fmaxf(l_i[i], 1e-20f);
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd)
-      op[row * os.s + tx + 16 * jd] = from_f32<T>(acc[i][jd] / l);
+      if (tx + 16 * jd < dt)
+        op[row * os.s + tx + 16 * jd] = from_f32<T>(acc[i][jd] / l);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
-                   Strides vs, Strides os, int causal, int window,
+                   int Hq, int Hkv, int Sq, int Skv, int dt, Strides qs,
+                   Strides ks, Strides vs, Strides os, int causal, int window,
                    cudaStream_t stream) {
   constexpr size_t smem_bytes =
       sizeof(float) * (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
@@ -199,31 +208,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   // heads vary fastest: the heads of one GQA group, which share their K and V
   // tiles, are scheduled side by side
   const dim3 grid(B * Hq, ceil_div(Sq, BQ));
-  const float sm_scale = 1.0f / sqrtf((float)D);
+  const float sm_scale = 1.0f / sqrtf((float)dt);   // the true head dim's
   kernel<<<grid, NT, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hkv, Sq, Skv, qs,
-      ks, vs, os, causal, window, sm_scale);
+      ks, vs, os, causal, window, dt, sm_scale);
   return cudaGetLastError();
 }
 
+// the narrowest padded width that holds head dim D
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int causal, int window, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D <= 16)
+    return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qs, ks, vs, os, causal, window, stream);
+  if (D <= 32)
+    return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qs, ks, vs, os, causal, window, stream);
+  if (D <= 64)
+    return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qs, ks, vs, os, causal, window, stream);
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qs, ks, vs, os, causal, window, stream);
+  return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qs, ks, vs, os, causal, window, stream);
 }
 
 }  // namespace
@@ -232,7 +240,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 // stream, does not synchronise, allocates nothing, returns the cudaError_t of
 // the launch (0 on success). Logical shapes q, o: (B, Hq, Sq, D) and k, v:
 // (B, Hkv, Skv, D), each addressed through its (batch, head, seq) strides in
-// elements with the last dim contiguous. Head dims 16, 32, 64, 128.
+// elements with the last dim contiguous. Any head dim from 1 to 256.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,

@@ -1,10 +1,10 @@
 // Flash attention on the tensor cores of Hopper (sm_90a), f32, written by
 // hand. It takes the place of the Pallas TPU kernel flash_attention of
 // src/repro/kernels/flash_attention.py for f32 inputs whose head dim is 16,
-// 32, 64 or 128 and whose pointers and strides allow 16-byte copies; other
-// f32 inputs stay on the SIMT kernel of flash_attention.cu, bf16 on
-// flash_attention_tc.cu (the wrapper chooses by shape, dtype and alignment,
-// never by failure).
+// 32, 64 or 72, 80, ..., 128 and whose pointers and strides allow 16-byte
+// copies; other f32 inputs stay on the SIMT kernel of flash_attention.cu,
+// bf16 on flash_attention_ws.cu and flash_attention_tc.cu (the wrapper
+// chooses by shape, dtype and alignment, never by failure).
 //
 // What bounds it on this card: at the calibrate path's shapes (S = 128 to
 // 512, D = 32 or 64, causal) attention does hundreds of FLOP per byte it
@@ -35,6 +35,12 @@
 //     four lanes of a row by shuffles; P leaves S's accumulator layout (row
 //     g, columns 2t, 2t + 1) and enters P V in the a-fragment layout (row g,
 //     columns t, t + 4) by quad shuffles, split into (hi, lo) on the way.
+//
+// Head dims 72 to 120 (multiples of 8; kimi-k2-1t-a32b's 112) run the
+// D = 128 instantiation with the true head dim d at run time: the copies of
+// columns d..127 are zero-filled (cp.async with no source bytes), so they
+// add nothing to a score and P V gives zeros there, which are not stored;
+// the scale is 1/sqrt(d). Such a call does 128/d of the products it needs.
 //
 // The rules are the TPU kernel's: positions 0..S-1; masked scores -1e30
 // (causal keeps j <= i, a window keeps j > i - window, keys past Skv are
@@ -102,7 +108,7 @@ flash_attention_tf32_kernel(const float* __restrict__ Q,
                             const float* __restrict__ V, float* __restrict__ O,
                             int Hq, int group, int Sq, int Skv, Strides qs,
                             Strides ks, Strides vs, Strides os, int causal,
-                            int window, float c_log2) {
+                            int window, int dt, float c_log2) {
   using C = Cfg<D>;
   constexpr int KB = C::KB, OC = C::OC, NOC = C::NOC;
   constexpr int LDK = C::LDK, LDV = C::LDV, STAGE = C::STAGE;
@@ -138,7 +144,7 @@ flash_attention_tf32_kernel(const float* __restrict__ Q,
     for (int c = tid; c < SK * DQ; c += NT) {
       const int row = c / DQ, q = c % DQ;
       const int key = k0 + row;
-      const bool ok = key < Skv;
+      const bool ok = key < Skv && 4 * q < dt;
       cp_async16(smem_u32(kr + row * LDK + 4 * q),
                  ok ? kp + key * ks.s + 4 * q : kp, ok);
       cp_async16(smem_u32(vr + row * LDV + 4 * q),
@@ -152,7 +158,7 @@ flash_attention_tf32_kernel(const float* __restrict__ Q,
   float* qraw = ring + STAGE;
   for (int c = tid; c < BQ * DQ; c += NT) {
     const int row = c / DQ, q = c % DQ;
-    const bool ok = q0 + row < Sq;
+    const bool ok = q0 + row < Sq && 4 * q < dt;
     cp_async16(smem_u32(qraw + row * LDK + 4 * q),
                ok ? qp + (q0 + row) * qs.s + 4 * q : qp, ok);
   }
@@ -366,6 +372,7 @@ flash_attention_tf32_kernel(const float* __restrict__ Q,
         v[e] = acc * l[rr];
       }
       const int col = 8 * (cc * OC + n) + 2 * t;
+      if (col >= dt) continue;           // dt is a multiple of 8
       if (ia < Sq)
         *reinterpret_cast<float2*>(op + ia * os.s + col) = make_float2(v[0], v[1]);
       if (ib < Sq)
@@ -377,7 +384,7 @@ template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int Hq, int Hkv, int Sq, int Skv, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal, int window,
-                   cudaStream_t stream) {
+                   int dt, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * Cfg<D>::FLOATS;
   auto kernel = flash_attention_tf32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -386,9 +393,10 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   // heads vary fastest: the heads of one GQA group, which read the same K
   // and V, are scheduled side by side
   const dim3 grid(B * Hq, ceil_div(Sq, BQ));
-  const float c_log2 = 1.4426950408889634f / sqrtf((float)D);
+  // 1/sqrt of the true head dim, not of the template's
+  const float c_log2 = 1.4426950408889634f / sqrtf((float)dt);
   kernel<<<grid, NT, bytes, stream>>>(q, k, v, o, Hq, Hq / Hkv, Sq, Skv, qs,
-                                      ks, vs, os, causal, window, c_log2);
+                                      ks, vs, os, causal, window, dt, c_log2);
   return cudaGetLastError();
 }
 
@@ -400,7 +408,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // Logical shapes q, o: (B, Hq, Sq, D) and k, v: (B, Hkv, Skv, D), f32, each
 // addressed through its (batch, head, seq) strides in elements with the last
 // dim contiguous; pointers 16-byte aligned and strides multiples of 4. Head
-// dims 16, 32, 64, 128.
+// dims 16, 32, 64 and 72, 80, ..., 128.
 extern "C" int flash_attention_tf32_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
@@ -426,14 +434,14 @@ extern "C" int flash_attention_tf32_launch(
   float* oo = static_cast<float*>(o);
   switch (D) {
     case 16:
-      return (int)launch<16>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
+      return (int)launch<16>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, D, s);
     case 32:
-      return (int)launch<32>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
+      return (int)launch<32>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, D, s);
     case 64:
-      return (int)launch<64>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
-    case 128:
-      return (int)launch<128>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, s);
+      return (int)launch<64>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, D, s);
     default:
+      if (D >= 72 && D <= 128 && D % 8 == 0)
+        return (int)launch<128>(qq, kk, vv, oo, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, causal, window, D, s);
       return -1;
   }
 }

@@ -1,7 +1,7 @@
-// Flash attention for Hopper (sm_90a), bf16, head dims 64 and 128, written
-// by hand as a warp-specialised persistent kernel. It takes the place of the
-// Pallas TPU kernel flash_attention of src/repro/kernels/flash_attention.py
-// for bf16 inputs whose pointers and strides allow TMA (16-byte aligned
+// Flash attention for Hopper (sm_90a), bf16, head dims 64 and 72, 80, ...,
+// 128 (multiples of 8), written by hand as a warp-specialised persistent
+// kernel. It takes the place of the Pallas TPU kernel flash_attention of
+// src/repro/kernels/flash_attention.py for bf16 inputs whose pointers and strides allow TMA (16-byte aligned
 // bases, strides in whole 16-byte steps); the wrapper chooses it by dtype,
 // head dim and alignment alone, never by failure.
 //
@@ -60,6 +60,14 @@
 // 1e-20; kv_head = q_head / group, no broadcast copy; q, k, v and o read
 // and written in place through their (batch, head, seq) strides.
 //
+// Head dims 72 to 120 (multiples of 8, kimi-k2-1t-a32b's 112 among them)
+// run the D = 128 instantiation: the tensor maps are encoded with the
+// tensor's true head dim, so TMA fills a box's columns past it with zeros
+// on a load (they add nothing to Q K^T, and P V writes zeros there) and
+// clips them on the store; the softmax scale is 1/sqrt of the true head
+// dim. Such a call does 128/D of the products its head dim needs. A row of
+// a multiple of 8 bf16 is a whole number of TMA's 16-byte steps.
+//
 // The order of the work items is mirrored in Python by
 // repro_torch.kernels.flash_attention.ws_qtile_order and ws_block_items
 // (tested on the CPU).
@@ -97,6 +105,7 @@ struct Strides {
 struct Sched {
   int B, Hq, group, Sq, Skv, causal, window;
   int nqt, nkb, peak, n_items;
+  int d;                                // the true head dim (<= the template's)
 };
 
 // KV tiles [kb_begin, kb_end) of query tile qt: the tiles holding at least
@@ -476,7 +485,7 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int i = 0; i < D / 2; i += 2) {
           const int row = qw + r_lo + 8 * ((i >> 1) & 1);
-          if (row < sc.Sq)
+          if (row < sc.Sq && acc_col(wt, i) < sc.d)
             *reinterpret_cast<__nv_bfloat162*>(op + row * os.s +
                                                acc_col(wt, i)) =
                 __floats2bfloat162_rn(0.f, 0.f);
@@ -633,7 +642,8 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  // 1/sqrt of the true head dim, not of the template's
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)sc.d);
   kernel<<<blocks, NT, Smem<D>::BYTES, stream>>>(
       tq, tk, tv, to, static_cast<bf16*>(o), sc, os, scale_log2);
   return cudaGetLastError();
@@ -649,7 +659,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // passes min(work items, SMs)). Logical shapes q, o: (B, Hq, Sq, D) and k, v:
 // (B, Hkv, Skv, D), bf16, each addressed through its (batch, head, seq)
 // strides in elements with the last dim contiguous; pointers 16-byte aligned,
-// strides multiples of 8; head dims 64 and 128.
+// strides multiples of 8; head dims 64 and 72, 80, ..., 128.
 extern "C" int flash_attention_ws_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long q_b, long long q_h,
@@ -657,7 +667,8 @@ extern "C" int flash_attention_ws_launch(
     long long v_h, long long v_s, long long o_b, long long o_h, long long o_s,
     int causal, int window, int blocks, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 ||
-      blocks < 1 || (D != 64 && D != 128) || window < 0)
+      blocks < 1 || !(D == 64 || (D >= 72 && D <= 128 && D % 8 == 0)) ||
+      window < 0)
     return -1;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
@@ -667,7 +678,7 @@ extern "C" int flash_attention_ws_launch(
   for (long long st : strides)
     if (st % 8) return -1;
   Sched sc{B, Hq, Hq / Hkv, Sq, Skv, causal ? 1 : 0, window,
-           ceil_div(Sq, BQ), ceil_div(Skv, BKV), 0, 0};
+           ceil_div(Sq, BQ), ceil_div(Skv, BKV), 0, 0, D};
   if ((long long)sc.nqt * B * Hq >= (1ll << 31)) return -1;
   sc.n_items = sc.nqt * B * Hq;
   while (sc.peak + 1 < sc.nqt && weight(sc, sc.peak + 1) > weight(sc, sc.peak))
@@ -681,6 +692,6 @@ extern "C" int flash_attention_ws_launch(
   if (blocks > sc.n_items) blocks = sc.n_items;
   const Strides os{o_b, o_h, o_s};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(tq, tk, tv, to, o, sc, os, blocks, s);
-  return launch<64>(tq, tk, tv, to, o, sc, os, blocks, s);
+  if (D == 64) return launch<64>(tq, tk, tv, to, o, sc, os, blocks, s);
+  return launch<128>(tq, tk, tv, to, o, sc, os, blocks, s);
 }

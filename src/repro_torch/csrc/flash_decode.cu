@@ -59,6 +59,26 @@
 // clamped at 1e-20 before the division, so a query with no valid slot (t past
 // the end of a linear cache and its window) gives zeros. Scores, softmax and
 // the weighted sum are f32 for f32 and bf16 caches alike.
+//
+// Every shape the TPU kernel takes, up to head dim 256:
+//
+//   * head dims: the kernel is compiled for a few padded widths (bf16 16,
+//     32, 64, 112, 128, 256; f32 16, 32, 64, 128, 256) and takes the row
+//     length d <= that width at run time; the copies of a row's 16-byte
+//     chunks past d are zero-filled (no source bytes), q's dims past d are
+//     zeros, and only the first d dims of the output are written. d is a
+//     whole number of 16-byte chunks (the wrapper pads a row that is not
+//     with zero columns); the scale 1/sqrt of the true head dim comes from
+//     the wrapper;
+//   * any number G of queries a group: bf16 takes 16 queries into the two
+//     halves of one m16 tile (8 where the head dim is above 128: the
+//     merge's shared memory), f32 up to 8; a larger group is cut into
+//     chunks of that many along the grid's z axis, each of which reads its
+//     piece of K and V (from L2 after the first);
+//   * t as a Python int or as one int32 or int64 on the card (t_dev): the
+//     kernel reads t through the pointer (no cast kernel before it), and
+//     the wrapper sizes the split from the cache length rather than from
+//     t, so nothing is read back.
 
 #include <cmath>
 #include <cstdint>
@@ -109,6 +129,13 @@ __device__ __forceinline__ void unpack(const uint4& v, float (&out)[4]) {
 template <int GM>
 __host__ __device__ constexpr int tile_steps() { return GM <= 4 ? 8 : 4; }
 
+// f32: lanes that hold one row of the padded width D (16-byte chunks of
+// four values, at most a warp), and chunks each of them holds
+template <int D>
+__host__ __device__ constexpr int f32_lpr() { return D / 4 < 32 ? D / 4 : 32; }
+template <int D>
+__host__ __device__ constexpr int f32_cpl() { return D / 4 / f32_lpr<D>(); }
+
 // bf16 (tensor cores): slots of a warp tile, whatever D and G
 constexpr int MMA_TS = 32;
 
@@ -117,7 +144,7 @@ template <typename T, int D, int GM>
 __host__ __device__ constexpr int tile_bytes() {
   return std::is_same<T, __nv_bfloat16>::value
              ? 2 * MMA_TS * (2 * D + 16)
-             : 2 * tile_steps<GM>() * 32 * 16;
+             : 2 * tile_steps<GM>() * 32 * 16 * f32_cpl<D>();
 }
 
 // slots of a warp tile
@@ -125,7 +152,14 @@ template <typename T, int D, int GM>
 __host__ __device__ constexpr int tile_slots() {
   return std::is_same<T, __nv_bfloat16>::value
              ? MMA_TS
-             : (32 / (D / (16 / (int)sizeof(T)))) * tile_steps<GM>();
+             : (32 / f32_lpr<D>()) * tile_steps<GM>();
+}
+
+// tile buffers a warp may hold: two, unless two would pass 160 KB a block
+// (bf16 at D = 256)
+template <typename T, int D, int GM>
+__host__ __device__ constexpr int max_buffers() {
+  return 2 * NW * tile_bytes<T, D, GM>() <= 160 * 1024 ? 2 : 1;
 }
 
 // the run of slots position t can see: [lo, lo + len)
@@ -139,11 +173,13 @@ __host__ __device__ inline Run valid_run(int t, int slots, int window) {
   return {lo, hi >= lo ? hi - lo + 1 : 0};
 }
 
-// tile buffers a warp needs: two when its piece takes more than one round
-// of tiles (the next tile's copies then go out while one is used), else one
+// tile buffers a warp uses: two when its piece of a run of `len` slots
+// takes more than one round of tiles (the next tile's copies then go out
+// while one is used) and two fit, else one
 template <typename T, int D, int GM>
 __host__ __device__ inline int tile_buffers(int len, int nsplit) {
-  return ceil_div(len, nsplit) > NW * tile_slots<T, D, GM>() ? 2 : 1;
+  return ceil_div(len, nsplit) > NW * tile_slots<T, D, GM>()
+             ? max_buffers<T, D, GM>() : 1;
 }
 
 // two bf16 of the cache as the b32 an mma operand register holds
@@ -174,13 +210,19 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// GM = most queries per group this instantiation holds.
+// D = the padded head dim this instantiation holds, dt <= D the row length
+// at run time; GM = most queries of a group a block holds (the block takes
+// queries g0 = GM * blockIdx.z onwards); nbuf = tile buffers a warp uses
+// (the launch sized the dynamic shared memory for them).
 template <typename T, int D, int GM>
 __global__ void __launch_bounds__(NT)
 flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
                           const T* __restrict__ V, T* __restrict__ O, int Hkv,
-                          int G, int slots, int t, int window, Strides qs,
-                          Strides ks, Strides vs, float scale_log2) {
+                          int G, int slots, int t_arg,
+                          const void* __restrict__ t_dev, int t_is64,
+                          int window, int dt,
+                          int nbuf, Strides qs, Strides ks, Strides vs,
+                          float scale_log2) {
   constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
   __shared__ float sm_m[NW][GM];
   __shared__ float sm_l[NW][GM];
@@ -196,46 +238,57 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
   const int h = bh % Hkv;
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
+  const int g0 = GM * blockIdx.z;      // this block's queries of the group
+  const int Gc = min(GM, G - g0);
+  const int t = !t_dev ? t_arg
+                 : t_is64 ? static_cast<int>(*static_cast<const long long*>(t_dev))
+                          : *static_cast<const int*>(t_dev);
   const bool ring = window > 0 && window <= slots;
+  const T* qb = Q + b * qs.b + h * qs.h + g0 * qs.s;
 
   // the run of slots t can see, cut into nsplit contiguous pieces
   const Run run = valid_run(t, slots, window);
   const int chunk = ceil_div(run.len, nsplit);
   const int j0 = run.lo + split * chunk;
   const int j1 = min(j0 + chunk, run.lo + run.len);
-  // this warp's tile buffers in the dynamic shared memory
-  const int nbuf = tile_buffers<T, D, GM>(run.len, nsplit);
   constexpr int BUF = tile_bytes<T, D, GM>();
+  // one buffer a warp (bf16 at D = 256): the next tile's copies wait until
+  // this one is used; else two, and nbuf == 1 only when the piece takes one
+  // round of tiles, so the prefetch below never fires
+  constexpr bool ONE_BUF = max_buffers<T, D, GM>() == 1;
   auto valid = [&](int j) {
     return j < j1 && (!ring || slot_valid(j, t, slots, window, true));
   };
 
   if constexpr (MMA) {
     // bf16: both products on the tensor cores (mma.sync m16n8k16), the
-    // queries as the 16-row operand (rows G..15 zero), a warp tile of 32
+    // queries as the 16-row operand (rows g and g + 8 of a thread: queries
+    // g and, where GM = 16, g + 8; the others zero), a warp tile of 32
     // slots staged with a padded pitch so that ldmatrix reads it without
     // bank conflicts. S = q K^T: B = K rows as they lie (slot-major), 4
     // n-tiles of 8 slots x D/16 k-steps. O += P V: P from S's accumulator
     // registers, split into a bf16 high and low part (two products, so P
     // keeps about 16 bits, as the f32 plain version does), B = V through
-    // ldmatrix.trans. A thread holds one query (lane / 4) and two slots or
-    // two dims of each 8-wide tile.
+    // ldmatrix.trans. A thread holds two slots or two dims of each 8-wide
+    // tile of its rows.
+    constexpr int RH = GM / 8;           // row halves of the m16 tile in use
     constexpr int PITCH = 2 * D + 16;    // bytes a staged row
     constexpr int CH = D / 8;            // 16-byte chunks a row
     constexpr int KSTEPS = D / 16;
+    static_assert(RH == 1 || RH == 2, "one m16 tile");
     const int g = lane / 4, c = lane % 4;
     extern __shared__ uint4 kv_smem[];
     const uint32_t tiles = repro::sm90::smem_u32(kv_smem) +
                            warp * nbuf * BUF;   // [buf][K|V][slot]
     const T* kb = K + b * ks.b + h * ks.h;
     const T* vb = V + b * vs.b + h * vs.h;
-    // masked rows are zero-filled, not read
+    // masked rows and the chunks past dt are zero-filled, not read
     auto copy_tile = [&](int jt, int buf) {
 #pragma unroll
       for (int u = 0; u < CH; ++u) {
         const int i = lane + 32 * u, slot = i / CH, ch = i % CH;
         const int j = jt + slot;
-        const bool ok = valid(j);
+        const bool ok = valid(j) && 8 * ch < dt;
         const uint32_t dst = tiles + buf * BUF + slot * PITCH + ch * 16;
         repro::sm90::cp_async16(dst, ok ? kb + j * ks.s + ch * 8 : kb, ok);
         repro::sm90::cp_async16(dst + MMA_TS * PITCH,
@@ -245,32 +298,45 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
     };
     int jt = j0 + warp * MMA_TS;
     if (jt < j1) copy_tile(jt, 0);       // warp-uniform
-    // q as the A operand: rows lane / 4 < G, dims 2c, 2c+1 (+8) of a k-step
-    uint32_t qa[KSTEPS][2];
+    // q as the A operand: [k half][row half]: query g + 8 rh, dims
+    // 16 kk + 8 hh + 2c, + 1
+    uint32_t qa[KSTEPS][2][RH];
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int d = 16 * kk + 8 * hh + 2 * c;
-        const T* qp = Q + b * qs.b + h * qs.h + g * qs.s + d;
-        qa[kk][hh] = g < G ? pack2(qp[0], qp[1]) : 0u;
-      }
-    float m = NEG_INF, l = 0.f;
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int rh = 0; rh < RH; ++rh) {
+          const int d = 16 * kk + 8 * hh + 2 * c, gq = g + 8 * rh;
+          const T* qp = qb + gq * qs.s + d;
+          qa[kk][hh][rh] = gq < Gc && d < dt ? pack2(qp[0], qp[1]) : 0u;
+        }
+    float m[RH], l[RH];
+#pragma unroll
+    for (int rh = 0; rh < RH; ++rh) {
+      m[rh] = NEG_INF;
+      l[rh] = 0.f;
+    }
     float o[CH][4];
 #pragma unroll
     for (int dn = 0; dn < CH; ++dn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
 
-    for (int buf = 0; jt < j1; jt += NW * MMA_TS, buf ^= 1) {
-      if (jt + NW * MMA_TS < j1) copy_tile(jt + NW * MMA_TS, buf ^ 1);
-      else repro::sm90::cp_async_commit();
-      repro::sm90::cp_async_wait<1>();
+    for (int buf = 0; jt < j1; jt += NW * MMA_TS) {
+      const int next = jt + NW * MMA_TS;
+      if constexpr (ONE_BUF) {
+        repro::sm90::cp_async_wait<0>();
+      } else {                           // the next tile's copies go out first
+        if (next < j1) copy_tile(next, buf ^ 1);
+        else repro::sm90::cp_async_commit();
+        repro::sm90::cp_async_wait<1>();
+      }
       __syncwarp();                      // the lanes' copies, for ldmatrix
       const uint32_t kt = tiles + buf * BUF;
       const uint32_t vt = kt + MMA_TS * PITCH;
-      // S (16 x 32): 4 n-tiles of 8 slots; this thread: query g, slots
-      // 8 nt + 2c, 2c + 1
+      // S (16 x 32): 4 n-tiles of 8 slots; this thread: rows g (e 0, 1)
+      // and g + 8 (e 2, 3), slots 8 nt + 2c, 2c + 1
       float sc[4][4];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -281,52 +347,68 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
           uint32_t bk[2];
           ldsm_x2(bk, kt + (8 * nt + (lane & 7)) * PITCH +
                           (2 * kk + ((lane >> 3) & 1)) * 16);
-          const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+          const uint32_t a[4] = {qa[kk][0][0], RH > 1 ? qa[kk][0][RH - 1] : 0u,
+                                 qa[kk][1][0], RH > 1 ? qa[kk][1][RH - 1] : 0u};
           mma_16816(sc[nt], a, bk);
         }
       }
-      float mt = NEG_INF;
+      float mt[RH];
+#pragma unroll
+      for (int rh = 0; rh < RH; ++rh) mt[rh] = NEG_INF;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = valid(jt + 8 * nt + 2 * c + e)
+        for (int e = 0; e < 2 * RH; ++e) {
+          const float x = valid(jt + 8 * nt + 2 * c + (e & 1))
                               ? sc[nt][e] * scale_log2 : NEG_INF;
           sc[nt][e] = x;
-          mt = fmaxf(mt, x);
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
         }
-      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
-      const float m_new = fmaxf(m, mt);
-      const float alpha = exp2f(m - m_new);
-      m = m_new;
-      l *= alpha;
+      float alpha[RH];
 #pragma unroll
-      for (int dn = 0; dn < CH; ++dn) {
-        o[dn][0] *= alpha;
-        o[dn][1] *= alpha;
+      for (int rh = 0; rh < RH; ++rh) {
+        mt[rh] = fmaxf(mt[rh], __shfl_xor_sync(FULL, mt[rh], 1));
+        mt[rh] = fmaxf(mt[rh], __shfl_xor_sync(FULL, mt[rh], 2));
+        const float m_new = fmaxf(m[rh], mt[rh]);
+        alpha[rh] = exp2f(m[rh] - m_new);
+        m[rh] = m_new;
+        l[rh] *= alpha[rh];
       }
-      // P as the A operand of two k-steps of 16 slots, high and low parts
-      uint32_t ph[2][2], pl[2][2];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float p[2];
+      for (int dn = 0; dn < CH; ++dn)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          p[e] = sc[nt][e] > 0.5f * NEG_INF ? exp2f(sc[nt][e] - m) : 0.f;
-          l += p[e];
+        for (int e = 0; e < 2 * RH; ++e) o[dn][e] *= alpha[e >> 1];
+      // P as the A operand of two k-steps of 16 slots, high and low parts:
+      // [n-tile][row half]
+      uint32_t ph[4][2], pl[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          if (rh >= RH) {
+            ph[nt][rh] = pl[nt][rh] = 0u;
+            continue;
+          }
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = sc[nt][2 * rh + e];
+            p[e] = x > 0.5f * NEG_INF ? exp2f(x - m[rh]) : 0.f;
+            l[rh] += p[e];
+          }
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p[0], p[1]);
+          const float2 hf = __bfloat1622float2(hi);
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(p[0] - hf.x, p[1] - hf.y);
+          ph[nt][rh] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[nt][rh] = *reinterpret_cast<const uint32_t*>(&lo);
         }
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p[0], p[1]);
-        const float2 hf = __bfloat1622float2(hi);
-        const __nv_bfloat162 lo =
-            __floats2bfloat162_rn(p[0] - hf.x, p[1] - hf.y);
-        ph[nt / 2][nt % 2] = *reinterpret_cast<const uint32_t*>(&hi);
-        pl[nt / 2][nt % 2] = *reinterpret_cast<const uint32_t*>(&lo);
-      }
 #pragma unroll
       for (int kq = 0; kq < 2; ++kq) {
-        const uint32_t ah[4] = {ph[kq][0], 0u, ph[kq][1], 0u};
-        const uint32_t al[4] = {pl[kq][0], 0u, pl[kq][1], 0u};
+        const uint32_t ah[4] = {ph[2 * kq][0], ph[2 * kq][1],
+                                ph[2 * kq + 1][0], ph[2 * kq + 1][1]};
+        const uint32_t al[4] = {pl[2 * kq][0], pl[2 * kq][1],
+                                pl[2 * kq + 1][0], pl[2 * kq + 1][1]};
 #pragma unroll
         for (int dn = 0; dn < CH; ++dn) {
           uint32_t bv[2];
@@ -336,59 +418,77 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
         }
       }
       __syncwarp();                      // done with buf before it refills
+      if constexpr (ONE_BUF) {
+        if (next < j1) copy_tile(next, 0);
+      } else {
+        buf ^= 1;
+      }
     }
     // l over the four lanes of a query; o: each (query, dim) in one lane
-    l += __shfl_xor_sync(FULL, l, 1);
-    l += __shfl_xor_sync(FULL, l, 2);
-    if (g < G) {
-      if (c == 0) {
-        sm_m[warp][g] = m;
-        sm_l[warp][g] = l;
-      }
 #pragma unroll
-      for (int dn = 0; dn < CH; ++dn) {
-        sm_acc[warp][g][8 * dn + 2 * c] = o[dn][0];
-        sm_acc[warp][g][8 * dn + 2 * c + 1] = o[dn][1];
+    for (int rh = 0; rh < RH; ++rh) {
+      l[rh] += __shfl_xor_sync(FULL, l[rh], 1);
+      l[rh] += __shfl_xor_sync(FULL, l[rh], 2);
+      const int gq = g + 8 * rh;
+      if (gq < Gc) {
+        if (c == 0) {
+          sm_m[warp][gq] = m[rh];
+          sm_l[warp][gq] = l[rh];
+        }
+#pragma unroll
+        for (int dn = 0; dn < CH; ++dn) {
+          sm_acc[warp][gq][8 * dn + 2 * c] = o[dn][2 * rh];
+          sm_acc[warp][gq][8 * dn + 2 * c + 1] = o[dn][2 * rh + 1];
+        }
       }
     }
   } else {
-    // f32 on the CUDA cores: a row of K or V is LPR lanes of VE values
+    // f32 on the CUDA cores: a row of K or V is LPR lanes, each holding CPL
+    // 16-byte chunks of VE values (chunk li + LPR cc of the row)
     constexpr int VE = 4;                // values per 16-byte copy
-    constexpr int LPR = D / VE;          // lanes per row
+    constexpr int LPR = f32_lpr<D>();    // lanes per row
+    constexpr int CPL = f32_cpl<D>();    // chunks per lane
     constexpr int RPW = 32 / LPR;        // rows per warp copy
     constexpr int STEPS = tile_steps<GM>();
     constexpr int TS = RPW * STEPS;      // slots per warp tile
     static_assert(LPR >= 4 && LPR <= 32 && 32 % LPR == 0, "head dim");
     const int rg = lane / LPR;           // row of the warp copy
-    const int li = lane % LPR;           // 16-byte slice of the row
-    float m[GM], l[GM], acc[GM][VE];
+    const int li = lane % LPR;           // first 16-byte chunk of the lane
+    float m[GM], l[GM], acc[GM][CPL][VE];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       m[g] = NEG_INF;
       l[g] = 0.f;
 #pragma unroll
-      for (int e = 0; e < VE; ++e) acc[g][e] = 0.f;
+      for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) acc[g][cc][e] = 0.f;
     }
 
-    // The warp's two tile buffers, (K, V) x STEPS x 32 lanes of 16 bytes. A
-    // lane copies its own 16-byte slices and reads only those back, so a
+    // The warp's tile buffers, (K, V) x STEPS x CPL x 32 lanes of 16 bytes.
+    // A lane copies its own 16-byte slices and reads only those back, so a
     // wait on its own copies is all the synchronisation there is.
     extern __shared__ uint4 kv_smem[];
     const uint32_t tiles = repro::sm90::smem_u32(kv_smem) + warp * nbuf * BUF;
     const uint4* my = kv_smem + warp * nbuf * BUF / 16 + lane;
-    const T* kp = K + b * ks.b + h * ks.h + li * VE;
-    const T* vp = V + b * vs.b + h * vs.h + li * VE;
-    // masked rows are zero-filled, not read
+    const T* kp = K + b * ks.b + h * ks.h;
+    const T* vp = V + b * vs.b + h * vs.h;
+    // masked rows and the chunks past dt are zero-filled, not read
     auto copy_tile = [&](int jt, int buf) {
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) {
         const int j = jt + st * RPW + rg;
-        const bool ok = valid(j);
-        const uint32_t dst =
-            tiles + (((buf * 2) * STEPS + st) * 32 + lane) * 16;
-        repro::sm90::cp_async16(dst, ok ? kp + j * ks.s : kp, ok);
-        repro::sm90::cp_async16(dst + STEPS * 32 * 16, ok ? vp + j * vs.s : vp,
-                                ok);
+        const bool row_ok = valid(j);
+#pragma unroll
+        for (int cc = 0; cc < CPL; ++cc) {
+          const int col = (li + LPR * cc) * VE;
+          const bool ok = row_ok && col < dt;
+          const uint32_t dst =
+              tiles + ((((buf * 2) * STEPS + st) * CPL + cc) * 32 + lane) * 16;
+          repro::sm90::cp_async16(dst, ok ? kp + j * ks.s + col : kp, ok);
+          repro::sm90::cp_async16(dst + STEPS * CPL * 32 * 16,
+                                  ok ? vp + j * vs.s + col : vp, ok);
+        }
       }
       repro::sm90::cp_async_commit();
     };
@@ -396,34 +496,45 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
     int jt = j0 + warp * TS;
     if (jt < j1) copy_tile(jt, 0);       // warp-uniform
     // q, once the first tile's copies are in flight
-    float qr[GM][VE];
+    float qr[GM][CPL][VE];
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
-      for (int e = 0; e < VE; ++e)
-        qr[g][e] = g < G ? to_f32<T>(Q[b * qs.b + h * qs.h + g * qs.s +
-                                       li * VE + e]) * scale_log2
-                         : 0.f;
+      for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          const int col = (li + LPR * cc) * VE + e;
+          qr[g][cc][e] = g < Gc && col < dt
+                             ? to_f32<T>(qb[g * qs.s + col]) * scale_log2
+                             : 0.f;
+        }
 
-    for (int buf = 0; jt < j1; jt += NW * TS, buf ^= 1) {
-      // the next tile's copies go out before this one is used
-      if (jt + NW * TS < j1) copy_tile(jt + NW * TS, buf ^ 1);
-      else repro::sm90::cp_async_commit();
-      repro::sm90::cp_async_wait<1>();
-      const uint4* kt = my + (buf * 2) * STEPS * 32;
-      const uint4* vt = kt + STEPS * 32;
+    for (int buf = 0; jt < j1; jt += NW * TS) {
+      const int next = jt + NW * TS;
+      if constexpr (ONE_BUF) {
+        repro::sm90::cp_async_wait<0>();
+      } else {                           // the next tile's copies go out first
+        if (next < j1) copy_tile(next, buf ^ 1);
+        else repro::sm90::cp_async_commit();
+        repro::sm90::cp_async_wait<1>();
+      }
+      const uint4* kt = my + (buf * 2) * STEPS * CPL * 32;
+      const uint4* vt = kt + STEPS * CPL * 32;
       // scores of the tile (log2 domain), reduced over the row's lanes
       float s[STEPS][GM];
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) {
         const bool ok = valid(jt + st * RPW + rg);
-        float kf[VE];
-        unpack(kt[st * 32], kf);
+        float kf[CPL][VE];
+#pragma unroll
+        for (int cc = 0; cc < CPL; ++cc) unpack(kt[(st * CPL + cc) * 32], kf[cc]);
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           float x = 0.f;
 #pragma unroll
-          for (int e = 0; e < VE; ++e) x = fmaf(qr[g][e], kf[e], x);
+          for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+            for (int e = 0; e < VE; ++e) x = fmaf(qr[g][cc][e], kf[cc][e], x);
 #pragma unroll
           for (int off = LPR / 2; off > 0; off >>= 1)
             x += __shfl_xor_sync(FULL, x, off);
@@ -444,20 +555,31 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
         m[g] = m_new;
         l[g] *= alpha;
 #pragma unroll
-        for (int e = 0; e < VE; ++e) acc[g][e] *= alpha;
+        for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[g][cc][e] *= alpha;
       }
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) {
-        float vf[VE];
-        unpack(vt[st * 32], vf);
+        float vf[CPL][VE];
+#pragma unroll
+        for (int cc = 0; cc < CPL; ++cc) unpack(vt[(st * CPL + cc) * 32], vf[cc]);
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           const float p = s[st][g] > 0.5f * NEG_INF ? exp2f(s[st][g] - m[g])
                                                     : 0.f;
           l[g] += p;
 #pragma unroll
-          for (int e = 0; e < VE; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+          for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+            for (int e = 0; e < VE; ++e)
+              acc[g][cc][e] = fmaf(p, vf[cc][e], acc[g][cc][e]);
         }
+      }
+      if constexpr (ONE_BUF) {
+        if (next < j1) copy_tile(next, 0);
+      } else {
+        buf ^= 1;
       }
     }
 
@@ -468,25 +590,33 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
       for (int off = LPR; off < 32; off <<= 1) {
         l[g] += __shfl_xor_sync(FULL, l[g], off);
 #pragma unroll
-        for (int e = 0; e < VE; ++e)
-          acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+        for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+          for (int e = 0; e < VE; ++e)
+            acc[g][cc][e] += __shfl_xor_sync(FULL, acc[g][cc][e], off);
       }
-      if (g < G && rg == 0) {
+      if (g < Gc && rg == 0) {
         if (li == 0) {
           sm_m[warp][g] = m[g];
           sm_l[warp][g] = l[g];
         }
 #pragma unroll
-        for (int e = 0; e < VE; ++e) sm_acc[warp][g][li * VE + e] = acc[g][e];
+        for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+          for (int e = 0; e < VE; ++e)
+            sm_acc[warp][g][(li + LPR * cc) * VE + e] = acc[g][cc][e];
       }
     }
   }
   __syncthreads();
 
   // merge the four warps: the output itself (one piece) or this piece's
-  // (m, l, acc), left in shared memory for block 0 of the cluster
-  for (int idx = threadIdx.x; idx < G * D; idx += NT) {
+  // (m, l, acc), left in shared memory for block 0 of the cluster. The
+  // output is (B, Hkv, G, dt), contiguous
+  T* ob = O + ((long long)bh * G + g0) * dt;
+  for (int idx = threadIdx.x; idx < Gc * D; idx += NT) {
     const int g = idx / D, d = idx % D;
+    if (d >= dt) continue;
     float mx = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
@@ -498,7 +628,7 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
       ll = fmaf(c, sm_l[w][g], ll);
     }
     if (nsplit == 1) {
-      O[((long long)bh * G + g) * D + d] = from_f32<T>(a / fmaxf(ll, 1e-20f));
+      ob[g * dt + d] = from_f32<T>(a / fmaxf(ll, 1e-20f));
       continue;
     }
     blk_acc[g][d] = a;
@@ -511,10 +641,9 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
 
   // block 0 of the cluster merges the pieces:
   // out[g, d] = sum_s c_s acc_s / max(sum_s c_s l_s, 1e-20),
-  // c_s = 2^(m_s - max_s m_s); the output is (B, Hkv, G, D), contiguous.
-  // The remote reads of a step are independent, so they overlap: a loop
-  // that waited on one read of distributed shared memory per piece would
-  // put nsplit round trips in series
+  // c_s = 2^(m_s - max_s m_s). The remote reads of a step are independent,
+  // so they overlap: a loop that waited on one read of distributed shared
+  // memory per piece would put nsplit round trips in series
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                      // every piece is in shared memory
   if (split == 0) {                    // uniform over the block
@@ -522,13 +651,13 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
     // then its weight c_s / max(sum_s c_s l_s, 1e-20) per query
     __shared__ float w_m[MAX_SPLITS][GM];
     __shared__ float w_l[MAX_SPLITS][GM];
-    for (int i = threadIdx.x; i < nsplit * G; i += NT) {
-      const int sp = i / G, g = i % G;
+    for (int i = threadIdx.x; i < nsplit * Gc; i += NT) {
+      const int sp = i / Gc, g = i % Gc;
       w_m[sp][g] = cluster.map_shared_rank(&blk_m[0], sp)[g];
       w_l[sp][g] = cluster.map_shared_rank(&blk_l[0], sp)[g];
     }
     __syncthreads();
-    if (threadIdx.x < G) {
+    if (threadIdx.x < Gc) {
       const int g = threadIdx.x;
       float mx = NEG_INF, ll = 0.f;
       for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, w_m[sp][g]);
@@ -540,88 +669,95 @@ flash_decode_split_kernel(const T* __restrict__ Q, const T* __restrict__ K,
       for (int sp = 0; sp < nsplit; ++sp) w_m[sp][g] *= inv;
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < G * D; idx += NT) {
+    for (int idx = threadIdx.x; idx < Gc * D; idx += NT) {
       const int g = idx / D, d = idx % D;
+      if (d >= dt) continue;
       float a = 0.f;
 #pragma unroll
       for (int sp = 0; sp < MAX_SPLITS; ++sp)
         if (sp < nsplit)
           a = fmaf(w_m[sp][g],
                    cluster.map_shared_rank(&blk_acc[0][0], sp)[g * D + d], a);
-      O[((long long)bh * G + g) * D + d] = from_f32<T>(a);
+      ob[g * dt + d] = from_f32<T>(a);
     }
   }
   cluster.sync();                      // keep the pieces alive until read
 }
 
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int B, Hkv, G, S, t;
+  const void* t_dev;                   // t on the card, or null
+  int t_is64;                          // t_dev's type: int64, else int32
+  int window, nsplit, dt;
+  float scale_log2;
+  Strides qs, ks, vs;
+};
+
 template <typename T, int D, int GM>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hkv, int G, int S, int t, int window, int nsplit,
-                   Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kernel = flash_decode_split_kernel<T, D, GM>;
   constexpr int BUF = tile_bytes<T, D, GM>();
-  const int smem =
-      NW * BUF * tile_buffers<T, D, GM>(valid_run(t, S, window).len, nsplit);
+  // a t on the card is not read here: the buffers are sized for the
+  // longest run, every slot
+  const int len = a.t_dev ? a.S : valid_run(a.t, a.S, a.window).len;
+  const int nbuf = tile_buffers<T, D, GM>(len, a.nsplit);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * NW * BUF);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max_buffers<T, D, GM>() * NW * BUF);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv, nsplit);
+  cfg.gridDim = dim3(a.B * a.Hkv, a.nsplit, ceil_div(a.G, GM));
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = nbuf * NW * BUF;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;        // the pieces of one (bh)
-  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.y = a.nsplit;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      Hkv, G, S, t, window, qs, ks, vs, scale_log2);
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.Hkv, a.G, a.S, a.t,
+      a.t_dev, a.t_is64, a.window, a.dt, nbuf, a.qs, a.ks, a.vs,
+      a.scale_log2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// queries a block holds: bf16 16 (8 above D = 128, where 16 would pass the
+// 48 KB of static shared memory of the merge), f32 2, 4 or 8
 template <typename T, int D>
-cudaError_t dispatch_g(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hkv, int G, int S, int t,
-                       int window, int nsplit, Strides qs,
-                       Strides ks, Strides vs, cudaStream_t stream) {
-  if (G > 8) return cudaErrorInvalidValue;
-  // bf16: one m16 tile holds every group size
-  if (std::is_same<T, __nv_bfloat16>::value)
-    return launch<T, D, 8>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-  if (G <= 2)
-    return launch<T, D, 2>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-  if (G <= 4)
-    return launch<T, D, 4>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-  if (G <= 8)
-    return launch<T, D, 8>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch_g(const Args& a, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (D > 128) {
+      return launch<T, D, 8>(a, stream);
+    } else {
+      if (a.G <= 8) return launch<T, D, 8>(a, stream);
+      return launch<T, D, 16>(a, stream);
+    }
+  } else {
+    if (a.G <= 2) return launch<T, D, 2>(a, stream);
+    if (a.G <= 4) return launch<T, D, 4>(a, stream);
+    return launch<T, D, 8>(a, stream);
+  }
 }
 
+// the narrowest padded width that holds the row length dt
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int Hkv, int G, int S,
-                       int t, int window, int nsplit,
-                       Strides qs, Strides ks, Strides vs,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return dispatch_g<T, 16>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-    case 32:
-      return dispatch_g<T, 32>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-    case 64:
-      return dispatch_g<T, 64>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-    case 128:
-      return dispatch_g<T, 128>(q, k, v, o, B, Hkv, G, S, t, window, nsplit, qs, ks, vs, stream);
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch_d(const Args& a, cudaStream_t stream) {
+  const int dt = a.dt;
+  if (dt <= 16) return dispatch_g<T, 16>(a, stream);
+  if (dt <= 32) return dispatch_g<T, 32>(a, stream);
+  if (dt <= 64) return dispatch_g<T, 64>(a, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (dt <= 112) return dispatch_g<T, 112>(a, stream);
   }
+  if (dt <= 128) return dispatch_g<T, 128>(a, stream);
+  return dispatch_g<T, 256>(a, stream);
 }
 
 // every K and V row starts on a 16-byte boundary
@@ -633,30 +769,33 @@ bool rows_aligned(const void* p, Strides st, int es) {
 }  // namespace
 
 // Plain C interface (bound with ctypes): enqueues the kernel (one launch;
-// grid (B * Hkv, nsplit), clusters of the nsplit pieces of one (b, h)) on
-// the given stream, does not synchronise, allocates nothing, returns the
-// cudaError_t of the launch (0 on success); -1: arguments the kernel does
-// not take. Logical shapes: q (B, Hkv, G, D), k and v (B, Hkv, S, D), each
-// addressed through its (batch, head, row) strides in elements with the
-// last dim contiguous, every row of k and v 16-byte aligned; o
-// (B, Hkv, G, D) contiguous; t is the position of the query token; nsplit
-// in 1..8. Head dims 16, 32, 64, 128; G <= 8.
+// grid (B * Hkv, nsplit, query chunks), clusters of the nsplit pieces of
+// one (b, h)) on the given stream, does not synchronise, allocates nothing,
+// returns the cudaError_t of the launch (0 on success); -1: arguments the
+// kernel does not take. Logical shapes: q (B, Hkv, G, D), k and v
+// (B, Hkv, S, D), each addressed through its (batch, head, row) strides in
+// elements with the last dim contiguous, every row of k and v 16-byte
+// aligned; o (B, Hkv, G, D) contiguous; D (the row length) up to 256 and a
+// whole number of 16-byte chunks; any G >= 1; t is the position of the
+// query token, read from t_dev (one int32, or int64 where t_is64, on the
+// card) where that is not null; scale the softmax's 1/sqrt(head dim);
+// nsplit in 1..8.
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, void* o, int B,
     int Hkv, int G, int S, int D, long long q_b, long long q_h, long long q_g,
     long long k_b, long long k_h, long long k_s, long long v_b, long long v_h,
-    long long v_s, int t, int window, int nsplit,
-    int is_bf16, void* stream) {
+    long long v_s, int t, const void* t_dev, int t_is64, int window,
+    int nsplit, float scale, int is_bf16, void* stream) {
   const int es = is_bf16 ? 2 : 4;
   const Strides qs{q_b, q_h, q_g}, ks{k_b, k_h, k_s}, vs{v_b, v_h, v_s};
   if (B < 1 || Hkv < 1 || G < 1 || S < 1 || nsplit < 1 ||
-      nsplit > MAX_SPLITS || window < 0 || !rows_aligned(k, ks, es) ||
+      nsplit > MAX_SPLITS || window < 0 || D < 1 || D > 256 ||
+      (D * es) % 16 != 0 || !rows_aligned(k, ks, es) ||
       !rows_aligned(v, vs, es))
     return -1;
+  const Args a{q, k, v, o, B, Hkv, G, S, t, t_dev, t_is64 ? 1 : 0, window,
+               nsplit, D, 1.4426950408889634f * scale, qs, ks, vs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Hkv, G, S, t,
-                                          window, nsplit, qs, ks, vs, s)
-              : dispatch_d<float>(D, q, k, v, o, B, Hkv, G, S, t, window,
-                                  nsplit, qs, ks, vs, s));
+  return static_cast<int>(is_bf16 ? dispatch_d<__nv_bfloat16>(a, s)
+                                  : dispatch_d<float>(a, s));
 }

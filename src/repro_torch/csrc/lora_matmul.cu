@@ -22,7 +22,14 @@
 // of W on this card, and both kernels stay well above that bound: they are
 // limited by the latency of their loads, not by the memory's rate.
 // lora_matmul_grouped has a second, wide version below that moves 16 bytes
-// per load where the shape allows it.
+// per load where the shape allows it (ranks 8, 16, 32, 64).
+//
+// Ranks up to 256, as many as a user's LoRAConfig asks for (the TPU kernels
+// take any): lora_matmul holds X@A in registers (16 RC columns a thread
+// group, RC up to 16) and meets B in chunks of 64 ranks, so its epilogue's
+// shared memory does not grow with r; the grouped kernel splits K over
+// 256 / r thread groups for X@A (one above r = 128) and keeps X@A, once
+// reduced, where the staged x was.
 
 #include <cstdint>
 
@@ -39,7 +46,9 @@ using repro::to_f32;
 // lora_matmul: one block per (64, 64) output tile, K loop inside.
 // 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i, columns
 // tx + 16 j (i, j < 4) of the tile and columns tx + 16 c (c < RC) of the
-// (64, r) tile of X@A. r <= 16 * RC.
+// (64, r) tile of X@A. r <= 16 * RC. The epilogue takes X@A and B in chunks
+// of 16 RCH ranks (at most 64). Shared memory is dynamic (above 48 KB at
+// RC = 16).
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;
@@ -53,12 +62,11 @@ lora_matmul_kernel(const T* __restrict__ X, const T* __restrict__ W,
                    const T* __restrict__ A, const T* __restrict__ B,
                    T* __restrict__ Y, int M, int K, int N, int r, float scale) {
   constexpr int RP = 16 * RC;          // r padded with zero columns
+  constexpr int RCH = RC < 4 ? RC : 4; // 16-column groups of an epilogue chunk
+  constexpr int CW = 16 * RCH;         // ranks of an epilogue chunk
   constexpr int XS_LD = BM + 1;        // +1: conflict-free transposed store
-  constexpr int XA_LD = RP + 1;
-  constexpr int MAIN_FLOATS = BK * XS_LD + BK * BN + BK * RP;
-  constexpr int EPI_FLOATS = BM * XA_LD + RP * BN;
-  constexpr int SMEM_FLOATS = MAIN_FLOATS > EPI_FLOATS ? MAIN_FLOATS : EPI_FLOATS;
-  __shared__ float smem[SMEM_FLOATS];
+  constexpr int XA_LD = CW + 1;
+  extern __shared__ float smem[];      // lora_smem_floats<RC>()
   float* Xs = smem;                    // [BK][XS_LD]  (k, row)
   float* Ws = Xs + BK * XS_LD;         // [BK][BN]
   float* As = Ws + BK * BN;            // [BK][RP]
@@ -122,36 +130,44 @@ lora_matmul_kernel(const T* __restrict__ X, const T* __restrict__ W,
                        // is the memory the epilogue reuses)
   }
 
-  // Epilogue: X@A, rounded once to T, meets this tile's columns of B.
+  // Epilogue: X@A, rounded once to T, meets this tile's columns of B, a
+  // chunk of CW ranks at a time
   float* XAs = smem;                   // [BM][XA_LD]
-  float* Bs = XAs + BM * XA_LD;        // [RP][BN]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < RC; ++c)
-      XAs[(ty + 16 * i) * XA_LD + tx + 16 * c] = round_to<T>(xa[i][c]);
-  for (int idx = tid; idx < RP * BN; idx += NT) {
-    const int c = idx / BN, n = idx % BN;
-    const int gn = n0 + n;
-    Bs[c * BN + n] = (c < r && gn < N) ? to_f32<T>(B[(size_t)c * N + gn]) : 0.f;
-  }
-  __syncthreads();
-
+  float* Bs = XAs + BM * XA_LD;        // [CW][BN]
   float ad[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) ad[i][j] = 0.f;
-  for (int c = 0; c < r; ++c) {
-    float xv[4], bv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = XAs[(ty + 16 * i) * XA_LD + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = Bs[c * BN + tx + 16 * j];
+  for (int c0 = 0; c0 < RC; c0 += RCH) {
+    const int r0 = 16 * c0;            // the chunk's first rank
+    if (r0 >= r) break;                // uniform over the block
+    if (c0 > 0) __syncthreads();       // the last chunk's readers are done
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ad[i][j] = fmaf(xv[i], bv[j], ad[i][j]);
+      for (int c = 0; c < RCH; ++c)
+        XAs[(ty + 16 * i) * XA_LD + tx + 16 * c] = round_to<T>(xa[i][c0 + c]);
+    for (int idx = tid; idx < CW * BN; idx += NT) {
+      const int c = idx / BN, n = idx % BN;
+      const int gn = n0 + n;
+      Bs[c * BN + n] = (r0 + c < r && gn < N)
+                           ? to_f32<T>(B[(size_t)(r0 + c) * N + gn]) : 0.f;
+    }
+    __syncthreads();
+    const int cn = min(CW, r - r0);
+    for (int c = 0; c < cn; ++c) {
+      float xv[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xv[i] = XAs[(ty + 16 * i) * XA_LD + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[c * BN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ad[i][j] = fmaf(xv[i], bv[j], ad[i][j]);
+    }
   }
 
 #pragma unroll
@@ -167,23 +183,44 @@ lora_matmul_kernel(const T* __restrict__ X, const T* __restrict__ W,
   }
 }
 
+// floats of lora_matmul_kernel<T, RC>'s shared memory: the main loop's
+// tiles, or the epilogue's chunk, whichever is larger
+template <int RC>
+constexpr int lora_smem_floats() {
+  constexpr int RCH = RC < 4 ? RC : 4;
+  constexpr int main_f = BK * (BM + 1) + BK * BN + BK * 16 * RC;
+  constexpr int epi_f = BM * (16 * RCH + 1) + 16 * RCH * BN;
+  return main_f > epi_f ? main_f : epi_f;
+}
+
+template <typename T, int RC>
+cudaError_t launch_rc(const T* X, const T* W, const T* A, const T* B, T* Y,
+                      int M, int K, int N, int r, float scale,
+                      cudaStream_t stream) {
+  constexpr int bytes = 4 * lora_smem_floats<RC>();
+  auto kernel = lora_matmul_kernel<T, RC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(N, BN), ceil_div(M, BM));
+  kernel<<<grid, NT, bytes, stream>>>(X, W, A, B, Y, M, K, N, r, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_lora_matmul(const void* x, const void* w, const void* a,
                                const void* b, void* y, int M, int K, int N,
                                int r, float scale, cudaStream_t stream) {
-  const dim3 grid(ceil_div(N, BN), ceil_div(M, BM));
   const T* X = static_cast<const T*>(x);
   const T* W = static_cast<const T*>(w);
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   T* Y = static_cast<T*>(y);
-  if (r <= 16)
-    lora_matmul_kernel<T, 1><<<grid, NT, 0, stream>>>(X, W, A, B, Y, M, K, N, r, scale);
-  else if (r <= 32)
-    lora_matmul_kernel<T, 2><<<grid, NT, 0, stream>>>(X, W, A, B, Y, M, K, N, r, scale);
-  else
-    lora_matmul_kernel<T, 4><<<grid, NT, 0, stream>>>(X, W, A, B, Y, M, K, N, r, scale);
-  return cudaGetLastError();
+  if (r <= 16) return launch_rc<T, 1>(X, W, A, B, Y, M, K, N, r, scale, stream);
+  if (r <= 32) return launch_rc<T, 2>(X, W, A, B, Y, M, K, N, r, scale, stream);
+  if (r <= 64) return launch_rc<T, 4>(X, W, A, B, Y, M, K, N, r, scale, stream);
+  if (r <= 128) return launch_rc<T, 8>(X, W, A, B, Y, M, K, N, r, scale, stream);
+  return launch_rc<T, 16>(X, W, A, B, Y, M, K, N, r, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -192,15 +229,16 @@ cudaError_t launch_lora_matmul(const void* x, const void* w, const void* a,
 // loads the ids of its own rows and offsets the bank pointers by them: no
 // gathered copy of the bank exists anywhere. 256 threads split K eight ways
 // for the shared product x@W (one warp per K slice, 32 columns wide) and
-// (256 / r) ways for x@A; both partial sums are reduced through shared
-// memory. W is read once for all 8 rows of the block.
+// (256 / r) ways for x@A (r <= 256); both partial sums are reduced through
+// shared memory. W is read once for all 8 rows of the block.
 // ---------------------------------------------------------------------------
 
 constexpr int G_RT = 8;       // rows per block
 constexpr int G_BN = 32;      // output columns per block
 constexpr int G_KG = 8;       // K slices of the x@W product
 constexpr int G_KC = 1024;    // K chunk of x staged in shared memory
-constexpr int G_RMAX = 64;    // largest rank
+constexpr int G_RMAX = 256;   // largest rank
+constexpr int G_WIDE_RMAX = 64;  // largest rank of the wide version
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -212,8 +250,10 @@ lora_matmul_grouped_kernel(const T* __restrict__ X, const T* __restrict__ W,
                            long long a_stride, long long b_stride, float scale) {
   __shared__ float xs[G_RT][G_KC];           // 32 KB
   __shared__ float red[G_RT][NT];            //  8 KB, both reductions
-  __shared__ float xas[G_RT][G_RMAX + 1];
   __shared__ int row_id[G_RT];
+  // x@A, reduced, where x was staged (free once the K loop is done)
+  float (*xas)[G_RMAX] = reinterpret_cast<float (*)[G_RMAX]>(&xs[0][0]);
+  static_assert(G_RMAX <= G_KC, "x@A fits where x was");
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.y * G_RT;
@@ -352,7 +392,8 @@ lora_matmul_grouped_wide_kernel(const T* __restrict__ X, const T* __restrict__ W
   constexpr int VE = Vec<T>::N;
   constexpr int BNW = W_CV * VE;       // output columns per block
   constexpr int RV = R / VE;           // 16-byte vectors per row of A
-  static_assert(R % VE == 0 && R <= G_RMAX, "rank must be whole vectors");
+  static_assert(R % VE == 0 && R <= G_WIDE_RMAX,
+                "rank must be whole vectors");
   static_assert(NT / 32 == G_RT, "one warp per row in the x@A phase");
   __shared__ float xs[G_RT][G_KC];              // 32 KB
   __shared__ float red[NT / 32][G_RT][BNW];     // <= 8 KB
@@ -493,7 +534,8 @@ cudaError_t launch_grouped(const void* x, const void* w, const void* a,
                            int rows_per_group, int K, int N, int r,
                            long long a_stride, long long b_stride, float scale,
                            cudaStream_t stream) {
-  // the wide version where 16-byte loads fit, else the first version
+  // the wide version where 16-byte loads fit and r is 8, 16, 32 or 64, else
+  // the first version
   constexpr int VE = Vec<T>::N;
   const bool wide = N % VE == 0 && aligned16(w) && aligned16(a) &&
                     (a_stride * (long long)sizeof(T)) % 16 == 0;
@@ -530,7 +572,7 @@ extern "C" int lora_matmul_launch(const void* x, const void* w, const void* a,
                                   const void* b, void* y, int M, int K, int N,
                                   int r, float scale, int is_bf16,
                                   void* stream) {
-  if (M < 1 || K < 1 || N < 1 || r < 1 || r > 64) return -1;
+  if (M < 1 || K < 1 || N < 1 || r < 1 || r > 256) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       is_bf16 ? launch_lora_matmul<__nv_bfloat16>(x, w, a, b, y, M, K, N, r, scale, s)

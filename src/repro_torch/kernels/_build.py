@@ -97,9 +97,10 @@ _SIGNATURES = {
     },
     "flash_decode": {
         # q, k, v, o, B, Hkv, G, S, D, 9 strides (q,k,v x b,h,row),
-        # t, window, nsplit, is_bf16, stream
+        # t, t_dev (t on the card, or null), t_is64, window, nsplit,
+        # scale, is_bf16, stream
         "flash_decode_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
-                               + [_L] * 9 + [_I, _I, _I, _I, _P],
+                               + [_L] * 9 + [_I, _P, _I, _I, _I, _F, _I, _P],
     },
     "ssd_scan": {
         # xt, a, B, C, y, st, dec, b, nc, cl, nh, hp, ns, stream

@@ -5,13 +5,24 @@ Replaces: the Pallas TPU kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py``. CUDA sources (built and bound by
 ``_build``): ``csrc/flash_attention_ws.cu`` (bf16 at head dims in
 ``WS_HEAD_DIMS``: a warp-specialised persistent kernel, TMA producer and two
-ping-pong ``wgmma`` consumers), ``csrc/flash_attention_tc.cu`` (bf16 at the
-other head dims, ``wgmma``), ``csrc/flash_attention_tf32.cu`` (f32 on the
+ping-pong ``wgmma`` consumers), ``csrc/flash_attention_tc.cu`` (bf16 at head
+dims 16 and 32, ``wgmma``), ``csrc/flash_attention_tf32.cu`` (f32 on the
 tensor cores, ``mma.sync``, every product as three tf32 products) and
-``csrc/flash_attention.cu`` (the SIMT kernel: the calls whose pointers or
-strides do not allow 16-byte copies). ``flash_attention_version`` names the
-one a call takes, by dtype, head dim and alignment alone (never by
-failure).
+``csrc/flash_attention.cu`` (the SIMT kernel: the other head dims, and the
+calls whose pointers or strides do not allow 16-byte copies).
+``flash_attention_version`` names the one a call takes, by dtype, head dim
+and alignment alone (never by failure).
+
+Head dims, one rule: the tensor-core versions take ``TC_HEAD_DIMS`` (16,
+32, 64 and every multiple of 8 from 72 to 128); the head dims 72 to 120
+(kimi-k2-1t-a32b's 112 among them) run those kernels' D = 128
+instantiation with the true head dim at run time (columns past it are
+zeros on the way in and are not stored), which costs no more for the
+seven dims than for 112 alone, and does 128/D of the products the head
+dim needs. The SIMT kernel takes every head dim up to ``MAX_HEAD_DIM``
+(256), compiled for padded widths 16, 32, 64, 128 and 256 with the tail
+columns masked. A larger head dim raises. The scale is always 1/sqrt of
+the true head dim.
 
 Bound on this card: a causal prefill on (4, 1024) tokens does ~1000 (head
 dim 64) to ~2000 (head dim 128) FLOP per byte it must move, so it is bound
@@ -43,8 +54,10 @@ import torch
 from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
-WS_HEAD_DIMS = (64, 128)     # bf16 head dims of the "wgmma_ws" kernel
+MAX_HEAD_DIM = 256          # the SIMT kernel's widest head dim
+# head dims of the tensor-core versions; those of "wgmma_ws" (bf16)
+TC_HEAD_DIMS = (16, 32, 64) + tuple(range(72, 129, 8))
+WS_HEAD_DIMS = (64,) + tuple(range(72, 129, 8))
 NEG_INF = -1e30
 
 
@@ -73,13 +86,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_version(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The kernel a CUDA call takes when the head dim is 16, 32, 64 or 128,
-    every pointer is 16-byte aligned and every stride a whole number of
-    16-byte steps (``aligned``): for bf16 ``"wgmma_ws"``
+    """The kernel a CUDA call takes when the head dim is in
+    ``TC_HEAD_DIMS``, every pointer is 16-byte aligned and every stride a
+    whole number of 16-byte steps (``aligned``): for bf16 ``"wgmma_ws"``
     (``csrc/flash_attention_ws.cu``) at the head dims of ``WS_HEAD_DIMS``,
     else ``"wgmma"`` (``csrc/flash_attention_tc.cu``); ``"tf32x3"``
-    (``csrc/flash_attention_tf32.cu``) for f32; otherwise ``"simt"``."""
-    if d in HEAD_DIMS and aligned:
+    (``csrc/flash_attention_tf32.cu``) for f32; otherwise ``"simt"``
+    (``csrc/flash_attention.cu``, head dims up to ``MAX_HEAD_DIM``)."""
+    if d in TC_HEAD_DIMS and aligned:
         if dtype == torch.bfloat16:
             return "wgmma_ws" if d in WS_HEAD_DIMS else "wgmma"
         if dtype == torch.float32:
@@ -204,7 +218,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The first three dims may be strided views (e.g. a permuted
     (B, S, H, D) tensor); the last dim must be contiguous. The output has
-    q's shape and strides. float32 or bfloat16; head dim 16, 32, 64 or 128.
+    q's shape and strides. float32 or bfloat16; any head dim up to
+    ``MAX_HEAD_DIM`` (the plain version on the CPU takes any).
     """
     refuse_autograd("flash_attention", q, k, v)
     if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
@@ -232,8 +247,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out[0] if squeeze else out
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention has no kernel for {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernels take at most "
+                         f"{MAX_HEAD_DIM}")
     if 0 in (bsz, hq, sq, skv):
         raise ValueError("flash_attention takes no empty q, k or v")
     # a contiguous last dim, and no stride 0 across a dim of several rows

@@ -17,6 +17,17 @@ cluster and are merged by their log-sum-exp through distributed shared
 memory, so every call is one launch with no scratch. Masked slots are not
 read, so the bytes follow ``t``.
 
+Shapes, as the TPU kernel takes them, up to head dim ``MAX_HEAD_DIM``
+(256; a larger one raises): any head dim (the kernel is compiled for a few
+padded widths and masks the tail; a row that is not a whole number of
+16-byte chunks is padded with zero columns by the wrapper, a copy of q, k
+and v), any number of queries a group (16 in one m16 tile for bf16, more in
+chunks along the grid's z axis), and ``t`` as a Python int or a 0-d integer
+tensor on q's device (as the reference's ``jnp.asarray(t)``), which the
+kernel reads through a pointer; the split is then sized from the cache
+length, so nothing is read back. A ``(B,)`` ``t`` (a position per row) is
+refused, as the reference refuses it.
+
 Masking is the TPU kernel's: a ring buffer iff ``0 < window <= slots``
 (slot ``j`` holds position ``t - ((t - j) mod slots)``, valid iff ``>= 0`` and
 ``> t - window``), else a linear cache (``j <= t``, and ``j > t - window``
@@ -31,14 +42,14 @@ plain version only for a CPU tensor. ``flash_decode.launches`` counts.
 from __future__ import annotations
 
 import math
+from typing import Union
 
 import torch
 
 from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP = 8
+MAX_HEAD_DIM = 256
 NEG_INF = -1e30
 MAX_SPLITS = 8              # pieces of one (b, h): a portable cluster
 WARPS = 4                   # warps per block of the kernel
@@ -81,13 +92,22 @@ def valid_run(t: int, slots: int, window: int) -> int:
     return max(0, min(t, slots - 1) - lo + 1)
 
 
+def padded_dim(d: int, elem_bytes: int) -> int:
+    """The width of the kernel's instantiation that row length ``d`` runs
+    (``dispatch_d``): 16, 32, 64, (bf16) 112, 128 or 256."""
+    widths = (16, 32, 64, 112, 128, 256) if elem_bytes == 2 else (
+        16, 32, 64, 128, 256)
+    return next(w for w in widths if d <= w)
+
+
 def block_slots(d: int, elem_bytes: int, g: int) -> int:
     """Slots one block of the kernel takes in one round: four warps, each a
     tile of 32 slots (bf16, on the tensor cores) or of ``STEPS`` 16-byte
-    copies of ``32 / (D / VE)`` rows (f32); the kernel's constants."""
+    copies of ``32 / LPR`` rows, a row being ``LPR`` lanes (f32; at most a
+    warp); the kernel's constants."""
     if elem_bytes == 2:
         return WARPS * 32
-    lanes_per_row = d // (16 // elem_bytes)
+    lanes_per_row = min(32, padded_dim(d, elem_bytes) // (16 // elem_bytes))
     steps = 8 if g <= 4 else 4
     return WARPS * (32 // lanes_per_row) * steps
 
@@ -109,13 +129,16 @@ def _rows_aligned(x: torch.Tensor) -> bool:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 t: int, *, window: int = 0) -> torch.Tensor:
+                 t: Union[int, torch.Tensor], *,
+                 window: int = 0) -> torch.Tensor:
     """q: (B, Hkv, G, D) or (BH, G, D); k, v: (B, Hkv, S, D) or (BH, S, D);
-    ``t`` the query token's position, a Python int. Returns q's shape.
+    ``t`` the query token's position: a Python int or a 0-d int32 / int64
+    tensor on q's device (the kernel reads it there). Returns q's shape.
 
     The first dims may be strided views (e.g. a (B, S, Hkv, D) cache
-    permuted); the last dim must be contiguous. float32 or bfloat16; head
-    dim 16, 32, 64 or 128; at most 8 queries per group.
+    permuted); the last dim must be contiguous. float32 or bfloat16; any
+    head dim up to ``MAX_HEAD_DIM`` on the card (the plain version on the
+    CPU takes any); any number of queries per group.
     """
     refuse_autograd("flash_decode", q, k, v)
     if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
@@ -138,42 +161,62 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0:
         raise ValueError("window must be >= 0")
     if isinstance(t, torch.Tensor):
-        raise ValueError("t is one position, a Python int, not a tensor of "
-                         f"shape {tuple(t.shape)}")
-    t = int(t)
+        if t.ndim != 0:
+            raise ValueError("t is one position, a Python int or a 0-d "
+                             f"tensor, not a tensor of shape {tuple(t.shape)}")
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"t must be an int32 or int64 integer, not "
+                            f"{t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"t is on {t.device}, q on {q.device}")
+    else:
+        t = int(t)
 
     if q.device.type == "cpu":
-        out = flash_decode_ref(q, k, v, t, window=window)
+        out = flash_decode_ref(q, k, v, int(t), window=window)
         return out[0] if squeeze else out
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode has no kernel for {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"{g} queries per group; the kernel takes 1 to "
-                         f"{MAX_GROUP}")
-    if 0 in (bsz, hkv, s):
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernel takes at most "
+                         f"{MAX_HEAD_DIM}")
+    if 0 in (bsz, hkv, g, s):
         raise ValueError("flash_decode takes no empty q, k or v")
+    scale = 1.0 / math.sqrt(d)                 # the true head dim's
+    step = 16 // q.element_size()
+    if d % step:
+        # rows of whole 16-byte chunks: zero columns, which add nothing to
+        # a score, and the output's are dropped
+        q, k, v = (torch.nn.functional.pad(x, (0, step - d % step))
+                   for x in (q, k, v))
     q = q if q.stride(-1) == 1 else q.contiguous()
     # the kernel reads rows of K and V with 16-byte loads: a view whose rows
     # do not start on 16-byte boundaries is copied to a fresh tensor first
     k, v = (x if x.stride(-1) == 1 and _rows_aligned(x)
             else torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
             for x in (k, v))
+    dp = q.shape[-1]
+    # a tensor t is read by the kernel as it lies; the split is then sized
+    # for the longest run
+    t_dev = t if isinstance(t, torch.Tensor) else None
+    run = s if t_dev is not None else valid_run(t, s, window)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = n_splits(bsz * hkv, valid_run(t, s, window), sms,
-                      block_slots(d, q.element_size(), g))
-    out = torch.empty((bsz, hkv, g, d), dtype=q.dtype, device=q.device)
+    nsplit = n_splits(bsz * hkv, run, sms,
+                      block_slots(dp, q.element_size(), g))
+    out = torch.empty((bsz, hkv, g, dp), dtype=q.dtype, device=q.device)
     strides = [st for x in (q, k, v) for st in x.stride()[:3]]
     lib = _build.load("flash_decode")
     with torch.cuda.device(q.device):
         code = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bsz, hkv, g, s, d, *strides, t,
-            window, nsplit, int(q.dtype == torch.bfloat16),
+            bsz, hkv, g, s, dp, *strides, 0 if t_dev is not None else t,
+            None if t_dev is None else t_dev.data_ptr(),
+            int(t_dev is not None and t_dev.dtype == torch.int64), window,
+            nsplit, scale, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_decode")
     flash_decode.launches += 1
+    out = out[..., :d] if dp != d else out
     return out[0] if squeeze else out
 
 

@@ -31,6 +31,13 @@ f32 config, bound by the bytes of W) by ``grouped_tf32_plan``; otherwise
 ``"simt"``. The SIMT grouped kernel itself has two variants (2-byte and
 16-byte loads), which its launcher picks by alignment.
 
+Ranks: the plain versions take any rank, as the reference does; on the card
+the tensor-core versions take r <= ``MAX_RANK`` (64) and the SIMT kernels
+r <= ``SIMT_MAX_RANK`` (256: ``lora_matmul`` holds x@A in registers up to
+that rank and meets B in chunks of 64 of it, the grouped kernel reduces
+x@A over 256 / r thread groups), so ``lora_matmul_version`` gives
+``"simt"`` above 64; a larger rank raises on the card.
+
 Rounding order (kernel and plain version alike; it follows the reference's
 ``kernels/ref.py``): ``W``, ``A``, ``B`` are cast to the activation dtype
 (once, by the caller, if it wants to avoid the cast per call); every product
@@ -52,7 +59,8 @@ import torch
 from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_RANK = 64
+MAX_RANK = 64               # the tensor-core versions' largest rank
+SIMT_MAX_RANK = 256         # the SIMT kernels' largest rank
 TC_BK = 64                  # K depth of one step of the tensor-core kernel
 TF32_BK = 32                # K depth of one step of the f32 tensor-core kernel
 TF32_TILE = 64              # its output tiles: 64 x 64
@@ -104,13 +112,19 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError(f"{name} has dtype {t.dtype}, x has {like.dtype}")
 
 
+def _check_rank(r: int) -> None:
+    if not 1 <= r <= SIMT_MAX_RANK:
+        raise ValueError(f"rank {r}: the kernels take 1..{SIMT_MAX_RANK}")
+
+
 def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
                         aligned: bool) -> str:
     """The kernel a CUDA call of ``lora_matmul`` takes, when every pointer
-    is 16-byte aligned and r <= 64: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``)
-    for bf16 with K, N and r multiples of 8, ``"tf32x3"``
-    (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r multiples of 4
-    (whole 16-byte copies either way); otherwise ``"simt"``."""
+    is 16-byte aligned and r <= ``MAX_RANK`` (64): ``"wgmma"``
+    (``csrc/lora_matmul_tc.cu``) for bf16 with K, N and r multiples of 8,
+    ``"tf32x3"`` (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r
+    multiples of 4 (whole 16-byte copies either way); otherwise ``"simt"``
+    (``csrc/lora_matmul.cu``, r up to ``SIMT_MAX_RANK``)."""
     if aligned and r <= MAX_RANK:
         if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
                 and r % 8 == 0):
@@ -284,9 +298,9 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """x: (M, K); w: (K, N); a: (K, r); b: (r, N) -> (M, N) in x.dtype.
 
-    Any M, K, N (ragged edges are masked in the kernel), r <= 64; float32 or
-    bfloat16. ``w``, ``a``, ``b`` of another float dtype are cast to
-    ``x.dtype`` first."""
+    Any M, K, N (ragged edges are masked in the kernel); any rank on the
+    CPU, r <= ``SIMT_MAX_RANK`` on the card; float32 or bfloat16. ``w``,
+    ``a``, ``b`` of another float dtype are cast to ``x.dtype`` first."""
     refuse_autograd("lora_matmul", x, w, a, b)
     if x.ndim != 2 or w.ndim != 2 or a.ndim != 2 or b.ndim != 2:
         raise ValueError("lora_matmul takes 2-D x, w, a, b")
@@ -299,8 +313,6 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
             f"a {tuple(a.shape)}, b {tuple(b.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"lora_matmul takes float32 or bfloat16, not {x.dtype}")
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rank {r} outside 1..{MAX_RANK}")
     w, a, b = w.to(x.dtype), a.to(x.dtype), b.to(x.dtype)
     for name, t in (("w", w), ("a", a), ("b", b)):
         _check(name, t, x)
@@ -308,6 +320,7 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return lora_matmul_ref(x, w, a, b, scale)
     if x.device.type != "cuda":
         raise RuntimeError(f"lora_matmul has no kernel for device {x.device}")
+    _check_rank(r)
     if m == 0:
         return x.new_empty((0, n))
     x, w, a, b = (t.contiguous() for t in (x, w, a, b))
@@ -369,8 +382,6 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if x.dtype not in _DTYPES:
         raise TypeError(
             f"lora_matmul_grouped takes float32 or bfloat16, not {x.dtype}")
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rank {r} outside 1..{MAX_RANK}")
     if ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"ids must be an integer tensor, not {ids.dtype}")
     w, a, b = w.to(x.dtype), a.to(x.dtype), b.to(x.dtype)
@@ -383,6 +394,7 @@ def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise RuntimeError(
             f"lora_matmul_grouped has no kernel for device {x.device}")
+    _check_rank(r)
     if g * m == 0:
         return x.new_empty((g, m, n))
     x, w = x.contiguous(), w.contiguous()

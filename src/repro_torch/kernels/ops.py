@@ -6,7 +6,7 @@ the wrappers in ``lora_matmul``, ``flash_attention``, ``flash_decode`` and
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -58,10 +58,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, t: int, *, window: int = 0
-                 ) -> torch.Tensor:
+                 v_cache: torch.Tensor, t: Union[int, torch.Tensor], *,
+                 window: int = 0) -> torch.Tensor:
     """One-token GQA decode attention. q: (B, 1, Hq, D); caches:
-    (B, S, Hkv, D); ``t`` one position for every row, a Python int. Returns (B, 1, Hq, D). Ring-buffer SWA caches use
+    (B, S, Hkv, D); ``t`` one position for every row, a Python int or a
+    0-d int32 / int64 tensor on q's device. Returns (B, 1, Hq, D).
+    Ring-buffer SWA caches use
     window == slots semantics (models/attention.py). The caches are read in
     place through a permuted view; the reference's transposed copy of the
     whole cache is not made."""

@@ -95,8 +95,12 @@ def abstract_params(cfg: ModelConfig) -> Params:
 def _stack_layers(make_layer, n: int) -> Params:
     """``n`` calls of ``make_layer`` stacked along a new leading axis, each
     copied into its slot as it is made: the peak is the stack and one layer,
-    not two stacks (internvl2-26b's layers take 37.5 GB in bf16)."""
+    not two stacks (internvl2-26b's layers take 37.5 GB in bf16). A stack of
+    one is that layer itself, viewed with the leading axis (one layer of
+    kimi-k2-1t-a32b takes 34 GB in bf16)."""
     first = make_layer()
+    if n == 1:
+        return tree_map(lambda x: x[None], first)
     out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
     for i in range(n):
         layer = first if i == 0 else make_layer()

@@ -34,8 +34,10 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device=None
     std = 1.0 / math.sqrt(d)
 
     def normal(shape, scale):
+        # scaled in place: one f32 draw at a time (kimi-k2-1t-a32b's w_gate
+        # is 22.5 GB in f32), the same values as an out-of-place product
         return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=device) * scale
+                           device=device).mul_(scale)
 
     p: Params = {
         "router": normal((d, e), std),   # the router stays f32 (standard)

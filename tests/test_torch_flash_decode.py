@@ -92,8 +92,15 @@ def test_valid_slots(t, window, slots, want):
 def test_wrapper_checks_its_arguments():
     q = torch.zeros(1, 2, 2, 16)
     kv = torch.zeros(1, 2, 8, 16)
+    # a (B,) t (a position per row) is refused, as the reference refuses it;
+    # a 0-d integer tensor is one position, as the reference's jnp scalar
     with pytest.raises(ValueError, match="one position"):
         t_fd.flash_decode(q, kv, kv, torch.zeros(2, dtype=torch.int32))
+    torch.testing.assert_close(
+        t_fd.flash_decode(q, kv, kv, torch.tensor(5)),
+        t_fd.flash_decode(q, kv, kv, 5), rtol=0, atol=0)
+    with pytest.raises(TypeError, match="integer"):
+        t_fd.flash_decode(q, kv, kv, torch.tensor(5.0))
     with pytest.raises(ValueError, match="shapes do not agree"):
         t_fd.flash_decode(q, kv[:, :1], kv, 0)
     with pytest.raises(TypeError, match="float32 or all"):

@@ -728,6 +728,110 @@ def test_gpu_flash_decode_kernel(cuda, dtype, atol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,version,atol", [
+    (torch.bfloat16, "wgmma_ws", 2e-2), (torch.float32, "tf32x3", 2e-5)])
+@pytest.mark.parametrize("d", [112, 72])
+def test_gpu_flash_attention_head_dim_112(cuda, dtype, version, atol, d):
+    """Head dims 72..120 on the D = 128 instantiations (true-width tensor
+    maps or zero-filled copies), a GQA group of 8, causal and windowed."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(31)
+    for b, s, window in ((2, 130, 0), (1, 300, 64)):
+        q = _rand(rng, (b, s, 16, d), dtype, cuda).permute(0, 2, 1, 3)
+        k = _rand(rng, (b, s, 2, d), dtype, cuda).permute(0, 2, 1, 3)
+        v = _rand(rng, (b, s, 2, d), dtype, cuda).permute(0, 2, 1, 3)
+        before = fa.flash_attention.by_version[version]
+        got = fa.flash_attention(q, k, v, causal=True, window=window).float()
+        torch.cuda.synchronize()
+        assert fa.flash_attention.by_version[version] == before + 1
+        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        assert (got - want.float()).abs().max() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [40, 100, 256])
+def test_gpu_flash_attention_simt_head_dims(cuda, dtype, atol, d):
+    """Head dims outside the tensor-core set: the SIMT kernel's padded
+    widths with the tail masked."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(32)
+    q = _rand(rng, (2, 4, 70, d), dtype, cuda)
+    k = _rand(rng, (2, 2, 70, d), dtype, cuda)
+    v = _rand(rng, (2, 2, 70, d), dtype, cuda)
+    assert fa.flash_attention_version(dtype, d, True) == "simt"
+    before = fa.flash_attention.by_version["simt"]
+    got = fa.flash_attention(q, k, v, causal=True, window=32).float()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_version["simt"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=True, window=32)
+    assert (got - want.float()).abs().max() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_gpu_flash_decode_large_group_device_t(cuda, dtype, atol):
+    """Groups above 8 (16 in one m16 tile, 40 in chunks along z), head
+    dims 112, 40, 36 (padded by the wrapper) and 256, t a 0-d tensor on
+    the card, linear caches and a ring."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(33)
+    for b, s, hq, hkv, d, t, window in ((2, 700, 32, 2, 112, 600, 0),
+                                        (2, 64, 32, 2, 112, 150, 64),
+                                        (1, 300, 80, 2, 112, 200, 100),
+                                        (2, 90, 9, 1, 40, 80, 0),
+                                        (1, 90, 4, 1, 36, 80, 0),
+                                        (1, 600, 12, 1, 256, 500, 0)):
+        q = _rand(rng, (b, 1, hq, d), dtype, cuda)
+        k = _rand(rng, (b, s, hkv, d), dtype, cuda)
+        v = _rand(rng, (b, s, hkv, d), dtype, cuda)
+        t_dev = torch.tensor(t, device=cuda)
+        before = fd.flash_decode.launches
+        got = ops.flash_decode(q, k, v, t_dev, window=window).float()
+        torch.cuda.synchronize()
+        assert fd.flash_decode.launches == before + 1
+        want = fd.flash_decode_ref(
+            q[:, 0].reshape(b, hkv, hq // hkv, d), k.permute(0, 2, 1, 3),
+            v.permute(0, 2, 1, 3), t, window=window).float()
+        assert (got.reshape(want.shape) - want).abs().max() <= atol, (
+            b, s, hq, hkv, d, t, window)
+        host_t = ops.flash_decode(q, k, v, t, window=window).float()
+        assert (host_t.reshape(want.shape) - want).abs().max() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 2e-4),
+                                     (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("r", [128, 200])
+def test_gpu_lora_rank_above_64(cuda, dtype, c, r):
+    """Ranks above the tensor-core versions' 64: the SIMT kernels of both
+    products (the grouped one's first variant)."""
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(34)
+    x, w = _rand(rng, (70, 96), dtype, cuda), _rand(rng, (96, 136), dtype, cuda)
+    a, b = _rand(rng, (96, r), dtype, cuda), _rand(rng, (r, 136), dtype, cuda)
+    before = lm.lora_matmul.by_version["simt"]
+    got = lm.lora_matmul(x, w, a, b, 0.25).float()
+    torch.cuda.synchronize()
+    assert lm.lora_matmul.by_version["simt"] == before + 1
+    want = lm.lora_matmul_ref(x, w, a, b, 0.25).float()
+    assert (got - want).abs().max() <= c * want.abs().max()
+    xg = _rand(rng, (5, 1, 96), dtype, cuda)
+    ab, bb = (_rand(rng, (3, 96, r), dtype, cuda),
+              _rand(rng, (3, r, 136), dtype, cuda))
+    ids = torch.tensor([2, 0, 1, 1, 2], device=cuda, dtype=torch.int32)
+    before = lm.lora_matmul_grouped.by_version["simt"]
+    got = lm.lora_matmul_grouped(xg, w, ab, bb, ids, 0.25).float()
+    torch.cuda.synchronize()
+    assert lm.lora_matmul_grouped.by_version["simt"] == before + 1
+    want = lm.lora_matmul_grouped_ref(xg, w, ab, bb, ids, 0.25).float()
+    assert (got - want).abs().max() <= c * want.abs().max()
+
+
+@pytest.mark.gpu
 def test_gpu_ssd_intra_chunk_kernel(cuda):
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
@@ -783,15 +887,17 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd_scan as ss
-    q = torch.zeros(1, 2, 8, 24, device=cuda)       # head dim 24: no kernel
+    from repro_torch.kernels import lora_matmul as lm
+    q = torch.zeros(1, 2, 8, 264, device=cuda)      # head dim 264: no kernel
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
         fd.flash_decode(q[:, :, :1], q, q, 3)
-    with pytest.raises(ValueError, match="queries per group"):
-        fd.flash_decode(torch.zeros(1, 1, 9, 16, device=cuda),
-                        torch.zeros(1, 1, 8, 16, device=cuda),
-                        torch.zeros(1, 1, 8, 16, device=cuda), 3)
+    x = torch.zeros(4, 8, device=cuda)               # rank 257: no kernel
+    with pytest.raises(ValueError, match="rank"):
+        lm.lora_matmul(x, torch.zeros(8, 8, device=cuda),
+                       torch.zeros(8, 257, device=cuda),
+                       torch.zeros(257, 8, device=cuda))
     x = torch.zeros(1, 1, 8, 2, 4, device=cuda, dtype=torch.bfloat16)
     a = torch.zeros(1, 1, 8, 2, device=cuda, dtype=torch.bfloat16)
     bc = torch.zeros(1, 1, 8, 4, device=cuda, dtype=torch.bfloat16)

@@ -1,17 +1,20 @@
 """The widths that ``ModelConfig.reduced()`` drops, held against the JAX
 reference on the CPU, for the six configs of the registry that run at full
 width on one H100 (qwen3-0.6b, qwen3-4b, qwen2-7b, phi3-medium-14b,
-internvl2-26b, musicgen-large).
+internvl2-26b, musicgen-large) and for kimi-k2-1t-a32b, whose head dim is
+112 and whose GQA group is 8 (one of its layers runs at full width on one
+H100).
 
 ``reduced()`` forces head dim 32, at most 4 query and 2 KV heads, so the
 parity tests of ``test_torch_model.py`` never see head dim 128, the real
 GQA groups (7, 6, 4, 2 and 1), or an odd vocabulary. Each case here is a
 *narrow* variant made with ``dataclasses.replace`` of the published config:
-it keeps the head dim (128; musicgen-large 64), the q/kv group with at most
-2 KV heads, ``qkv_bias``, ``qk_norm``, ``tie_embeddings``, ``rope_theta``
+it keeps the head dim (128; musicgen-large 64; kimi-k2-1t-a32b 112), the
+q/kv group with at most 2 KV heads, ``qkv_bias``, ``qk_norm``, ``tie_embeddings``, ``rope_theta``
 and ``input_mode``, and takes 2 layers, ``d_model`` 256, an FFN of 512, f32
 and a vocabulary of 389 (not a multiple of 256, so ``padded_vocab`` masks
-123 columns). Same weights on both sides (the reference's ``init_params``
+123 columns); kimi-k2-1t-a32b keeps top-8 routing and its shared expert
+over 16 experts (384 would make the CPU run slow). Same weights on both sides (the reference's ``init_params``
 converted leaf for leaf, adapters with a non-zero B, non-zero QKV biases).
 
 Tolerance: ``atol = 2e-4`` on hidden states and logits, as in
@@ -46,7 +49,8 @@ SPLIT_C = 1e-4
 NARROW_VOCAB = 389
 # the published q/kv group of each config
 GROUP = {"qwen3-0.6b": 2, "qwen3-4b": 4, "qwen2-7b": 7, "phi3-medium-14b": 4,
-         "internvl2-26b": 6, "musicgen-large": 1}
+         "internvl2-26b": 6, "musicgen-large": 1, "kimi-k2-1t-a32b": 8}
+NARROW_EXPERTS = 16            # kimi-k2-1t-a32b's 384, cut for the CPU
 REGISTRY = tuple(GROUP)
 SMS = 132                      # the H100 SXM's
 
@@ -55,9 +59,12 @@ def narrow(arch):
     """The overrides of the narrow variant of ``arch``."""
     cfg = get_config(arch)
     hkv = min(cfg.n_kv_heads, 2)
-    return dict(n_layers=2, d_model=256, d_ff=512, n_kv_heads=hkv,
-                n_heads=cfg.n_heads // cfg.n_kv_heads * hkv,
-                vocab_size=NARROW_VOCAB, dtype="float32")
+    out = dict(n_layers=2, d_model=256, d_ff=512, n_kv_heads=hkv,
+               n_heads=cfg.n_heads // cfg.n_kv_heads * hkv,
+               vocab_size=NARROW_VOCAB, dtype="float32")
+    if cfg.family == "moe":
+        out["n_experts"] = NARROW_EXPERTS
+    return out
 
 
 @pytest.fixture(scope="module", params=REGISTRY)
@@ -89,11 +96,12 @@ def _cache_close(jcache, tcache):
 def test_narrow_variant_keeps_what_reduced_drops(arch):
     full = get_config(arch)
     cfg = dataclasses.replace(full, **narrow(arch))
-    assert cfg.resolved_head_dim == full.resolved_head_dim in (64, 128)
+    assert cfg.resolved_head_dim == full.resolved_head_dim in (64, 112, 128)
     assert cfg.n_heads // cfg.n_kv_heads == GROUP[arch]
     assert full.n_heads // full.n_kv_heads == GROUP[arch]
     for name in ("qkv_bias", "qk_norm", "tie_embeddings", "rope_theta",
-                 "input_mode", "family", "lora"):
+                 "input_mode", "family", "lora", "top_k",
+                 "n_shared_experts"):
         assert getattr(cfg, name) == getattr(full, name), name
     assert cfg.padded_vocab == 512 != cfg.vocab_size
     # what reduced() would have run instead
@@ -286,8 +294,8 @@ def test_grouped_plan_deals_every_k_step_once_at_full_width(arch):
 @pytest.mark.parametrize("arch", REGISTRY)
 def test_flash_attention_version_at_the_model_head_dim(arch):
     cfg = get_config(arch)
-    assert cfg.resolved_head_dim in t_fa.HEAD_DIMS
-    # head dims 128 and 64: the warp-specialised kernel
+    assert cfg.resolved_head_dim in t_fa.TC_HEAD_DIMS
+    # head dims 128, 112 and 64: the warp-specialised kernel
     assert t_fa.flash_attention_version(torch.bfloat16, cfg.resolved_head_dim,
                                         True) == "wgmma_ws"
     assert t_fa.flash_attention_version(torch.float32, cfg.resolved_head_dim,

@@ -42,7 +42,13 @@ def test_lora_matmul_version(dtype, k, n, r, aligned, want):
     (F32, 128, False, "simt"),
     # the warp-specialised kernel: bf16, head dims 64 and 128, TMA-aligned
     (BF16, 128, False, "simt"), (F32, 128, True, "tf32x3"),
-    (BF16, 96, True, "simt"), (BF16, 256, True, "simt"),
+    # head dims 72..128 (multiples of 8) on the D = 128 instantiations
+    (BF16, 96, True, "wgmma_ws"), (BF16, 112, True, "wgmma_ws"),
+    (F32, 112, True, "tf32x3"), (BF16, 72, True, "wgmma_ws"),
+    (BF16, 112, False, "simt"),
+    # the SIMT kernel's head dims: the others up to 256
+    (BF16, 256, True, "simt"), (F32, 256, True, "simt"),
+    (BF16, 40, True, "simt"), (F32, 100, True, "simt"),
 ])
 def test_flash_attention_version(dtype, d, aligned, want):
     assert t_fa.flash_attention_version(dtype, d, aligned) == want
@@ -50,10 +56,15 @@ def test_flash_attention_version(dtype, d, aligned, want):
 
 def test_ws_head_dims_are_the_model_paths():
     """The head dims every model path hands bf16 ``flash_attention`` at
-    full width (128: the qwen, phi3 and internvl configs; 64: llama32-1b,
-    musicgen-large, hymba, granite) take the warp-specialised kernel."""
-    assert t_fa.WS_HEAD_DIMS == (64, 128)
-    assert set(t_fa.WS_HEAD_DIMS) <= set(t_fa.HEAD_DIMS)
+    full width (128: the qwen, phi3 and internvl configs; 112:
+    kimi-k2-1t-a32b; 64: llama32-1b, musicgen-large, hymba, granite) take
+    the warp-specialised kernel: 64 and every multiple of 8 from 72 to 128,
+    one rule; the tensor-core versions add 16 and 32, and the SIMT kernel
+    takes every head dim up to 256."""
+    assert t_fa.WS_HEAD_DIMS == (64, 72, 80, 88, 96, 104, 112, 120, 128)
+    assert t_fa.TC_HEAD_DIMS == (16, 32) + t_fa.WS_HEAD_DIMS
+    assert t_fa.MAX_HEAD_DIM == 256
+    assert {64, 112, 128} <= set(t_fa.WS_HEAD_DIMS)
 
 
 def _covered(k, splits, ips):
