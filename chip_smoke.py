@@ -15,6 +15,8 @@
     python3 chip_smoke.py --only shard     # build + the shard phase
     python3 chip_smoke.py --only kimi      # build + the kimi phase
     python3 chip_smoke.py --only decode    # flash_decode timing rows
+    python3 chip_smoke.py --only rank      # build + the rank phase
+    python3 chip_smoke.py --only lora      # bf16 LoRA timing rows
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -40,14 +42,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            dims 72..128 on the tensor cores (kimi-k2-1t-a32b's 112), the
            SIMT kernel at 40, 100 and 256, ``flash_decode`` at groups 9 to
            40 and head dims 36 to 256 with ``t`` on the card, LoRA ranks
-           65 to 256 on the SIMT kernels; every call of the calibrate
+           65 to 256 on the bf16 tensor-core kernels (r a multiple of 8)
+           and on the SIMT kernels; every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
            timed with CUDA events beside the plain version, one PyTorch
            library call for the same function, and the card's bound (f32
            ``lora_matmul_grouped`` at G = 8 from a strided bank of 8 at
            llama32-1b's and qwen3-0.6b's decode shapes, beside the SIMT
-           kernel it replaced); the library calls for the calibrate path's
-           f32 kernel benches
+           kernel it replaced; both LoRA kernels at r = 128 and 256, bf16
+           on the tensor cores and f32 on SIMT); the library calls for the
+           calibrate path's f32 kernel benches
   serve    full-width llama32-1b (32 layers, random weights from a seed),
            four non-zero LoRA adapters, ``ServingEngine`` with the fused
            kernels answering 16 requests; launch counts, tokens, logits
@@ -90,7 +94,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
            published configs (bf16, random weights from a seed, four
            non-zero adapters): ``ServingEngine`` with the fused kernels on
            8 requests a config (mamba2-370m and hymba-1.5b on their first
-           12 / 8 layers; launch counts by kernel and version, tokens),
+           6 / 4 layers; launch counts by kernel and version, tokens),
            logits against the f32 plain path;
            ``make_prefill_step(impl="flash")`` on (4, 1024) against
            ``impl="chunked"`` (``ssd_intra_chunk`` on its model path, its
@@ -102,7 +106,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
            kernels against their plain versions at every shape the path
            hands them (head dim 128 and 64, GQA groups 1-7), timing rows at
            qwen2-7b's and internvl2-26b's attention and qwen2-7b's down
-           projection; ``ServingEngine`` with the fused kernels on 8
+           projection; ``ServingEngine`` with the fused kernels on 4
            requests (token configs) or ``generate`` from an embeddings
            prompt (embeds configs); ``make_prefill_step(impl="flash")`` on
            (4, 1024) with the bf16 logits against f32 (full depth, or the
@@ -159,6 +163,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            the 8-slot tick's device time by kernel (the grouped kernels'
            share) beside the grouped work's bound, and that tick with the
            grouped calls on the SIMT kernel, in turns
+  rank     adapters fine-tuned at rank 128 served: qwen3-0.6b at its
+           published width (28 layers, bf16, ``LoRAConfig(rank=128,
+           alpha=256.0)``, four seeded non-zero adapters): the LoRA
+           kernels against their plain versions at the path's shapes, the
+           served logits kernels against plain; ``ServingEngine`` with the
+           fused kernels answering the twin's smoke requests and the warm
+           decode tick at 2, 4 and 8 slots, every ``lora_matmul`` and
+           ``lora_matmul_grouped`` launch ``wgmma``, none ``simt``; the
+           same ticks at rank 16; the 8-slot tick by kernel beside the
+           grouped bound, and on the SIMT kernels, in turns
   shard    meshes of ranks sharing the card (``spawn_mesh``, ``gloo``), the
            model tensor-parallel on each rank's blocks: qwen3-4b at its
            published config, the flash prefill on (4, 1024) in f32 on
@@ -168,7 +182,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
            on ``meta`` over a fake process group equal to a live rank's
            FLOPs and collectives; then on the same ranks the decode step
            on each rank's block of one card's cache (``cache_specs``: KV
-           slots over "model"), filled once by ``prefill_chunk``: 16
+           slots over "model"), filled once by ``prefill_chunk``: 8
            greedy steps through ``lora_matmul_grouped`` with per-row
            adapters, f32 on (1, 4) and bf16 on (2, 4), and the sliding-
            window ring over the ranks on (1, 4), against one card; the
@@ -266,6 +280,16 @@ def randn(rng, shape, dtype, scale=1.0):
 def n_copies(weight_bytes: int) -> int:
     """Enough distinct weight buffers to exceed the 50 MB L2 twice over."""
     return max(1, min(16, math.ceil(128e6 / max(weight_bytes, 1))))
+
+
+def weight_copies(rng, shape, dtype):
+    """``n_copies`` distinct buffers of one seeded normal draw: the copies
+    keep the weights out of the L2 cache, which caches by address, so one
+    host draw serves them all (drawing each took tens of seconds of host
+    time over the timing rows)."""
+    w = randn(rng, shape, dtype)
+    es = torch.finfo(dtype).bits // 8
+    return [w] + [w.clone() for _ in range(n_copies(math.prod(shape) * es) - 1)]
 
 
 def misaligned(t):
@@ -424,28 +448,36 @@ def bound(bytes_moved: float, flops: float, dtype):
     return seconds * 1e3, by
 
 
-def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
+def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0, simt=True,
+                     profile=False):
+    """One row of timings: the version the wrapper picks, the SIMT kernel
+    (W one element off 16-byte alignment; ``simt=False`` leaves it out),
+    the plain version, ``addmm`` and the bound; with ``profile`` the
+    picked version's device µs by CUDA kernel (``kernel_us``)."""
     from repro_torch.kernels import lora_matmul as lm
     es = torch.finfo(dtype).bits // 8
-    copies = n_copies(k * n * es)
     x = randn(rng, (m, k), dtype)
-    ws = [randn(rng, (k, n), dtype) for _ in range(copies)]
+    ws = weight_copies(rng, (k, n), dtype)
     a = randn(rng, (k, r), dtype, 0.25)
     b = randn(rng, (r, n), dtype, 0.02)
     err, tol, _ = check_lora_matmul(rng, m, k, n, r, dtype, scale)
     _, timed = run_version(lm.lora_matmul,
                            lambda: lm.lora_matmul(x, ws[0], a, b, scale))
     ms = time_ms([lambda w=w: lm.lora_matmul(x, w, a, b, scale) for w in ws])
-    # the same call through the SIMT kernel: W one element off alignment
-    offs = [misaligned(w) for w in ws]
-    _, simt = run_version(lm.lora_matmul,
-                          lambda: lm.lora_matmul(x, offs[0], a, b, scale))
-    assert simt == "simt", simt
-    simt_ms = time_ms([lambda w=w: lm.lora_matmul(x, w, a, b, scale)
-                       for w in offs])
-    hosts = {v: host_us(lambda w=w: lm.lora_matmul(x, w, a, b, scale))
-             for v, w in ((timed, ws[0]), ("simt", offs[0]))}
-    del offs
+    hosts = {timed: host_us(lambda: lm.lora_matmul(x, ws[0], a, b, scale)),
+             "simt": None}
+    simt_ms = None
+    if simt:
+        # the same call through the SIMT kernel: W one element off alignment
+        offs = [misaligned(w) for w in ws]
+        _, version = run_version(
+            lm.lora_matmul, lambda: lm.lora_matmul(x, offs[0], a, b, scale))
+        assert version == "simt", version
+        simt_ms = time_ms([lambda w=w: lm.lora_matmul(x, w, a, b, scale)
+                           for w in offs])
+        hosts["simt"] = host_us(
+            lambda: lm.lora_matmul(x, offs[0], a, b, scale))
+        del offs
     plain = time_ms([lambda w=w: lm.lora_matmul_ref(x, w, a, b, scale)
                      for w in ws], reps=5)
     lib = time_ms([lambda w=w: torch.addmm(x @ w, x @ a, b, alpha=scale)
@@ -460,6 +492,9 @@ def time_lora_matmul(rng, m, k, n, r, dtype, scale=2.0):
            "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
     if timed == "tf32x3":
         out.update(bound_3xtf32(bytes_moved, flops))
+    if profile:
+        out["by_kernel_us"] = kernel_us(
+            [lambda w=w: lm.lora_matmul(x, w, a, b, scale) for w in ws])
     return out
 
 
@@ -472,16 +507,16 @@ def bound_3xtf32(bytes_moved: float, flops: float):
 
 
 def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0, strided=False,
-                 simt=True):
+                 simt=True, profile=False):
     """One row of timings: the version the wrapper picks, the SIMT kernel
     (x, then W one element off 16-byte alignment; ``simt=False`` leaves it
     out), the plain version, ``baddbmm`` and the bound; ``strided`` banks
-    lie as in ``AdapterBank.gather``'s in-place view."""
+    lie as in ``AdapterBank.gather``'s in-place view; with ``profile`` the
+    picked version's device µs by CUDA kernel (``kernel_us``)."""
     from repro_torch.kernels import lora_matmul as lm
     es = torch.finfo(dtype).bits // 8
-    copies = n_copies(k * n * es)
     x = randn(rng, (g, 1, k), dtype)
-    ws = [randn(rng, (k, n), dtype) for _ in range(copies)]
+    ws = weight_copies(rng, (k, n), dtype)
     a = randn(rng, (e, k, r), dtype, 0.25)
     b = randn(rng, (e, r, n), dtype, 0.02)
     if strided:
@@ -534,6 +569,8 @@ def time_grouped(rng, g, k, n, r, e, dtype, scale=2.0, strided=False,
            "host_us": host_us(calls[0])}
     if timed == "tf32x3":
         out.update(bound_3xtf32(bytes_moved, flops))
+    if profile:
+        out["by_kernel_us"] = kernel_us(calls)
     return out
 
 
@@ -771,6 +808,38 @@ def phase_decode(seed: int):
     return rows
 
 
+def phase_lora(seed: int):
+    """bf16 ``lora_matmul`` and ``lora_matmul_grouped`` timed alone at the
+    kernels phase's rows: rank 16 at llama32-1b's projections (a 64-row
+    prefill chunk; a tick of 8 rows from a bank of 4), ranks 128 and 256 at
+    kimi-k2-1t-a32b's (``WIDE_RANK_LORA_TIMES``,
+    ``WIDE_RANK_GROUPED_TIMES``) and the grouped kernel at r = 128 over a
+    tick of 8 rows at qwen3-0.6b's five projections; each row beside its
+    check, the plain version, ``addmm`` / ``baddbmm`` and its bound, no
+    SIMT row, and each row's device µs by CUDA kernel (split and reduce).
+    Copied into a ``git archive`` of an earlier commit, it times that
+    commit's kernels (the version its rules pick) at the same shapes for a
+    before/after comparison on one machine."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 1400)
+    bf16 = torch.bfloat16
+    kw = dict(simt=False, profile=True)
+    rows = {
+        "lora_matmul": [time_lora_matmul(rng, 64, k, n, 16, bf16, **kw)
+                        for k, n in KN_SHAPES]
+        + [time_lora_matmul(rng, *shape, bf16, **kw)
+           for shape in WIDE_RANK_LORA_TIMES],
+        "lora_matmul_grouped": [
+            time_grouped(rng, 8, k, n, 16, 4, bf16, **kw)
+            for k, n in KN_SHAPES]
+        + [time_grouped(rng, *shape, bf16, strided=True, **kw)
+           for shape in WIDE_RANK_GROUPED_TIMES]
+        + [time_grouped(rng, 8, k, n, 128, 8, bf16, strided=True, **kw)
+           for k, n in QWEN3_KN]}
+    emit({"phase": "lora_times", "gpu": gpu_line(), "by_shape": rows})
+    return rows
+
+
 def ssd_library(xt, a, B, C):
     """The same function as one composition of PyTorch calls (matmul,
     masked exp, einsum), for the library column: C.B^T once per chunk and
@@ -834,6 +903,22 @@ def time_ssd(rng, b, nc, cl, nh, hp, ns):
             **bound_3xtf32(4 * elems, flops), "bytes": 4 * elems,
             "flops": flops,
             "profile_device_us_by_kernel": by_kernel}
+
+
+def kernel_us(calls, reps: int = 10):
+    """Device µs per call of each CUDA kernel that ``calls`` (thunks over
+    distinct weight buffers, as ``time_ms`` takes them) enqueue, by
+    ``torch.profiler``: a split kernel beside its reduce kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    calls[0]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    return {e.key[:80]: getattr(e, "device_time_total", 0.0) / reps
+            for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0}
 
 
 def ssd_profile(ins, reps: int = 5):
@@ -999,11 +1084,18 @@ def check_ladder(rng):
 
 
 # the shapes the reference takes and the port's kernels were widened to:
-# LoRA ranks above 64 (M, K, N, r) and (G, M, K, N, r, E)
+# LoRA ranks above 64 (M, K, N, r) and (G, M, K, N, r, E); K, N and r
+# multiples of 8 take the bf16 tensor-core kernels (x@A in 64-rank panels:
+# 72 leaves a panel of 8, a ragged M and 15 or 70 rows fill no tile whole),
+# the others the SIMT kernels
 WIDE_RANK_SHAPES = ((64, 512, 256, 128), (37, 300, 200, 200),
-                    (16, 256, 136, 256), (70, 130, 90, 65))
+                    (16, 256, 136, 256), (70, 130, 90, 65),
+                    (70, 264, 136, 72), (100, 1096, 200, 128),
+                    (37, 520, 264, 256), (1, 1024, 3072, 128))
 WIDE_RANK_GROUPED = ((5, 1, 512, 256, 128, 3), (4, 2, 300, 96, 256, 2),
-                     (8, 1, 264, 72, 100, 4))
+                     (8, 1, 264, 72, 100, 4), (3, 5, 264, 136, 72, 3),
+                     (8, 1, 1096, 200, 128, 4), (7, 10, 520, 264, 256, 5),
+                     (2, 1, 256, 72, 256, 2))
 # flash_attention ((B, Sq, Skv, Hq, Hkv, D), kwargs)
 WIDE_HEAD_FLASH = (((1, 300, 300, 16, 2, 112), {}),
                    ((2, 130, 130, 16, 2, 112), {"window": 64}),
@@ -1022,8 +1114,11 @@ WIDE_DECODE_TIMES = ((4, 1024, 128, 8, 112, 1000),
                      (4, 512, 128, 8, 112, 1500, 512))
 WIDE_TF32_FLASH_TIME = (1, 1024, 64, 8, 112)
 WIDE_SIMT_FLASH_TIMES = ((4, 1024, 32, 8, 40), (4, 1024, 16, 4, 256))
-WIDE_RANK_LORA_TIME = (64, 7168, 7168, 128)
-WIDE_RANK_GROUPED_TIME = (8, 7168, 896, 128, 4)
+# LoRA at ranks 128 and 256: kimi-k2-1t-a32b's q projection over a prefill
+# chunk (M, K, N, r) and its kv projection over a tick of 8 rows from a
+# strided bank of 4 (G, K, N, r, E)
+WIDE_RANK_LORA_TIMES = ((64, 7168, 7168, 128), (64, 7168, 7168, 256))
+WIDE_RANK_GROUPED_TIMES = ((8, 7168, 896, 128, 4), (8, 7168, 896, 256, 4))
 
 
 def phase_kernels(seed: int):
@@ -1065,8 +1160,10 @@ def phase_kernels(seed: int):
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
                                        simt=simt))
-            # ranks above the tensor-core versions' 64: the SIMT kernel
-            # (RC = 8 and 16, the epilogue in chunks of 64 ranks)
+            # ranks above 64: bf16 on the tensor cores where r is a
+            # multiple of 8 (64-rank panels), the SIMT kernel (RC = 8 and
+            # 16, the epilogue in chunks of 64 ranks) for f32, the others
+            # and misaligned inputs
             for mkn in WIDE_RANK_SHAPES:
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, *mkn, dtype, simt=simt))
@@ -1095,7 +1192,9 @@ def phase_kernels(seed: int):
                      check_grouped(rng, 8, 1, k, n, 16, 4, dtype,
                                    ids=[0, 1, 2, 3, 0, 1, 2, 3], scale=2.0,
                                    simt=simt))
-            # ranks above 64: the first SIMT variant (256 / r K groups)
+            # ranks above 64: bf16 on the tensor cores where r is a
+            # multiple of 8 ((row, 64-rank chunk) units), the first SIMT
+            # variant (256 / r K groups) otherwise
             for gmknre in WIDE_RANK_GROUPED:
                 note("lora_matmul_grouped", dtype,
                      check_grouped(rng, *gmknre, dtype, simt=simt,
@@ -1230,12 +1329,23 @@ def phase_kernels(seed: int):
         time_flash(rng, *WIDE_TF32_FLASH_TIME, f32))
     for shape in WIDE_SIMT_FLASH_TIMES:
         rows["flash_attention"].append(time_flash(rng, *shape, bf16))
-    # ranks above 64 (the SIMT kernels) at kimi-k2-1t-a32b's q projection
-    # over a prefill chunk and its kv projection over a tick of 8 rows
+    # ranks 128 and 256 (bf16 on the tensor cores, each beside the SIMT
+    # kernel) at kimi-k2-1t-a32b's q projection over a prefill chunk and its
+    # kv projection over a tick of 8 rows; the grouped kernel at r = 128
+    # over a tick of 8 rows at qwen3-0.6b's five projections (the rank
+    # phase's: a strided bank of one adapter a row); f32 at r = 128 (SIMT)
+    for shape in WIDE_RANK_LORA_TIMES:
+        rows["lora_matmul"].append(time_lora_matmul(rng, *shape, bf16))
+    for shape in WIDE_RANK_GROUPED_TIMES:
+        rows["lora_matmul_grouped"].append(
+            time_grouped(rng, *shape, bf16, strided=True))
+    for k, n in QWEN3_KN:
+        rows["lora_matmul_grouped"].append(
+            time_grouped(rng, 8, k, n, 128, 8, bf16, strided=True))
     rows["lora_matmul"].append(
-        time_lora_matmul(rng, *WIDE_RANK_LORA_TIME, bf16))
+        time_lora_matmul(rng, *WIDE_RANK_LORA_TIMES[0], f32))
     rows["lora_matmul_grouped"].append(
-        time_grouped(rng, *WIDE_RANK_GROUPED_TIME, bf16, strided=True))
+        time_grouped(rng, *WIDE_RANK_GROUPED_TIMES[0], f32, strided=True))
     # ssd_intra_chunk at the shapes mamba_forward(impl="flash") hands it on
     # (4, 1024) tokens: mamba2-370m's and hymba-1.5b's
     rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 4, 256, 32, 64, 128))
@@ -2218,8 +2328,9 @@ TRAIN_LR = {"moe": 3e-4}
 # the serve of the SSM configs on their first layers: a prompt chunk is 32
 # decode steps at batch 1, host-bound, and hymba-1.5b's whole-model serve
 # alone took 123.6 s on a slow host (on 24 / 16 layers 16.2 / 41.7 s of a
-# 984.8 s script: halved again to leave room under the 1200 s)
-FAMILY_SERVE_LAYERS = {"mamba2-370m": 12, "hymba-1.5b": 8}
+# 984.8 s script: halved again to leave room under the 1200 s; on 12 / 8
+# 9.9 / 31.0 s of a 1139.1 s one, halved once more)
+FAMILY_SERVE_LAYERS = {"mamba2-370m": 6, "hymba-1.5b": 4}
 
 
 def lora_projections(cfg) -> int:
@@ -2441,6 +2552,7 @@ def family_serve_logits(cfg, cfg32, frozen, frozen32, bank, gpu,
         if repeat is not None:
             assert (report["diff_same_adapter"]
                     <= 0.1 * report["diff_between_adapters"]), report
+    return report
 
 
 class RoutingLog:
@@ -2739,6 +2851,8 @@ REGISTRY_ARCHS = ("qwen3-0.6b", "qwen3-4b", "qwen2-7b", "phi3-medium-14b",
                   "internvl2-26b", "musicgen-large")
 REGISTRY_CHUNK = 64        # the engine's prefill chunk
 REGISTRY_NEW = 16          # new tokens of a generate row
+REGISTRY_REQUESTS = 4      # served per token config (8 until the whole
+                           # script took 1139.1 s on a slow host)
 # depth of the bf16-vs-f32 logits check: the whole model where its f32 copy
 # fits beside the bf16 one, else its first 4 layers at full width (f32
 # copies of phi3-medium-14b and internvl2-26b would take ~59 and ~79 GB)
@@ -3106,7 +3220,8 @@ def phase_registry(seed: int):
         if cfg.input_mode == "tokens":
             counts, by = family_serve(cfg, frozen, AdapterBank(adapters),
                                       seed + i, gpu, chunk=REGISTRY_CHUNK,
-                                      phase="registry_serve")
+                                      phase="registry_serve",
+                                      n_requests=REGISTRY_REQUESTS)
         else:
             counts, by = registry_generate(cfg, frozen, adapters[0], seed + i,
                                            gpu)
@@ -3686,9 +3801,10 @@ def tick_grouped_bound_ms(cfg, slots: int) -> float:
     return total * cfg.n_layers
 
 
-def tick_profile(eng, slots: int, reps: int = 3):
+def tick_profile(eng, slots: int, reps: int = 3, top: int = 0):
     """Device microseconds of one warm decode tick by ``torch.profiler``:
-    all kernels, and the grouped LoRA kernels' (split and reduce) share."""
+    all kernels, and the grouped LoRA kernels' (split and reduce) share;
+    the ``top`` heaviest kernels by name, with their launches a tick."""
     from torch.profiler import ProfilerActivity, profile as prof
     toks = np.ones((slots, 1), np.int32)
     ts = np.arange(1, slots + 1, dtype=np.int32)
@@ -3705,8 +3821,17 @@ def tick_profile(eng, slots: int, reps: int = 3):
     total = sum(us for _, us in rows) / reps
     grouped = sum(us for key, us in rows
                   if "lora_matmul_grouped" in key) / reps
+    # the kernels alone (device events, not the operators that launch them),
+    # heaviest first: the tick's time by kernel
+    kern = sorted(((e.key, getattr(e, "self_device_time_total", 0.0) / reps,
+                    e.count // reps) for e in p.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=lambda row: -row[1])
     return {"device_us": total, "grouped_device_us": grouped,
-            "grouped_share": grouped / total if total else None}
+            "grouped_share": grouped / total if total else None,
+            "kernels_device_us": sum(us for _, us, _ in kern),
+            "by_kernel": [{"kernel": key[:120], "us": us, "launches": n}
+                          for key, us, n in kern[:top]]}
 
 
 def phase_serve32(seed: int):
@@ -3849,6 +3974,193 @@ def phase_serve32(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# rank phase
+# ---------------------------------------------------------------------------
+
+RANK_LORA = dict(rank=128, alpha=256.0)   # LoRAConfig: the scale stays 2.0
+RANK_ADAPTERS = 4             # seeded adapters of the bank, non-zero B
+RANK_SLOTS = (2, 4, 8)        # the decode tick timed at these slot counts
+RANK_TICK_ITERS = 10          # warm ticks a timing (wall mean; device best)
+RANK_COMPARE_ITERS = 3        # the same, for the wgmma / SIMT turns (a SIMT
+                              # tick at rank 128 takes ~0.3 s)
+RANK_MAX_LEN = 64
+RANK_CHUNK = 4                # the engine's prefill chunk: lora_matmul's M
+
+
+def rank_kernel_checks(cfg, seed: int, gpu: str):
+    """The bf16 LoRA kernels at the rank phase's rank against their plain
+    versions at the shapes its path hands them (``LORA_TOL``):
+    ``lora_matmul`` over a prefill chunk of ``RANK_CHUNK`` rows at every
+    projection, ``lora_matmul_grouped`` over ticks of 2, 4 and 8 rows from
+    a strided bank of one adapter a row (the engine's gathered bank); all
+    ``wgmma``, asserted. Launches made here precede the path's counts."""
+    rng = np.random.default_rng(seed + 1300)
+    bf16 = torch.bfloat16
+    r, scale = cfg.lora.rank, cfg.lora.scale
+    out = []
+    for k, n in lora_shapes(cfg):
+        out.append(("lora_matmul", (RANK_CHUNK, k, n, r), check_lora_matmul(
+            rng, RANK_CHUNK, k, n, r, bf16, scale)))
+        for g in RANK_SLOTS:
+            out.append(("lora_matmul_grouped", (g, 1, k, n, r, g),
+                        check_grouped(rng, g, 1, k, n, r, g, bf16,
+                                      ids=list(range(g)), scale=scale,
+                                      strided=True)))
+    emit({"phase": "rank_kernels", "gpu": gpu, "arch": cfg.name, "rank": r,
+          "checked": [{"name": name, "shape": list(shape),
+                       "max_abs_err": err, "tol": tol, "version": version}
+                      for name, shape, (err, tol, version) in out]})
+    for name, shape, (err, tol, version) in out:
+        assert version == "wgmma", (name, shape, version)
+
+
+def rank_ticks(cfg, frozen, bank, dev):
+    """The warm decode tick at ``RANK_SLOTS`` slots: wall and CUDA-graph
+    device milliseconds (``serving_bench._time_decode_tick``)."""
+    from repro_torch.launch import serving_bench
+    ticks = {}
+    for slots in RANK_SLOTS:
+        wall_s, device_s = serving_bench._time_decode_tick(
+            cfg, frozen, bank, slots, RANK_MAX_LEN, RANK_TICK_ITERS,
+            use_lora_kernel=True, device=dev)
+        ticks[f"{slots}slot"] = {"wall_ms": wall_s * 1e3,
+                                 "device_ms": device_s * 1e3}
+    return ticks
+
+
+def phase_rank(seed: int):
+    """Adapters fine-tuned at a rank above 64, served: qwen3-0.6b at its
+    published width (28 layers), bf16, ``LoRAConfig(rank=128,
+    alpha=256.0)``, four seeded adapters with non-zero B. (a) The LoRA
+    kernels against their plain versions at the path's shapes
+    (``rank_kernel_checks``, ``LORA_TOL``) and the served weights' logits,
+    kernels against the plain path, for one tick and one prefill chunk
+    (``family_serve_logits``' bounds); (b) the main path: a
+    ``ServingEngine(use_lora_kernel=True)`` answering the serving twin's
+    smoke requests and the warm decode tick at 2, 4 and 8 slots, wall and
+    CUDA-graph device time, with every ``lora_matmul`` and
+    ``lora_matmul_grouped`` launch ``wgmma`` and none ``simt``; (c) outside
+    the counted path, the same ticks at rank 16 (the config's own adapters)
+    and (d) the 8-slot tick's device time by kernel (``torch.profiler``,
+    the grouped share beside ``tick_grouped_bound_ms``) and the 8-slot tick
+    with the LoRA calls forced onto the SIMT kernels (the version rules
+    patched for the call: the route before the tensor-core kernels took
+    ranks above 64), ``wgmma`` and SIMT in turns. Returns the main path's
+    counts, runs on the card and versions."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.launch import serving_bench
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank, ServingEngine
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    lora = ("lora_matmul", "lora_matmul_grouped")
+    grid = serving_bench.SMOKE_GRID
+    cfg16 = get_config(serving_bench.ARCH)
+    cfg = dataclasses.replace(cfg16, lora=LoRAConfig(**RANK_LORA))
+    assert cfg.dtype == "bfloat16" and cfg.lora.scale == cfg16.lora.scale, (
+        cfg.dtype, cfg.lora, cfg16.lora)
+    rank_kernel_checks(cfg, seed, gpu)
+    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
+    adapters = [serving_bench.make_adapter(cfg, s, dev)
+                for s in serving_bench.ADAPTER_SEEDS[:RANK_ADAPTERS]]
+    bank = AdapterBank(adapters)
+    assert bank.stacked["layers"]["attn"]["wq"]["a"].shape[-1] == cfg.lora.rank
+    # (a) the served weights' logits, kernels against the plain path: one
+    # tick of the twin's largest slot count, one prompt chunk
+    frozen32 = tree_map(lambda v: v.float(), frozen)
+    logits = [family_serve_logits(
+        cfg, dataclasses.replace(cfg, dtype="float32"), frozen, frozen32,
+        bank, gpu, ids=[i % bank.n for i in range(max(grid["slot_counts"]))],
+        prompt_tokens=RANK_CHUNK, phase="rank_logits")]
+    del frozen32
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    # ---- the main path: counts set to 0 just before, read just after ----
+    kernels.reset_launch_counts()
+    eng = ServingEngine(cfg, frozen, bank, slots=max(RANK_SLOTS),
+                        max_len=RANK_MAX_LEN, prefill_chunk=RANK_CHUNK,
+                        use_lora_kernel=True)          # device=None: the card
+    for req in serving_bench._make_requests(
+            cfg, grid["requests"], bank.n, grid["prompt_len"],
+            grid["max_new"], seed):
+        eng.submit(req)
+    stats = eng.run_until_drained(max_ticks=10_000)
+    ticks = rank_ticks(cfg, frozen, bank, dev)
+    counts = kernels.launch_counts()
+    runs = kernels.runs_on_card()
+    versions = kernels.version_counts()
+    # ----------------------------------------------------------------------
+    t_main = time.time() - t0
+    # (c) the same ticks at rank 16
+    bank16 = AdapterBank([serving_bench.make_adapter(cfg16, s, dev)
+                          for s in serving_bench.ADAPTER_SEEDS[:RANK_ADAPTERS]])
+    ticks16 = rank_ticks(cfg16, frozen, bank16, dev)
+    del bank16
+    # (d) the 8-slot tick by kernel, and on the SIMT kernels in turns
+    top = max(RANK_SLOTS)
+    profile = tick_profile(eng, top, top=12)
+    rules = (lm.lora_matmul_version, lm.lora_matmul_grouped_version)
+    compare = {"wgmma": [], "simt": []}
+    try:
+        for version in ("simt", "wgmma", "wgmma", "simt"):
+            if version == "simt":
+                lm.lora_matmul_version = lambda *a: "simt"
+                lm.lora_matmul_grouped_version = lambda *a: "simt"
+            else:
+                lm.lora_matmul_version, lm.lora_matmul_grouped_version = rules
+            before = dict(lm.lora_matmul_grouped.by_version)
+            _, device_s = serving_bench._time_decode_tick(
+                cfg, frozen, bank, top, RANK_MAX_LEN, RANK_COMPARE_ITERS,
+                use_lora_kernel=True, device=dev)
+            ran = {v for v, n in lm.lora_matmul_grouped.by_version.items()
+                   if n != before[v]}
+            assert ran == {version}, (version, ran)
+            compare[version].append(device_s * 1e3)
+    finally:
+        lm.lora_matmul_version, lm.lora_matmul_grouped_version = rules
+    report = {"phase": "rank", "gpu": gpu, "arch": cfg.name,
+              "dtype": cfg.dtype, "layers": cfg.n_layers,
+              "rank": cfg.lora.rank, "alpha": cfg.lora.alpha,
+              "scale": cfg.lora.scale, "adapters": bank.n,
+              "engine": {"slots": top, "max_len": RANK_MAX_LEN,
+                         "prefill_chunk": RANK_CHUNK},
+              "served": {k: stats[k] for k in (
+                  "completed", "drained", "ticks", "prefills", "tokens",
+                  "requests_per_s", "tokens_per_sec", "mean_ttft_s",
+                  "wall_s")},
+              "logits": [{"ids": rep["ids"],
+                          "logit_abs_max": rep["logit_abs_max"],
+                          **{w: rep[w]["bf16_kernel_vs_plain"]
+                             for w in ("tick", "prompt")}} for rep in logits],
+              "decode_tick": ticks, "decode_tick_rank16": ticks16,
+              "tick_grouped_bound_ms": {
+                  f"{n}slot": tick_grouped_bound_ms(cfg, n)
+                  for n in RANK_SLOTS},
+              "tick_profile_8slot": profile,
+              "tick_device_ms_8slot_by_version": compare,
+              "launches": counts, "runs_on_card": runs,
+              "launches_by_version": versions, "main_path_seconds": t_main,
+              "seconds": time.time() - t_phase}
+    emit(report)
+    assert stats["drained"] and stats["completed"] == grid["requests"], stats
+    for key, tick in {**ticks, **{k + "_r16": v for k, v in ticks16.items()}
+                      }.items():
+        assert 0 < tick["device_ms"] <= tick["wall_ms"], (key, tick)
+    for name in lora:
+        assert counts[name] > 0, (name, counts)
+        assert versions[name]["wgmma"] == counts[name], (name, versions)
+        assert versions[name]["simt"] == 0, (name, versions)
+    assert all(counts[k] == 0 for k in counts if k not in lora), counts
+    del eng, frozen, adapters, bank
+    torch.cuda.empty_cache()
+    return counts, runs, versions
+
+
+# ---------------------------------------------------------------------------
 # shard phase
 # ---------------------------------------------------------------------------
 
@@ -3856,14 +4168,15 @@ SHARD_ARCH = "granite-moe-3b-a800m"
 SHARD_TOKENS = (4, 1024)
 SHARD_AXES = ("data", "model")
 # ep_a2a on both; at batch 4, dp 8 does not divide the batch: the broadcast
-# layout; their first 8 layers (at 32 the whole script took 1165.9 s of its
-# 1200 on a slow host, at 16 984.8 s on a fast one)
+# layout; their first 4 layers (at 32 the whole script took 1165.9 s of its
+# 1200 on a slow host, at 16 984.8 s on a fast one, at 8 1139.1 s)
 SHARD_EP_MESHES = ((4, 2), (8, 1))
-SHARD_EP_LAYERS = 8
+SHARD_EP_LAYERS = 4
 # replicated (dp 3 does not divide 40 experts) at batch 6, over dp x model;
-# its first 8 layers: six f32 copies of the 32-layer expert bank (12 GB
-# each) do not fit the card beside one another
-SHARD_REPLICATED = ((3, 2), 6, 8)
+# its first 4 layers: six f32 copies of the 32-layer expert bank (12 GB
+# each) do not fit the card beside one another (8 layers until the whole
+# script took 1139.1 s)
+SHARD_REPLICATED = ((3, 2), 6, 4)
 SHARD_TOL = 1e-4           # f32, x max|want|
 PUBLISHED_CF = 1.25
 KIMI_ARCH = "kimi-k2-1t-a32b"
@@ -3894,7 +4207,7 @@ QWEN_DECODE_ROWS = 8
 QWEN_PROMPT = 1024
 QWEN_DECODE_SLOTS = 2048
 QWEN_PREFILL_CHUNK = 256
-QWEN_DECODE_STEPS = 16
+QWEN_DECODE_STEPS = 8       # 16 until the whole script took 1139.1 s
 QWEN_BANKS = 4
 # the ring: a window of 512 slots on the first 8 layers, a prompt of 1148
 # tokens, and QWEN_RING_STEPS steps: the decode writes slots 124..131,
@@ -4826,7 +5139,7 @@ def phase_shard(seed: int):
           traced on ``meta`` against live rank 0; on the same ranks the
           decode (``qwen_decode_refs``, ``qwen_mesh_decode``,
           ``qwen_decode_report``): one card's cache filled once, each
-          rank's block of it, 16 steps through ``lora_matmul_grouped``
+          rank's block of it, 8 steps through ``lora_matmul_grouped``
           with per-row adapters, f32 on (1, 4) with its ring (8 steps), bf16 on
           (2, 4), the (2, 4) ``make_serve_step`` traced on ``meta``
           against live rank 0; the grouped kernel timed at a (2, 4)
@@ -4835,7 +5148,7 @@ def phase_shard(seed: int):
           prefill step on (4, 1024) tokens (tensor-parallel attention, the
           MoE through ``moe_forward_tp``) on (4, 2) and (8, 1)
           (``ep_a2a``) and on (3, 2) at batch 6
-          (``replicated``), first 8 layers, each against the same weights'
+          (``replicated``), first 4 layers, each against the same weights'
           run on one card, the routing replayed from it, at the capacity
           factor E / k, at which no path drops; the flash_attention
           launches of every rank counted; the dropped share of every path
@@ -5241,7 +5554,7 @@ def main() -> int:
                                        "fleet", "calibrate", "registry",
                                        "dryrun", "bench", "flash",
                                        "serve32", "shard", "kimi",
-                                       "decode"),
+                                       "decode", "rank", "lora"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -5257,11 +5570,13 @@ def main() -> int:
                          "twin's full grid; flash: the bf16 "
                          "flash_attention timing rows alone (the first "
                          "launch builds the kernels); serve32: build, then "
-                         "the f32 serve phase alone; shard: build, then the "
+                         "the f32 serve phase alone; rank: build, then the "
+                         "rank-128 serve phase alone; shard: build, then the "
                          "shard phase alone; kimi: build, then the kimi "
                          "phase alone; decode: the flash_decode timing "
                          "rows alone (the first launch builds the "
-                         "kernels)")
+                         "kernels); lora: the bf16 LoRA timing rows alone "
+                         "(the first launch builds the kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -5298,6 +5613,11 @@ def main() -> int:
     if args.only == "flash":
         phase_flash(args.seed)
         emit({"phase": "done", "only": "flash",
+              "seconds": time.time() - t_start})
+        return 0
+    if args.only == "lora":
+        phase_lora(args.seed)
+        emit({"phase": "done", "only": "lora",
               "seconds": time.time() - t_start})
         return 0
     if args.only == "decode":
@@ -5351,6 +5671,11 @@ def main() -> int:
         emit({"phase": "done", "only": "serve32",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "rank":
+        phase_rank(args.seed)
+        emit({"phase": "done", "only": "rank",
+              "seconds": time.time() - t_start})
+        return 0
     if args.only == "kimi":
         phase_kimi(args.seed)
         emit({"phase": "done", "only": "kimi",
@@ -5396,6 +5721,7 @@ def main() -> int:
                                      dryrun_records, serve_logits=False)
     by_path["bench"] = tuple(bench)
     by_path["serve32"] = phase_serve32(args.seed)
+    by_path["rank"] = phase_rank(args.seed)
     *shard, shard_rows = phase_shard(args.seed)
     by_path["shard"] = tuple(shard)
     # after the headline rows

@@ -35,4 +35,24 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
+// p[0] + p[stride] + ... + p[(n - 1) * stride], added in that order, the
+// loads issued eight at a time (a term past n is a predicated-off load of
+// 0), so a batch goes out before the first add waits: a loop that adds
+// each term as it comes waits a round trip a term (the split-K reductions
+// read a few to a hundred terms).
+__device__ __forceinline__ float sum_strided(const float* __restrict__ p,
+                                             size_t stride, int n) {
+  constexpr int BATCH = 8;
+  float s = 0.f;
+  for (int i0 = 0; i0 < n; i0 += BATCH) {
+    float v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      v[u] = i0 + u < n ? p[(size_t)(i0 + u) * stride] : 0.f;
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) s += v[u];
+  }
+  return s;
+}
+
 }  // namespace repro

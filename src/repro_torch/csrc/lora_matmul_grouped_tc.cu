@@ -5,7 +5,7 @@
 //
 // It takes the place of the Pallas TPU kernel lora_matmul_grouped of
 // src/repro/kernels/lora_matmul.py for bf16 inputs whose K, N and r are
-// multiples of 8 (r <= 64) and whose pointers and bank strides are 16-byte
+// multiples of 8 (r <= 256) and whose pointers and bank strides are 16-byte
 // aligned; every other case stays on the two SIMT kernels of lora_matmul.cu
 // (the wrapper chooses by dtype, shape and alignment, never by failure).
 //
@@ -13,8 +13,10 @@
 // are G = 8 rows, one per request, so the shared product x@W does 16 FLOP
 // per byte of W and the function is a stream of W (8 to 33.5 MB at the
 // serving shapes of llama32-1b), far below the ~295 FLOP per byte at which
-// the tensor cores and not device memory are the limit. The design is the
-// W-streaming design of lora_matmul_tc.cu:
+// the tensor cores and not device memory are the limit. At r = 128 each row
+// also reads its own A and B: 8 rows at (K, N) = (7168, 896) read 14.7 MB of
+// A beside W's 12.8 MB, so the stream is of W and A together. The design is
+// the W-streaming design of lora_matmul_tc.cu:
 //
 //   * split-K over blocks: the grid is (N tiles [+ x@A blocks], row tiles,
 //     K splits), sized by the wrapper's plan (grouped_plan) so that at least
@@ -35,14 +37,17 @@
 //
 // x@A differs per row (each row has its own adapter), so it cannot ride on
 // the shared product. It is computed once per (row, K split), never once per
-// N tile: in each split the rows of a row tile are dealt round-robin to the
-// blocks along N (row i to block i mod nx), at most 64 / r rows per block,
-// so a block carries at most about one row's run of A beyond its share of W
-// (one at the serving shapes, where nx >= 8 = G). Each such row's slice of
-// A[ids[row]] is read where it lies in the bank (through its stride, so the
-// strided in-place bank of AdapterBank.gather needs no gathered copy) into
-// the same ring stage as W, and multiplied on the CUDA cores with x taken
-// from the stage's x tile, while the tensor cores run the stage's x@W.
+// N tile, in units of at most 64 ranks: a row's whole rank where r <= 64
+// (64 / r of them fit a unit's room), else one 64-rank chunk of it, so that
+// r = 256 is four units of a row. In each split the units of a row tile are
+// dealt round-robin to the blocks along N (unit u to block u mod nx), one
+// unit's room of A a block and stage, and nx grows past the N tiles where
+// the units need it; so a block carries at most one unit's run of A beyond
+// its share of W. Each unit's slice of A[ids[row]] is read where it lies in
+// the bank (through its stride, so the strided in-place bank of
+// AdapterBank.gather needs no gathered copy) into the same ring stage as W,
+// and multiplied on the CUDA cores with x taken from the stage's x tile,
+// while the tensor cores run the stage's x@W.
 //
 // Rounding contract (that of the TPU kernel, kernels/ref.py and the plain
 // version): every product accumulates in f32; x@A is summed over ALL of K
@@ -71,8 +76,10 @@ constexpr int TBK = 64;                 // K per stage: one 128-byte row
 constexpr int STAGES = 3;
 constexpr int NT = 128;                 // one warpgroup
 constexpr int PANEL = 64 * 128;         // one 64 x 64 bf16 panel, bytes
-constexpr int MAX_R = 64;
-constexpr int A_BYTES = TBK * MAX_R * 2;   // x@A rows' slices of A, a stage
+constexpr int RP = 64;                  // ranks of one x@A unit's room
+constexpr int MAX_R = 256;
+constexpr int MAX_UNITS = RP / 8;       // units a block: 64 / r at r = 8
+constexpr int A_BYTES = TBK * RP * 2;   // the units' slices of A, a stage
 constexpr int XA_SLOTS = A_BYTES / 16 / NT;   // x@A triples a thread
 
 template <int BN>
@@ -84,10 +91,20 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE + 1024;    // + alignment slack
 };
 
+// x@A units of a row tile: r <= 64 gives a unit a row (64 / r of them a
+// block), r > 64 a unit a 64-rank chunk of a row (one a block); unit u is
+// row u / chunks, ranks 64 * (u % chunks) on.
+__host__ __device__ __forceinline__ int rank_chunks(int r) {
+  return ceil_div(r, RP);
+}
+__host__ __device__ __forceinline__ int units_per_block(int r) {
+  return r > RP ? 1 : RP / r;
+}
+
 // One block (bx, row tile, split): if bx < n_tiles, the (64, BN) tile of
-// x@W at columns bx * BN; and x@A of the tile's rows bx, bx + nx, ... (at
-// most MAX_R / r of them); both over the split's K range. The f32 partial
-// sums go to ws_y[split] and ws_xa[split].
+// x@W at columns bx * BN; and the x@A units bx, bx + nx, ... of the tile
+// (at most units_per_block(r) of them); both over the split's K range. The
+// f32 partial sums go to ws_y[split] and ws_xa[split].
 template <int BN>
 __global__ void __launch_bounds__(NT, 2)
 lora_matmul_grouped_tc_split_kernel(
@@ -101,7 +118,8 @@ lora_matmul_grouped_tc_split_kernel(
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_base_1k(smem_raw);
   uint8_t* const sbase = smem_raw + (base - smem_u32(smem_raw));
-  __shared__ const bf16* a_row[MAX_R / 8];   // bank slice of each x@A row
+  __shared__ const bf16* a_unit[MAX_UNITS];   // bank slice of each unit
+  __shared__ int u_row[MAX_UNITS];            // its row in the tile
 
   const int tid = threadIdx.x;
   const int bx = blockIdx.x;
@@ -112,13 +130,19 @@ lora_matmul_grouped_tc_split_kernel(
   const int rows_here = min(TBM, rows - m0);
   const bool do_w = bx < n_tiles;       // uniform over the block
   const int n0 = bx * BN;
-  const int n_xa = bx < rows_here ? ceil_div(rows_here - bx, nx) : 0;
-  const int rc = r / 8;                 // 16-byte chunks across a row of A
-  const int xa_pairs = n_xa * TBK * rc; // (row, k, chunk) triples a stage
+  const int chunks = rank_chunks(r);
+  const int units = rows_here * chunks;
+  const int n_u = bx < units
+      ? min(units_per_block(r), ceil_div(units - bx, nx)) : 0;
+  const int uw = min(RP, r - RP * (bx % chunks));   // the units' width
+  const int uc = uw / 8;                // 16-byte chunks across a unit's row
+  const int xa_pairs = n_u * TBK * uc;  // (unit, k, chunk) triples a stage
 
-  if (tid < n_xa) {
-    const int row = m0 + bx + tid * nx;
-    a_row[tid] = Abank + (size_t)ids[row / rows_per_group] * a_stride;
+  if (tid < n_u) {
+    const int u = bx + tid * nx;
+    u_row[tid] = u / chunks;
+    a_unit[tid] = Abank + (size_t)ids[(m0 + u / chunks) / rows_per_group] *
+                              a_stride + RP * (u % chunks);
   }
   // the x tile's rows past the last row are zeros in every stage, once
   for (int idx = tid; idx < STAGES * (TBM - rows_here) * 8; idx += NT) {
@@ -128,21 +152,22 @@ lora_matmul_grouped_tc_split_kernel(
                               (rows_here + rem / 8) * 128 + (rem % 8) * 16) =
         make_uint4(0, 0, 0, 0);
   }
-  __syncthreads();                      // a_row visible to every thread
+  __syncthreads();                      // a_unit, u_row visible to all
 
-  // this thread's (row, k, chunk) triples of x@A: the same in every stage
-  const bf16* a_src[XA_SLOTS];          // A[ids[row]] at (kk, 8 c)
+  // this thread's (unit, k, chunk) triples of x@A: the same in every stage
+  const bf16* a_src[XA_SLOTS];          // A[ids[row]] at (kk, col0 + 8 c)
   int a_kk[XA_SLOTS];
   uint32_t x_off[XA_SLOTS];             // x[row][kk] in a stage's x tile
 #pragma unroll
   for (int s = 0; s < XA_SLOTS; ++s) {
     const int idx = tid + s * NT;
-    const int q = idx / (TBK * rc), rem = idx % (TBK * rc);
-    const int kk = rem / rc, c = rem % rc;
+    const int q = idx / (TBK * uc), rem = idx % (TBK * uc);
+    const int kk = rem / uc, c = rem % uc;
     const bool mine = idx < xa_pairs;
-    a_src[s] = mine ? a_row[q] + (size_t)kk * r + 8 * c : Abank;
+    a_src[s] = mine ? a_unit[q] + (size_t)kk * r + 8 * c : Abank;
     a_kk[s] = kk;
-    x_off[s] = T::X_OFF + swz128(bx + q * nx, kk >> 3) + (kk & 7) * 2;
+    x_off[s] = mine ? T::X_OFF + swz128(u_row[q], kk >> 3) + (kk & 7) * 2
+                    : T::X_OFF;
   }
 
   const int xc = tid & 7, xr = tid >> 3;               // X: 16 rows a pass
@@ -171,7 +196,7 @@ lora_matmul_grouped_tc_split_kernel(
                    ok ? W + (size_t)gk * N + gn : W, ok);
       }
     }
-    // A[ids[row]][k0 : k0 + 64, :], dense (k, r) per x@A row
+    // A[ids[row]][k0 : k0 + 64, col0 : col0 + uw], dense (k, rank) a unit
 #pragma unroll
     for (int s = 0; s < XA_SLOTS; ++s) {
       const int idx = tid + s * NT;
@@ -252,10 +277,10 @@ lora_matmul_grouped_tc_split_kernel(
             make_float2(acc[i], acc[i + 1]);
     }
   }
-  if (n_xa == 0) return;                // uniform over the block
+  if (n_u == 0) return;                 // uniform over the block
 
   // x@A: each thread's partials over its k's go to shared memory (the ring
-  // is free now), laid out (row, k, column); one thread per (row, column)
+  // is free now), laid out (unit, k, rank); one thread per (unit, rank)
   // sums the 64 k's and writes the split's partial
   __syncthreads();
   float* red = reinterpret_cast<float*>(sbase);
@@ -269,75 +294,100 @@ lora_matmul_grouped_tc_split_kernel(
   }
   __syncthreads();
   float* pa = ws_xa + (size_t)split * rows * r;
-  for (int o = tid; o < n_xa * r; o += NT) {
-    const int q = o / r, j = o % r;
-    const float* p = red + (size_t)q * TBK * r + j;
+  for (int o = tid; o < n_u * uw; o += NT) {
+    const int q = o / uw, j = o % uw;
+    const float* p = red + (size_t)q * TBK * uw + j;
     float sum = 0.f;
 #pragma unroll 8
-    for (int kk = 0; kk < TBK; ++kk) sum += p[kk * r];
-    pa[(size_t)(m0 + bx + q * nx) * r + j] = sum;
+    for (int kk = 0; kk < TBK; ++kk) sum += p[kk * uw];
+    const int u = bx + q * nx;
+    pa[(size_t)(m0 + u / chunks) * r + RP * (u % chunks) + j] = sum;
   }
 }
 
-// The reduction over the splits and the epilogue: 2 rows x 128 columns per
-// block, one column per thread. x@A of the rows is summed over the splits
-// and rounded once to bf16 in shared memory; then each thread adds the
-// splits of its x@W column, the correction with its row's B[ids[row]], and
-// rounds once. The loops over splits and over the rank are unrolled so that
-// their loads go out together: B comes from device memory (the W stream has
-// pushed it out of the L2), and one dependent load per rank step would cost
-// r round trips.
-constexpr int R_ROWS = 2;
-constexpr int R_COLS = 128;
+// The reduction over the splits and the epilogue: one row and 128 columns
+// per block. x@A of the row is summed over the splits and rounded once to
+// bf16 in shared memory, and each thread adds the splits of its x@W column.
+// The correction reads the row's B[ids[row]] (r * 128 * 2 bytes a block,
+// 64 KB at r = 256) with no reuse across rows, so its loads are spread for
+// many in flight: eight rank groups (j = g, g + 8, ...) of sixteen threads,
+// each thread a 16-byte load of 8 columns a rank; the groups' sums meet in
+// shared memory, added in a fixed order, and each thread rounds its
+// column's output once. Every loop over splits or ranks issues its loads
+// in batches of eight before it adds any of them (sum_strided): a loop
+// that adds each term as it comes waits a round trip a term; the first
+// batch of B is in flight while the splits are summed.
+constexpr int G_CG = 16;                // 8-column groups of a block
+constexpr int G_RG = 8;                 // rank groups
+constexpr int G_NT = G_CG * G_RG;
+constexpr int G_COLS = 8 * G_CG;        // == G_NT: one output column a thread
+constexpr int BATCH = 8;                // loads of B in flight a thread
 
-__global__ void __launch_bounds__(R_COLS)
+__global__ void __launch_bounds__(G_NT)
 lora_matmul_grouped_tc_reduce_kernel(
     const float* __restrict__ ws_y, const float* __restrict__ ws_xa,
     const bf16* __restrict__ Bbank, const int* __restrict__ ids,
     bf16* __restrict__ Y, int rows, int rows_per_group, int N, int r,
     long long b_stride, int splits, float scale) {
-  __shared__ float xas[R_ROWS][MAX_R];
-  __shared__ const bf16* b_row[R_ROWS];
+  __shared__ float xas[MAX_R];
+  __shared__ __align__(16) float part[G_RG][G_COLS];
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * R_ROWS;
-  if (tid < R_ROWS && row0 + tid < rows)
-    b_row[tid] = Bbank + (size_t)ids[(row0 + tid) / rows_per_group] * b_stride;
-  for (int idx = tid; idx < R_ROWS * r; idx += R_COLS) {
-    const int rr = idx / r, j = idx % r;
-    const int row = row0 + rr;
-    float s = 0.f;
-    if (row < rows) {
-#pragma unroll 8
-      for (int sp = 0; sp < splits; ++sp)
-        s += ws_xa[((size_t)sp * rows + row) * r + j];
-    }
-    xas[rr][j] = repro::round_to<bf16>(s);
-  }
-  const int col = blockIdx.x * R_COLS + tid;
-  float sy[R_ROWS];                     // x@W over the splits, before the sync
+  const int row = blockIdx.x;
+  const int c0 = blockIdx.y * G_COLS;
+  const int col = c0 + tid;
+  const int cg = tid % G_CG, rg = tid / G_CG;
+  const int c8 = c0 + 8 * cg;
+  const bool live8 = c8 < N;            // N % 8 == 0: all 8 columns or none
+  const bf16* Bp = Bbank + (size_t)ids[row / rows_per_group] * b_stride +
+                   (live8 ? c8 : 0);
+  // this thread's ranks j0, j0 + 8, ... of B: one batch of loads
+  uint4 bv[BATCH];
+  auto load_b = [&](int j0) {
 #pragma unroll
-  for (int rr = 0; rr < R_ROWS; ++rr) {
-    sy[rr] = 0.f;
-    const int row = row0 + rr;
-    if (col < N && row < rows) {
-#pragma unroll 8
-      for (int sp = 0; sp < splits; ++sp)
-        sy[rr] += ws_y[((size_t)sp * rows + row) * N + col];
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = j0 + u * G_RG;
+      bv[u] = live8 && j < r
+          ? *reinterpret_cast<const uint4*>(Bp + (size_t)j * N)
+          : make_uint4(0, 0, 0, 0);
+    }
+  };
+  load_b(rg);           // the first batch, in flight over the sums
+
+  for (int j = tid; j < r; j += G_NT)
+    xas[j] = repro::round_to<bf16>(repro::sum_strided(
+        ws_xa + (size_t)row * r + j, (size_t)rows * r, splits));
+  // x@W over the splits, before the sync
+  const float sy = col < N ? repro::sum_strided(ws_y + (size_t)row * N + col,
+                                                (size_t)rows * N, splits)
+                           : 0.f;
+  __syncthreads();
+  float ad[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ad[e] = 0.f;
+  for (int j0 = rg; j0 < r; j0 += BATCH * G_RG) {
+    if (j0 != rg) load_b(j0);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = j0 + u * G_RG;
+      const float xv = j < r ? xas[j] : 0.f;
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&bv[u]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        ad[2 * e] = fmaf(xv, f.x, ad[2 * e]);
+        ad[2 * e + 1] = fmaf(xv, f.y, ad[2 * e + 1]);
+      }
     }
   }
+  float4* pp = reinterpret_cast<float4*>(&part[rg][8 * cg]);
+  pp[0] = make_float4(ad[0], ad[1], ad[2], ad[3]);
+  pp[1] = make_float4(ad[4], ad[5], ad[6], ad[7]);
   __syncthreads();
   if (col >= N) return;
+  float corr = 0.f;
 #pragma unroll
-  for (int rr = 0; rr < R_ROWS; ++rr) {
-    const int row = row0 + rr;
-    if (row >= rows) break;
-    const bf16* Bp = b_row[rr] + col;
-    float ad = 0.f;
-#pragma unroll 16
-    for (int j = 0; j < r; ++j)
-      ad = fmaf(xas[rr][j], __bfloat162float(Bp[(size_t)j * N]), ad);
-    Y[(size_t)row * N + col] = __float2bfloat16_rn(sy[rr] + scale * ad);
-  }
+  for (int g = 0; g < G_RG; ++g) corr += part[g][tid];
+  Y[(size_t)row * N + col] = __float2bfloat16_rn(sy + scale * corr);
 }
 
 template <int BN>
@@ -359,8 +409,8 @@ cudaError_t launch(const void* x, const void* w, const void* a, const void* b,
       ceil_div(N, BN), nx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 rgrid(ceil_div(N, R_COLS), ceil_div(rows, R_ROWS));
-  lora_matmul_grouped_tc_reduce_kernel<<<rgrid, R_COLS, 0, stream>>>(
+  const dim3 rgrid(rows, ceil_div(N, G_COLS));
+  lora_matmul_grouped_tc_reduce_kernel<<<rgrid, G_NT, 0, stream>>>(
       ws_y, ws_xa, static_cast<const bf16*>(b), static_cast<const int*>(ids),
       static_cast<bf16*>(y), rows, rows_per_group, N, r, b_stride, splits,
       scale);
@@ -375,12 +425,12 @@ cudaError_t launch(const void* x, const void* w, const void* a, const void* b,
 // kernel does not take. x (rows, K) contiguous, w (K, N) contiguous, the
 // banks a (E, K, r) and b (E, r, N) with each adapter's matrix contiguous
 // and adapters a_stride / b_stride elements apart, y (rows, N); all bf16,
-// 16-byte aligned, K, N, r and both strides multiples of 8, r <= 64; ids
+// 16-byte aligned, K, N, r and both strides multiples of 8, r <= 256; ids
 // int32, one per group of rows_per_group rows. ws_y holds
 // splits * rows * N floats, ws_xa splits * rows * r. The plan (bn in
 // {64, 128}, splits, iters_per_split: 64-deep K steps per split, nx: blocks
 // along N, at least the N tiles and enough that no block holds more than
-// 64 / r rows of x@A) comes from the wrapper's grouped_plan.
+// units_per_block(r) x@A units) comes from the wrapper's grouped_plan.
 extern "C" int lora_matmul_grouped_tc_launch(
     const void* x, const void* w, const void* a_bank, const void* b_bank,
     const void* ids, void* y, void* ws_y, void* ws_xa, int rows,
@@ -394,7 +444,8 @@ extern "C" int lora_matmul_grouped_tc_launch(
       ceil_div(rows, TBM) > 65535 ||
       (splits - 1) * iters_per_split >= n_iters ||
       splits * iters_per_split < n_iters || (bn != 64 && bn != 128) ||
-      nx < ceil_div(N, bn) || (MAX_R / r) * nx < min(rows, TBM))
+      nx < ceil_div(N, bn) || ceil_div(N, G_COLS) > 65535 ||
+      units_per_block(r) * nx < min(rows, TBM) * rank_chunks(r))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wy = static_cast<float*>(ws_y);

@@ -20,23 +20,27 @@ the output is rounded; the grouped kernels read each request's adapter
 through ``ids`` from the bank where it lies, so no gathered copy is made for
 it. ``lora_matmul_version`` / ``lora_matmul_grouped_version`` name the
 version a call takes, by dtype, shape and alignment alone (never by
-failure): ``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 64; 16-byte
+failure): ``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 256; 16-byte
 aligned pointers and bank strides) splits K over blocks by ``tc_plan`` /
-``grouped_plan`` so that every SM streams W; ``"tf32x3"`` (``lora_matmul``
-in f32; K, N, r multiples of 4, r <= 64, 16-byte aligned pointers; the
-calibrate path's probes, bound by operations) splits K by ``tf32_plan``
-so that the calibrate bench starts at least one block per SM, and
-``lora_matmul_grouped`` in f32 under the same rule (the decode ticks of an
-f32 config, bound by the bytes of W) by ``grouped_tf32_plan``; otherwise
-``"simt"``. The SIMT grouped kernel itself has two variants (2-byte and
-16-byte loads), which its launcher picks by alignment.
+``grouped_plan`` so that every SM streams W, and takes x@A in 64-rank
+panels (``RANK_PANEL``: blocks of their own for ``lora_matmul``, units
+dealt over the blocks by ``grouped_xa_units`` for the grouped kernel);
+``"tf32x3"`` (``lora_matmul`` in f32; K, N, r multiples of 4, r <= 64,
+16-byte aligned pointers; the calibrate path's probes, bound by
+operations) splits K by ``tf32_plan`` so that the calibrate bench starts at
+least one block per SM, and ``lora_matmul_grouped`` in f32 under the same
+rule (the decode ticks of an f32 config, bound by the bytes of W) by
+``grouped_tf32_plan``; otherwise ``"simt"``. The SIMT grouped kernel itself
+has two variants (2-byte and 16-byte loads), which its launcher picks by
+alignment.
 
 Ranks: the plain versions take any rank, as the reference does; on the card
-the tensor-core versions take r <= ``MAX_RANK`` (64) and the SIMT kernels
-r <= ``SIMT_MAX_RANK`` (256: ``lora_matmul`` holds x@A in registers up to
+every kernel takes r <= 256: bf16 ``"wgmma"`` up to ``WGMMA_MAX_RANK``
+(256), f32 ``"tf32x3"`` up to ``TF32_MAX_RANK`` (64), and the SIMT kernels
+up to ``SIMT_MAX_RANK`` (256: ``lora_matmul`` holds x@A in registers up to
 that rank and meets B in chunks of 64 of it, the grouped kernel reduces
-x@A over 256 / r thread groups), so ``lora_matmul_version`` gives
-``"simt"`` above 64; a larger rank raises on the card.
+x@A over 256 / r thread groups), so f32 above 64 and r not a multiple of 8
+take ``"simt"``; a larger rank raises on the card.
 
 Rounding order (kernel and plain version alike; it follows the reference's
 ``kernels/ref.py``): ``W``, ``A``, ``B`` are cast to the activation dtype
@@ -52,15 +56,17 @@ plain version only for a CPU tensor. ``<wrapper>.launches`` counts launches
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_RANK = 64               # the tensor-core versions' largest rank
+WGMMA_MAX_RANK = 256        # the bf16 tensor-core versions' largest rank
+TF32_MAX_RANK = 64          # the f32 tensor-core versions' largest rank
 SIMT_MAX_RANK = 256         # the SIMT kernels' largest rank
+RANK_PANEL = 64             # ranks of one x@A panel of the bf16 versions
 TC_BK = 64                  # K depth of one step of the tensor-core kernel
 TF32_BK = 32                # K depth of one step of the f32 tensor-core kernel
 TF32_TILE = 64              # its output tiles: 64 x 64
@@ -120,17 +126,18 @@ def _check_rank(r: int) -> None:
 def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
                         aligned: bool) -> str:
     """The kernel a CUDA call of ``lora_matmul`` takes, when every pointer
-    is 16-byte aligned and r <= ``MAX_RANK`` (64): ``"wgmma"``
-    (``csrc/lora_matmul_tc.cu``) for bf16 with K, N and r multiples of 8,
+    is 16-byte aligned: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``) for bf16
+    with K, N and r multiples of 8 and r <= ``WGMMA_MAX_RANK`` (256),
     ``"tf32x3"`` (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r
-    multiples of 4 (whole 16-byte copies either way); otherwise ``"simt"``
-    (``csrc/lora_matmul.cu``, r up to ``SIMT_MAX_RANK``)."""
-    if aligned and r <= MAX_RANK:
+    multiples of 4 and r <= ``TF32_MAX_RANK`` (64) (whole 16-byte copies
+    either way); otherwise ``"simt"`` (``csrc/lora_matmul.cu``, r up to
+    ``SIMT_MAX_RANK``)."""
+    if aligned:
         if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
-                and r % 8 == 0):
+                and r % 8 == 0 and r <= WGMMA_MAX_RANK):
             return "wgmma"
         if (dtype == torch.float32 and k % 4 == 0 and n % 4 == 0
-                and r % 4 == 0):
+                and r % 4 == 0 and r <= TF32_MAX_RANK):
             return "tf32x3"
     return "simt"
 
@@ -143,7 +150,9 @@ def tc_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
     SMs idle or N is small) columns; K is cut into ``ceil(k / 64)`` steps,
     dealt to ``splits`` blocks per tile, ``iters_per_split`` consecutive
     steps each, the last split taking the rest (none is empty). The splits
-    are as few as give at least ``sms`` blocks, where K is deep enough."""
+    are as few as give at least ``sms`` blocks, where K is deep enough.
+    ``lora_matmul``'s kernel adds ``ceil(r / RANK_PANEL)`` blocks of x@A
+    panels per row tile and split after the tiles of W."""
     n_iters = -(-k // TC_BK)
     m_tiles = -(-m // 64)
     plan = (64, 1, n_iters)
@@ -212,20 +221,35 @@ def grouped_plan(rows: int, k: int, n: int, sms: int,
     ``bn``, ``splits`` and ``iters_per_split`` are ``tc_plan``'s for the
     ``rows`` rows (the same stream of W, cut the same way); ``nx`` is the
     number of blocks along N: the ``ceil(n / bn)`` tiles of W, and more
-    (blocks that compute x@A only) where the rows of a row tile would give
-    a block more than ``MAX_RANK // r`` rows of x@A. Each split's x@A rows
-    are dealt round-robin over the ``nx`` blocks (``grouped_xa_rows``)."""
+    (blocks that compute x@A only) where a row tile's x@A units would give
+    a block more than ``grouped_units_per_block(r)`` of them. Each split's
+    units are dealt round-robin over the ``nx`` blocks
+    (``grouped_xa_units``)."""
     bn, splits, ips = tc_plan(rows, k, n, sms)
-    per_block = MAX_RANK // r
-    nx = max(-(-n // bn), -(-min(rows, 64) // per_block))
+    units = min(rows, 64) * -(-r // RANK_PANEL)
+    nx = max(-(-n // bn), -(-units // grouped_units_per_block(r)))
     return bn, splits, ips, nx
 
 
-def grouped_xa_rows(bx: int, rows_in_tile: int, nx: int) -> range:
-    """The rows of a row tile (at most 64) whose x@A block ``bx`` of each
-    K split computes, as the kernel deals them: row ``i`` to block
-    ``i % nx``."""
-    return range(bx, rows_in_tile, nx)
+def grouped_units_per_block(r: int) -> int:
+    """x@A units a block of the tensor-core grouped kernel holds: a unit is
+    a row's whole rank where r <= ``RANK_PANEL`` (``RANK_PANEL // r`` of
+    them share a block's room of A), else one 64-rank chunk of a row (one
+    a block)."""
+    return 1 if r > RANK_PANEL else RANK_PANEL // r
+
+
+def grouped_xa_units(bx: int, rows_in_tile: int, nx: int,
+                     r: int) -> List[Tuple[int, int, int]]:
+    """The x@A units, ``(row, first rank, ranks)``, of a row tile (at most
+    64 rows) that block ``bx`` of each K split computes, as the kernel
+    deals them: unit ``u`` (row ``u // chunks``, ranks from ``RANK_PANEL *
+    (u % chunks)``, ``chunks = ceil(r / RANK_PANEL)``) to block
+    ``u % nx``."""
+    chunks = -(-r // RANK_PANEL)
+    return [(u // chunks, RANK_PANEL * (u % chunks),
+             min(RANK_PANEL, r - RANK_PANEL * (u % chunks)))
+            for u in range(bx, rows_in_tile * chunks, nx)]
 
 
 @functools.lru_cache(maxsize=256)
@@ -299,7 +323,7 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """x: (M, K); w: (K, N); a: (K, r); b: (r, N) -> (M, N) in x.dtype.
 
     Any M, K, N (ragged edges are masked in the kernel); any rank on the
-    CPU, r <= ``SIMT_MAX_RANK`` on the card; float32 or bfloat16. ``w``,
+    CPU, r <= 256 on the card; float32 or bfloat16. ``w``,
     ``a``, ``b`` of another float dtype are cast to ``x.dtype`` first."""
     refuse_autograd("lora_matmul", x, w, a, b)
     if x.ndim != 2 or w.ndim != 2 or a.ndim != 2 or b.ndim != 2:
@@ -333,9 +357,10 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
             sms = torch.cuda.get_device_properties(
                 x.device).multi_processor_count
             bn, splits, ips = tc_plan(m, k, n, sms)
-            # f32 split-K partials: X@W (splits, m, n), then X@A (splits, m, r)
-            ws = torch.empty(splits * m * (n + r), dtype=torch.float32,
-                             device=x.device)
+            # f32 split-K partials: X@W (splits, m, n), then X@A (splits, m,
+            # r), then X@A summed and rounded, (m, r) bf16 (used at r > 64)
+            ws = torch.empty(splits * m * (n + r) + m * r // 2,
+                             dtype=torch.float32, device=x.device)
             code = _build.load("lora_matmul_tc").lora_matmul_tc_launch(
                 x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                 y.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * splits * m * n,

@@ -69,28 +69,68 @@ def test_grouped_plan_fills_the_card_at_the_serving_shapes(k, n, sms):
     assert -(-8 // nx) * 16 <= bn // 4
 
 
+def _dealt_units(rows, nx, r):
+    """Per block of each row tile, the x@A units ``grouped_xa_units``
+    deals it; and the (row, first rank, ranks) units the tile has."""
+    for m0 in range(0, rows, 64):
+        here = min(64, rows - m0)
+        owned = [t_lm.grouped_xa_units(bx, here, nx, r) for bx in range(nx)]
+        want = [(i, c, min(64, r - c)) for i in range(here)
+                for c in range(0, r, 64)]
+        yield owned, want
+
+
 @pytest.mark.parametrize("rows,n,r", [
     (8, 2048, 16), (8, 512, 16), (15, 72, 16), (32, 128, 8), (4, 64, 64),
     (64, 64, 64), (70, 264, 32), (200, 96, 24), (130, 4104, 8), (1, 8, 8),
+    # ranks past 64: a unit is a 64-rank chunk of a row, one a block
+    (8, 896, 128), (8, 896, 256), (8, 2048, 72), (5, 256, 200),
+    (64, 64, 256), (70, 264, 136), (1, 8, 256), (130, 4104, 128),
 ])
 def test_grouped_xa_rows_cover_each_row_and_split_once(rows, n, r):
-    """In every K split, every row's x@A is computed by exactly one block
-    of its row tile, and no block holds more than 64 // r of them (what
-    fits the kernel's stage of A and its registers)."""
+    """In every K split, every (row, 64-rank chunk) unit of x@A is computed
+    by exactly one block of its row tile, and no block holds more than
+    ``grouped_units_per_block(r)`` of them: 64 // r rows up to r = 64 (what
+    fits the kernel's stage of A and its registers), one unit past it."""
     bn, splits, _, nx = t_lm.grouped_plan(rows, 4096, n, 132, r)
-    for split in range(splits):
-        for m0 in range(0, rows, 64):
-            here = min(64, rows - m0)
-            owned = [list(t_lm.grouped_xa_rows(bx, here, nx))
-                     for bx in range(nx)]
-            assert sorted(i for o in owned for i in o) == list(range(here))
-            assert max(len(o) for o in owned) <= t_lm.MAX_RANK // r
+    per_block = t_lm.grouped_units_per_block(r)
+    assert per_block == (64 // r if r <= 64 else 1)
+    for owned, want in _dealt_units(rows, nx, r):
+        assert sorted(u for o in owned for u in o) == want
+        assert max(len(o) for o in owned) <= per_block
+        # a block's units share one width (the kernel's stage layout)
+        assert all(len({w for _, _, w in o}) <= 1 for o in owned)
 
 
 # (K, N) of qwen3-0.6b's five LoRA projections (q; k and v; o; gate and up;
 # down): the f32 serve path's decode ticks
 QWEN3_KN = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
             (3072, 1024))
+
+
+# kimi-k2-1t-a32b's attention projections: q and o (7168, 7168), k and v
+# (7168, 896)
+KIMI_KN = ((7168, 7168), (7168, 896))
+
+
+@pytest.mark.parametrize("k,n", QWEN3_KN + KIMI_KN)
+@pytest.mark.parametrize("r", [72, 128, 256])
+def test_grouped_plan_deals_ranks_above_64_at_the_model_shapes(k, n, r):
+    """bf16 ``lora_matmul_grouped`` at ranks 72 / 128 / 256 over a tick of
+    8 rows at qwen3-0.6b's and kimi-k2-1t-a32b's projections: ``wgmma``,
+    every K step in one split, none empty, at least one block per SM, and
+    every (row, 64-rank chunk) of each split in exactly one block, one
+    unit a block."""
+    assert t_lm.lora_matmul_grouped_version(BF16, k, n, r, True) == "wgmma"
+    bn, splits, ips, nx = t_lm.grouped_plan(8, k, n, 132, r)
+    ranges = _k_steps(k, splits, ips)
+    assert all(ranges), "no split may be empty"
+    assert [i for rg in ranges for i in rg] == list(range(-(-k // 64)))
+    assert nx >= max(-(-n // bn), 8 * -(-r // 64))
+    assert nx * splits >= 132
+    for owned, want in _dealt_units(8, nx, r):
+        assert sorted(u for o in owned for u in o) == want
+        assert max(len(o) for o in owned) == 1
 
 
 @pytest.mark.parametrize("rows,k,n,r", [

@@ -803,30 +803,34 @@ def test_gpu_flash_decode_large_group_device_t(cuda, dtype, atol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,c", [(torch.float32, 2e-4),
-                                     (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("r", [128, 200])
-def test_gpu_lora_rank_above_64(cuda, dtype, c, r):
-    """Ranks above the tensor-core versions' 64: the SIMT kernels of both
-    products (the grouped one's first variant)."""
+@pytest.mark.parametrize("dtype,c,r,route", [
+    (torch.float32, 2e-4, 128, "simt"), (torch.float32, 2e-4, 200, "simt"),
+    (torch.bfloat16, 1e-2, 128, "wgmma"), (torch.bfloat16, 1e-2, 200, "wgmma"),
+    (torch.bfloat16, 1e-2, 256, "wgmma"), (torch.bfloat16, 1e-2, 100, "simt"),
+])
+def test_gpu_lora_rank_above_64(cuda, dtype, c, r, route):
+    """Ranks above 64 on both products: bf16 with r a multiple of 8 on the
+    tensor-core kernels (x@A in 64-rank panels; 200 = 3 x 64 + 8 leaves a
+    ragged last panel), f32 and bf16 r = 100 on the SIMT kernels (the
+    grouped one's first variant)."""
     from repro_torch.kernels import lora_matmul as lm
     rng = np.random.default_rng(34)
     x, w = _rand(rng, (70, 96), dtype, cuda), _rand(rng, (96, 136), dtype, cuda)
     a, b = _rand(rng, (96, r), dtype, cuda), _rand(rng, (r, 136), dtype, cuda)
-    before = lm.lora_matmul.by_version["simt"]
+    before = lm.lora_matmul.by_version[route]
     got = lm.lora_matmul(x, w, a, b, 0.25).float()
     torch.cuda.synchronize()
-    assert lm.lora_matmul.by_version["simt"] == before + 1
+    assert lm.lora_matmul.by_version[route] == before + 1
     want = lm.lora_matmul_ref(x, w, a, b, 0.25).float()
     assert (got - want).abs().max() <= c * want.abs().max()
     xg = _rand(rng, (5, 1, 96), dtype, cuda)
     ab, bb = (_rand(rng, (3, 96, r), dtype, cuda),
               _rand(rng, (3, r, 136), dtype, cuda))
     ids = torch.tensor([2, 0, 1, 1, 2], device=cuda, dtype=torch.int32)
-    before = lm.lora_matmul_grouped.by_version["simt"]
+    before = lm.lora_matmul_grouped.by_version[route]
     got = lm.lora_matmul_grouped(xg, w, ab, bb, ids, 0.25).float()
     torch.cuda.synchronize()
-    assert lm.lora_matmul_grouped.by_version["simt"] == before + 1
+    assert lm.lora_matmul_grouped.by_version[route] == before + 1
     want = lm.lora_matmul_grouped_ref(xg, w, ab, bb, ids, 0.25).float()
     assert (got - want).abs().max() <= c * want.abs().max()
 

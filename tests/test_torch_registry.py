@@ -287,8 +287,9 @@ def test_grouped_plan_deals_every_k_step_once_at_full_width(arch):
         assert ([i for rg in ranges for i in rg]
                 == list(range(-(-k // 64)))), (k, n)
         assert nx >= -(-n // bn)
-        owned = [list(t_lm.grouped_xa_rows(bx, 8, nx)) for bx in range(nx)]
-        assert sorted(i for o in owned for i in o) == list(range(8))
+        owned = [t_lm.grouped_xa_units(bx, 8, nx, r) for bx in range(nx)]
+        assert sorted(u for o in owned for u in o) == [
+            (i, c, min(64, r - c)) for i in range(8) for c in range(0, r, 64)]
 
 
 @pytest.mark.parametrize("arch", REGISTRY)

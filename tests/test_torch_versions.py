@@ -30,6 +30,14 @@ SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
     (BF16, 64, 41, 16, True, "simt"),        # N ragged
     (BF16, 64, 64, 4, True, "simt"),         # r not a multiple of 8
     (BF16, 64, 64, 20, True, "simt"),
+    # ranks 65..256: bf16 on the tensor cores (64-rank panels), f32 and
+    # ranks off a multiple of 8 on the SIMT kernel
+    (BF16, 1024, 2048, 72, True, "wgmma"),
+    (BF16, 7168, 7168, 128, True, "wgmma"),
+    (BF16, 7168, 896, 256, True, "wgmma"),
+    (F32, 1024, 2048, 128, True, "simt"),
+    (BF16, 1024, 2048, 100, True, "simt"),
+    (BF16, 1024, 2048, 128, False, "simt"),   # a pointer off 16 bytes
 ])
 def test_lora_matmul_version(dtype, k, n, r, aligned, want):
     assert t_lm.lora_matmul_version(dtype, k, n, r, aligned) == want
@@ -98,6 +106,32 @@ def test_tc_plan_fills_the_card_at_the_serving_shapes(k, n, sms):
     at every projection of a llama32-1b prefill chunk."""
     bn, splits, _ = t_lm.tc_plan(64, k, n, sms)
     assert -(-n // bn) * splits >= sms
+
+
+# (K, N) of qwen3-0.6b's five LoRA projections and of kimi-k2-1t-a32b's
+# attention projections (q and o; k and v)
+WIDE_RANK_KN = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+                (3072, 1024), (7168, 7168), (7168, 896))
+
+
+@pytest.mark.parametrize("k,n", WIDE_RANK_KN)
+@pytest.mark.parametrize("r", [72, 128, 256])
+def test_tc_plan_at_ranks_above_64(k, n, r):
+    """bf16 ``lora_matmul`` at ranks 72 / 128 / 256 over a bench prefill
+    chunk (M = 4) and an engine chunk (M = 64): ``wgmma``; the K split
+    covers every step once, none empty; with the x@A panels
+    (``ceil(r / 64)`` blocks a row tile and split, after the tiles of W)
+    the grid starts at least one block per SM."""
+    assert t_lm.lora_matmul_version(BF16, k, n, r, True) == "wgmma"
+    panels = -(-r // t_lm.RANK_PANEL)
+    for m in (4, 64):
+        bn, splits, ips = t_lm.tc_plan(m, k, n, 132)
+        n_iters = -(-k // t_lm.TC_BK)
+        ranges = [list(range(s * ips, min((s + 1) * ips, n_iters)))
+                  for s in range(splits)]
+        assert all(ranges), "no split may be empty"
+        assert [i for rg in ranges for i in rg] == list(range(n_iters))
+        assert (-(-n // bn) + panels) * splits >= 132
 
 
 def test_by_version_counts_reset_with_the_launch_counts():

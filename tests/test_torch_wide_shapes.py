@@ -140,7 +140,11 @@ def test_lora_matmul_rank_above_64(m, k, n, r, dtype):
     _close(got, j2n(jref.lora_matmul_ref(xj, wj, aj, bj, 0.25)), LORA_C[dtype])
     _close(got, j2n(jops.lora_matmul(xj, wj, aj, bj, 0.25,
                                      bm=32, bn=64, bk=32)), LORA_C[dtype])
-    assert t_lm.lora_matmul_version(TDT[dtype], k, n, r, True) == "simt"
+    # on the card: bf16 with K, N, r multiples of 8 on the tensor cores
+    # (x@A in 64-rank panels), the rest on the SIMT kernel
+    want = ("wgmma" if dtype == "bfloat16" and k % 8 == n % 8 == r % 8 == 0
+            else "simt")
+    assert t_lm.lora_matmul_version(TDT[dtype], k, n, r, True) == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -161,8 +165,8 @@ def test_lora_matmul_grouped_rank_128(dtype):
     _close(got, j2n(jref.lora_matmul_grouped_ref(xj, wj, aj, bj,
                                                  jnp.asarray(ids), 0.25)),
            LORA_C[dtype])
-    assert t_lm.lora_matmul_grouped_version(TDT[dtype], k, n, r,
-                                            True) == "simt"
+    assert t_lm.lora_matmul_grouped_version(TDT[dtype], k, n, r, True) == (
+        "wgmma" if dtype == "bfloat16" else "simt")
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +196,7 @@ def _requests(cls, cfg, n, seed=3, max_new=4):
 
 def test_engine_rank_128_token_identical_to_jax_engine():
     jcfg, tcfg, jp, tp = _rank_pair("qwen3-0.6b", 128)
-    assert tcfg.lora.rank == 128 > t_lm.MAX_RANK
+    assert tcfg.lora.rank == 128 > t_lm.TF32_MAX_RANK
     jads, tads = make_adapters(jcfg, (0, 7, 13))
     assert tads[0]["layers"]["attn"]["wq"]["a"].shape[-1] == 128
     jeng = JEngine(jcfg, jp["frozen"], JBank(jads), slots=3, max_len=32,
