@@ -16,7 +16,7 @@
     python3 chip_smoke.py --only kimi      # build + the kimi phase
     python3 chip_smoke.py --only decode    # flash_decode timing rows
     python3 chip_smoke.py --only rank      # build + the rank phase
-    python3 chip_smoke.py --only lora      # bf16 LoRA timing rows
+    python3 chip_smoke.py --only lora      # LoRA timing rows, bf16 and f32
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -25,7 +25,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
            count of tensor-core instructions (HGMMA, HMMA) and TMA loads
            (UTMALDG) in each library's SASS (``cuobjdump -sass``); the
            warp-specialised ``flash_attention_ws`` must show both HGMMA and
-           UTMALDG
+           UTMALDG; every kernel's ``ptxas`` registers and spills, none
+           spilling in the f32 LoRA sources
   kernels  every hand-written kernel against its plain PyTorch version on
            the card (main-path shapes and ragged ones, bf16 and f32; every
            version of ``lora_matmul``, ``lora_matmul_grouped``,
@@ -42,16 +43,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
            dims 72..128 on the tensor cores (kimi-k2-1t-a32b's 112), the
            SIMT kernel at 40, 100 and 256, ``flash_decode`` at groups 9 to
            40 and head dims 36 to 256 with ``t`` on the card, LoRA ranks
-           65 to 256 on the bf16 tensor-core kernels (r a multiple of 8)
-           and on the SIMT kernels; every call of the calibrate
+           65 to 256 on the tensor-core kernels (r a multiple of 8 in bf16,
+           of 4 in f32; ragged panels and rows) and on the SIMT kernels;
+           every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
            timed with CUDA events beside the plain version, one PyTorch
            library call for the same function, and the card's bound (f32
            ``lora_matmul_grouped`` at G = 8 from a strided bank of 8 at
            llama32-1b's and qwen3-0.6b's decode shapes, beside the SIMT
-           kernel it replaced; both LoRA kernels at r = 128 and 256, bf16
-           on the tensor cores and f32 on SIMT); the library calls for the
-           calibrate path's f32 kernel benches
+           kernel it replaced; both LoRA kernels at r = 128 and 256 and
+           the grouped one at qwen3-0.6b's projections at r = 128, bf16 and
+           f32 on the tensor cores, each beside SIMT and both bounds); the
+           library calls for the calibrate path's f32 kernel benches
   serve    full-width llama32-1b (32 layers, random weights from a seed),
            four non-zero LoRA adapters, ``ServingEngine`` with the fused
            kernels answering 16 requests; launch counts, tokens, logits
@@ -164,15 +167,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
            share) beside the grouped work's bound, and that tick with the
            grouped calls on the SIMT kernel, in turns
   rank     adapters fine-tuned at rank 128 served: qwen3-0.6b at its
-           published width (28 layers, bf16, ``LoRAConfig(rank=128,
-           alpha=256.0)``, four seeded non-zero adapters): the LoRA
-           kernels against their plain versions at the path's shapes, the
-           served logits kernels against plain; ``ServingEngine`` with the
-           fused kernels answering the twin's smoke requests and the warm
-           decode tick at 2, 4 and 8 slots, every ``lora_matmul`` and
-           ``lora_matmul_grouped`` launch ``wgmma``, none ``simt``; the
-           same ticks at rank 16; the 8-slot tick by kernel beside the
-           grouped bound, and on the SIMT kernels, in turns
+           published width (28 layers, ``LoRAConfig(rank=128,
+           alpha=256.0)``, four seeded non-zero adapters), in bf16 and then
+           in f32: the LoRA kernels against their plain versions at the
+           path's shapes, the served logits kernels against plain;
+           ``ServingEngine`` with the fused kernels answering the twin's
+           smoke requests and the warm decode tick at 2, 4 and 8 slots,
+           every ``lora_matmul`` and ``lora_matmul_grouped`` launch
+           ``wgmma`` (bf16) or ``tf32x3`` (f32), none ``simt``, each dtype's
+           path counted alone; the same ticks at rank 16; the 8-slot tick
+           by kernel beside the grouped bound, and on the SIMT kernels, in
+           turns
   shard    meshes of ranks sharing the card (``spawn_mesh``, ``gloo``), the
            model tensor-parallel on each rank's blocks: qwen3-4b at its
            published config, the flash prefill on (4, 1024) in f32 on
@@ -312,6 +317,46 @@ def run_version(fn, call):
     ran = [v for v, n in fn.by_version.items() if n != before[v]]
     assert len(ran) == 1, (fn.__name__, before, fn.by_version)
     return out, ran[0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's identifier and integer template arguments (``name<1>``)
+    from its mangled entry name (``_ZN<len><id>...<len><id>I...E...``)."""
+    m = re.match(r"_ZN?", mangled)
+    i, name = (m.end() if m else 0), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled[i:i + 1] == "I":
+        args = mangled[i:mangled.find("EE", i) + 2]
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", args)) + ">"
+    return name
+
+
+def ptxas_by_kernel(log: str):
+    """Registers and spill bytes of every kernel in one source's ``ptxas
+    -v`` output: ``{kernel: {"registers", "spill_stores", "spill_loads"}}``
+    (``_kernel_name``)."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = _kernel_name(m.group(1))
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def tensor_core_sass():
@@ -809,33 +854,43 @@ def phase_decode(seed: int):
 
 
 def phase_lora(seed: int):
-    """bf16 ``lora_matmul`` and ``lora_matmul_grouped`` timed alone at the
-    kernels phase's rows: rank 16 at llama32-1b's projections (a 64-row
-    prefill chunk; a tick of 8 rows from a bank of 4), ranks 128 and 256 at
-    kimi-k2-1t-a32b's (``WIDE_RANK_LORA_TIMES``,
+    """``lora_matmul`` and ``lora_matmul_grouped`` timed alone at the
+    kernels phase's rows, bf16 and f32: rank 16 at llama32-1b's
+    projections (a 64-row prefill chunk; a tick of 8 rows from a bank of
+    4), ranks 128 and 256 at kimi-k2-1t-a32b's (``WIDE_RANK_LORA_TIMES``,
     ``WIDE_RANK_GROUPED_TIMES``) and the grouped kernel at r = 128 over a
-    tick of 8 rows at qwen3-0.6b's five projections; each row beside its
-    check, the plain version, ``addmm`` / ``baddbmm`` and its bound, no
-    SIMT row, and each row's device µs by CUDA kernel (split and reduce).
-    Copied into a ``git archive`` of an earlier commit, it times that
-    commit's kernels (the version its rules pick) at the same shapes for a
-    before/after comparison on one machine."""
+    tick of 8 rows at qwen3-0.6b's five projections; in f32 also the r <= 64
+    rows the f32 paths run (the calibrate path's probes,
+    ``F32_LORA_SHAPES``; the serve32 tick's five grouped shapes at r = 16
+    from a strided bank of 8); each row beside its check, the plain
+    version, ``addmm`` / ``baddbmm`` and its bound, no SIMT row, and each
+    row's device µs by CUDA kernel (split and reduce). Copied into a ``git
+    archive`` of an earlier commit, it times that commit's kernels (the
+    version its rules pick) at the same shapes for a before/after
+    comparison on one machine."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(seed + 1400)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     kw = dict(simt=False, profile=True)
-    rows = {
-        "lora_matmul": [time_lora_matmul(rng, 64, k, n, 16, bf16, **kw)
-                        for k, n in KN_SHAPES]
-        + [time_lora_matmul(rng, *shape, bf16, **kw)
-           for shape in WIDE_RANK_LORA_TIMES],
-        "lora_matmul_grouped": [
-            time_grouped(rng, 8, k, n, 16, 4, bf16, **kw)
-            for k, n in KN_SHAPES]
-        + [time_grouped(rng, *shape, bf16, strided=True, **kw)
-           for shape in WIDE_RANK_GROUPED_TIMES]
-        + [time_grouped(rng, 8, k, n, 128, 8, bf16, strided=True, **kw)
-           for k, n in QWEN3_KN]}
+    rows = {}
+    for dtype, suffix in ((bf16, ""), (f32, "_tf32x3")):
+        rows["lora_matmul" + suffix] = (
+            [time_lora_matmul(rng, 64, k, n, 16, dtype, **kw)
+             for k, n in KN_SHAPES]
+            + [time_lora_matmul(rng, *shape, dtype, **kw)
+               for shape in WIDE_RANK_LORA_TIMES])
+        rows["lora_matmul_grouped" + suffix] = (
+            [time_grouped(rng, 8, k, n, 16, 4, dtype, **kw)
+             for k, n in KN_SHAPES]
+            + [time_grouped(rng, *shape, dtype, strided=True, **kw)
+               for shape in WIDE_RANK_GROUPED_TIMES]
+            + [time_grouped(rng, 8, k, n, 128, 8, dtype, strided=True, **kw)
+               for k, n in QWEN3_KN])
+    rows["lora_matmul_tf32x3"] += [time_lora_matmul(rng, *shape, f32, **kw)
+                                   for shape in F32_LORA_SHAPES]
+    rows["lora_matmul_grouped_tf32x3"] += [
+        time_grouped(rng, 8, k, n, 16, 8, f32, strided=True, **kw)
+        for k, n in QWEN3_KN]
     emit({"phase": "lora_times", "gpu": gpu_line(), "by_shape": rows})
     return rows
 
@@ -1085,17 +1140,19 @@ def check_ladder(rng):
 
 # the shapes the reference takes and the port's kernels were widened to:
 # LoRA ranks above 64 (M, K, N, r) and (G, M, K, N, r, E); K, N and r
-# multiples of 8 take the bf16 tensor-core kernels (x@A in 64-rank panels:
-# 72 leaves a panel of 8, a ragged M and 15 or 70 rows fill no tile whole),
-# the others the SIMT kernels
+# multiples of 8 take the bf16 tensor-core kernels, multiples of 4 the f32
+# ones (x@A in 64-rank panels: 72 leaves a panel of 8, 100 one of 36, 200
+# one of 8; a ragged M and 15, 37 or 70 rows fill no tile whole), the
+# others the SIMT kernels
 WIDE_RANK_SHAPES = ((64, 512, 256, 128), (37, 300, 200, 200),
                     (16, 256, 136, 256), (70, 130, 90, 65),
                     (70, 264, 136, 72), (100, 1096, 200, 128),
-                    (37, 520, 264, 256), (1, 1024, 3072, 128))
+                    (37, 520, 264, 256), (1, 1024, 3072, 128),
+                    (15, 264, 136, 100))
 WIDE_RANK_GROUPED = ((5, 1, 512, 256, 128, 3), (4, 2, 300, 96, 256, 2),
                      (8, 1, 264, 72, 100, 4), (3, 5, 264, 136, 72, 3),
                      (8, 1, 1096, 200, 128, 4), (7, 10, 520, 264, 256, 5),
-                     (2, 1, 256, 72, 256, 2))
+                     (2, 1, 256, 72, 256, 2), (15, 1, 264, 136, 200, 4))
 # flash_attention ((B, Sq, Skv, Hq, Hkv, D), kwargs)
 WIDE_HEAD_FLASH = (((1, 300, 300, 16, 2, 112), {}),
                    ((2, 130, 130, 16, 2, 112), {"window": 64}),
@@ -1160,9 +1217,9 @@ def phase_kernels(seed: int):
                 note("lora_matmul", dtype,
                      check_lora_matmul(rng, 64, k, n, 16, dtype, 2.0,
                                        simt=simt))
-            # ranks above 64: bf16 on the tensor cores where r is a
-            # multiple of 8 (64-rank panels), the SIMT kernel (RC = 8 and
-            # 16, the epilogue in chunks of 64 ranks) for f32, the others
+            # ranks above 64: on the tensor cores where r is a multiple of
+            # 8 (bf16) or 4 (f32) (64-rank panels), the SIMT kernel (RC = 8
+            # and 16, the epilogue in chunks of 64 ranks) for the others
             # and misaligned inputs
             for mkn in WIDE_RANK_SHAPES:
                 note("lora_matmul", dtype,
@@ -1192,9 +1249,9 @@ def phase_kernels(seed: int):
                      check_grouped(rng, 8, 1, k, n, 16, 4, dtype,
                                    ids=[0, 1, 2, 3, 0, 1, 2, 3], scale=2.0,
                                    simt=simt))
-            # ranks above 64: bf16 on the tensor cores where r is a
-            # multiple of 8 ((row, 64-rank chunk) units), the first SIMT
-            # variant (256 / r K groups) otherwise
+            # ranks above 64: on the tensor cores where r is a multiple of
+            # 8 (bf16) or 4 (f32) ((row, 64-rank chunk) units), the first
+            # SIMT variant (256 / r K groups) otherwise
             for gmknre in WIDE_RANK_GROUPED:
                 note("lora_matmul_grouped", dtype,
                      check_grouped(rng, *gmknre, dtype, simt=simt,
@@ -1329,23 +1386,21 @@ def phase_kernels(seed: int):
         time_flash(rng, *WIDE_TF32_FLASH_TIME, f32))
     for shape in WIDE_SIMT_FLASH_TIMES:
         rows["flash_attention"].append(time_flash(rng, *shape, bf16))
-    # ranks 128 and 256 (bf16 on the tensor cores, each beside the SIMT
-    # kernel) at kimi-k2-1t-a32b's q projection over a prefill chunk and its
-    # kv projection over a tick of 8 rows; the grouped kernel at r = 128
-    # over a tick of 8 rows at qwen3-0.6b's five projections (the rank
-    # phase's: a strided bank of one adapter a row); f32 at r = 128 (SIMT)
-    for shape in WIDE_RANK_LORA_TIMES:
-        rows["lora_matmul"].append(time_lora_matmul(rng, *shape, bf16))
-    for shape in WIDE_RANK_GROUPED_TIMES:
-        rows["lora_matmul_grouped"].append(
-            time_grouped(rng, *shape, bf16, strided=True))
-    for k, n in QWEN3_KN:
-        rows["lora_matmul_grouped"].append(
-            time_grouped(rng, 8, k, n, 128, 8, bf16, strided=True))
-    rows["lora_matmul"].append(
-        time_lora_matmul(rng, *WIDE_RANK_LORA_TIMES[0], f32))
-    rows["lora_matmul_grouped"].append(
-        time_grouped(rng, *WIDE_RANK_GROUPED_TIMES[0], f32, strided=True))
+    # ranks 128 and 256 (bf16 and f32 on the tensor cores, each beside the
+    # SIMT kernel) at kimi-k2-1t-a32b's q projection over a prefill chunk
+    # and its kv projection over a tick of 8 rows; the grouped kernel at
+    # r = 128 over a tick of 8 rows at qwen3-0.6b's five projections (the
+    # rank phase's: a strided bank of one adapter a row)
+    for dtype, suffix in ((bf16, ""), (f32, "_tf32x3")):
+        for shape in WIDE_RANK_LORA_TIMES:
+            rows["lora_matmul" + suffix].append(
+                time_lora_matmul(rng, *shape, dtype))
+        for shape in WIDE_RANK_GROUPED_TIMES:
+            rows["lora_matmul_grouped" + suffix].append(
+                time_grouped(rng, *shape, dtype, strided=True))
+        for k, n in QWEN3_KN:
+            rows["lora_matmul_grouped" + suffix].append(
+                time_grouped(rng, 8, k, n, 128, 8, dtype, strided=True))
     # ssd_intra_chunk at the shapes mamba_forward(impl="flash") hands it on
     # (4, 1024) tokens: mamba2-370m's and hymba-1.5b's
     rows["ssd_intra_chunk"].append(time_ssd(rng, 4, 4, 256, 32, 64, 128))
@@ -3988,30 +4043,33 @@ RANK_CHUNK = 4                # the engine's prefill chunk: lora_matmul's M
 
 
 def rank_kernel_checks(cfg, seed: int, gpu: str):
-    """The bf16 LoRA kernels at the rank phase's rank against their plain
-    versions at the shapes its path hands them (``LORA_TOL``):
-    ``lora_matmul`` over a prefill chunk of ``RANK_CHUNK`` rows at every
-    projection, ``lora_matmul_grouped`` over ticks of 2, 4 and 8 rows from
-    a strided bank of one adapter a row (the engine's gathered bank); all
-    ``wgmma``, asserted. Launches made here precede the path's counts."""
+    """The LoRA kernels at the rank phase's rank, in the config's dtype,
+    against their plain versions at the shapes its path hands them
+    (``LORA_TOL``): ``lora_matmul`` over a prefill chunk of ``RANK_CHUNK``
+    rows at every projection, ``lora_matmul_grouped`` over ticks of 2, 4
+    and 8 rows from a strided bank of one adapter a row (the engine's
+    gathered bank); all ``wgmma`` (bf16) or ``tf32x3`` (f32), asserted.
+    Launches made here precede the path's counts."""
     rng = np.random.default_rng(seed + 1300)
-    bf16 = torch.bfloat16
+    dtype = getattr(torch, cfg.dtype)
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     r, scale = cfg.lora.rank, cfg.lora.scale
     out = []
     for k, n in lora_shapes(cfg):
         out.append(("lora_matmul", (RANK_CHUNK, k, n, r), check_lora_matmul(
-            rng, RANK_CHUNK, k, n, r, bf16, scale)))
+            rng, RANK_CHUNK, k, n, r, dtype, scale)))
         for g in RANK_SLOTS:
             out.append(("lora_matmul_grouped", (g, 1, k, n, r, g),
-                        check_grouped(rng, g, 1, k, n, r, g, bf16,
+                        check_grouped(rng, g, 1, k, n, r, g, dtype,
                                       ids=list(range(g)), scale=scale,
                                       strided=True)))
-    emit({"phase": "rank_kernels", "gpu": gpu, "arch": cfg.name, "rank": r,
+    emit({"phase": "rank_kernels" if want == "wgmma" else "rank32_kernels",
+          "gpu": gpu, "arch": cfg.name, "dtype": cfg.dtype, "rank": r,
           "checked": [{"name": name, "shape": list(shape),
                        "max_abs_err": err, "tol": tol, "version": version}
                       for name, shape, (err, tol, version) in out]})
     for name, shape, (err, tol, version) in out:
-        assert version == "wgmma", (name, shape, version)
+        assert version == want, (name, shape, version)
 
 
 def rank_ticks(cfg, frozen, bank, dev):
@@ -4028,58 +4086,17 @@ def rank_ticks(cfg, frozen, bank, dev):
     return ticks
 
 
-def phase_rank(seed: int):
-    """Adapters fine-tuned at a rank above 64, served: qwen3-0.6b at its
-    published width (28 layers), bf16, ``LoRAConfig(rank=128,
-    alpha=256.0)``, four seeded adapters with non-zero B. (a) The LoRA
-    kernels against their plain versions at the path's shapes
-    (``rank_kernel_checks``, ``LORA_TOL``) and the served weights' logits,
-    kernels against the plain path, for one tick and one prefill chunk
-    (``family_serve_logits``' bounds); (b) the main path: a
-    ``ServingEngine(use_lora_kernel=True)`` answering the serving twin's
-    smoke requests and the warm decode tick at 2, 4 and 8 slots, wall and
-    CUDA-graph device time, with every ``lora_matmul`` and
-    ``lora_matmul_grouped`` launch ``wgmma`` and none ``simt``; (c) outside
-    the counted path, the same ticks at rank 16 (the config's own adapters)
-    and (d) the 8-slot tick's device time by kernel (``torch.profiler``,
-    the grouped share beside ``tick_grouped_bound_ms``) and the 8-slot tick
-    with the LoRA calls forced onto the SIMT kernels (the version rules
-    patched for the call: the route before the tensor-core kernels took
-    ranks above 64), ``wgmma`` and SIMT in turns. Returns the main path's
-    counts, runs on the card and versions."""
+def rank_main_path(cfg, frozen, bank, dev, seed: int):
+    """The rank phase's main path in ``cfg``'s dtype, counts set to 0 just
+    before it and read just after: a ``ServingEngine(use_lora_kernel=True)``
+    answering the serving twin's smoke requests, then the warm decode tick
+    (``rank_ticks``). Returns the engine, its
+    stats, the ticks, the counts, runs on the card, versions and seconds."""
     from repro_torch import kernels
-    from repro_torch.configs.base import LoRAConfig, get_config
-    from repro_torch.kernels import lora_matmul as lm
     from repro_torch.launch import serving_bench
-    from repro_torch.models import model as M
-    from repro_torch.models.common import tree_map
-    from repro_torch.serving import AdapterBank, ServingEngine
-    dev = torch.device("cuda")
-    gpu = gpu_line()
-    t_phase = time.time()
-    lora = ("lora_matmul", "lora_matmul_grouped")
+    from repro_torch.serving import ServingEngine
     grid = serving_bench.SMOKE_GRID
-    cfg16 = get_config(serving_bench.ARCH)
-    cfg = dataclasses.replace(cfg16, lora=LoRAConfig(**RANK_LORA))
-    assert cfg.dtype == "bfloat16" and cfg.lora.scale == cfg16.lora.scale, (
-        cfg.dtype, cfg.lora, cfg16.lora)
-    rank_kernel_checks(cfg, seed, gpu)
-    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
-    adapters = [serving_bench.make_adapter(cfg, s, dev)
-                for s in serving_bench.ADAPTER_SEEDS[:RANK_ADAPTERS]]
-    bank = AdapterBank(adapters)
-    assert bank.stacked["layers"]["attn"]["wq"]["a"].shape[-1] == cfg.lora.rank
-    # (a) the served weights' logits, kernels against the plain path: one
-    # tick of the twin's largest slot count, one prompt chunk
-    frozen32 = tree_map(lambda v: v.float(), frozen)
-    logits = [family_serve_logits(
-        cfg, dataclasses.replace(cfg, dtype="float32"), frozen, frozen32,
-        bank, gpu, ids=[i % bank.n for i in range(max(grid["slot_counts"]))],
-        prompt_tokens=RANK_CHUNK, phase="rank_logits")]
-    del frozen32
-    torch.cuda.empty_cache()
     t0 = time.time()
-    # ---- the main path: counts set to 0 just before, read just after ----
     kernels.reset_launch_counts()
     eng = ServingEngine(cfg, frozen, bank, slots=max(RANK_SLOTS),
                         max_len=RANK_MAX_LEN, prefill_chunk=RANK_CHUNK,
@@ -4093,71 +4110,184 @@ def phase_rank(seed: int):
     counts = kernels.launch_counts()
     runs = kernels.runs_on_card()
     versions = kernels.version_counts()
-    # ----------------------------------------------------------------------
-    t_main = time.time() - t0
-    # (c) the same ticks at rank 16
-    bank16 = AdapterBank([serving_bench.make_adapter(cfg16, s, dev)
-                          for s in serving_bench.ADAPTER_SEEDS[:RANK_ADAPTERS]])
-    ticks16 = rank_ticks(cfg16, frozen, bank16, dev)
-    del bank16
-    # (d) the 8-slot tick by kernel, and on the SIMT kernels in turns
-    top = max(RANK_SLOTS)
-    profile = tick_profile(eng, top, top=12)
+    return eng, stats, ticks, counts, runs, versions, time.time() - t0
+
+
+def rank_by_version(cfg, frozen, bank, dev, version: str, turns):
+    """The 8-slot tick's device ms with both LoRA version rules patched to
+    ``"simt"`` (the route before the tensor-core kernels took ranks above
+    64) or left as they are (``version``), in ``turns``."""
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.launch import serving_bench
     rules = (lm.lora_matmul_version, lm.lora_matmul_grouped_version)
-    compare = {"wgmma": [], "simt": []}
+    compare = {version: [], "simt": []}
     try:
-        for version in ("simt", "wgmma", "wgmma", "simt"):
-            if version == "simt":
+        for turn in turns:
+            if turn == "simt":
                 lm.lora_matmul_version = lambda *a: "simt"
                 lm.lora_matmul_grouped_version = lambda *a: "simt"
             else:
                 lm.lora_matmul_version, lm.lora_matmul_grouped_version = rules
             before = dict(lm.lora_matmul_grouped.by_version)
             _, device_s = serving_bench._time_decode_tick(
-                cfg, frozen, bank, top, RANK_MAX_LEN, RANK_COMPARE_ITERS,
-                use_lora_kernel=True, device=dev)
+                cfg, frozen, bank, max(RANK_SLOTS), RANK_MAX_LEN,
+                RANK_COMPARE_ITERS, use_lora_kernel=True, device=dev)
             ran = {v for v, n in lm.lora_matmul_grouped.by_version.items()
                    if n != before[v]}
-            assert ran == {version}, (version, ran)
-            compare[version].append(device_s * 1e3)
+            assert ran == {turn}, (turn, ran)
+            compare[turn].append(device_s * 1e3)
     finally:
         lm.lora_matmul_version, lm.lora_matmul_grouped_version = rules
-    report = {"phase": "rank", "gpu": gpu, "arch": cfg.name,
-              "dtype": cfg.dtype, "layers": cfg.n_layers,
-              "rank": cfg.lora.rank, "alpha": cfg.lora.alpha,
-              "scale": cfg.lora.scale, "adapters": bank.n,
-              "engine": {"slots": top, "max_len": RANK_MAX_LEN,
-                         "prefill_chunk": RANK_CHUNK},
-              "served": {k: stats[k] for k in (
-                  "completed", "drained", "ticks", "prefills", "tokens",
-                  "requests_per_s", "tokens_per_sec", "mean_ttft_s",
-                  "wall_s")},
-              "logits": [{"ids": rep["ids"],
-                          "logit_abs_max": rep["logit_abs_max"],
-                          **{w: rep[w]["bf16_kernel_vs_plain"]
-                             for w in ("tick", "prompt")}} for rep in logits],
-              "decode_tick": ticks, "decode_tick_rank16": ticks16,
-              "tick_grouped_bound_ms": {
-                  f"{n}slot": tick_grouped_bound_ms(cfg, n)
-                  for n in RANK_SLOTS},
-              "tick_profile_8slot": profile,
-              "tick_device_ms_8slot_by_version": compare,
-              "launches": counts, "runs_on_card": runs,
-              "launches_by_version": versions, "main_path_seconds": t_main,
-              "seconds": time.time() - t_phase}
-    emit(report)
+    return compare
+
+
+def rank_report(phase, gpu, cfg, bank, stats, ticks, ticks16, profile,
+                compare, counts, runs, versions, t_main, t_phase, logits):
+    """One of the rank phase's report lines (bf16 ``rank``, f32
+    ``rank32``)."""
+    served = ("completed", "drained", "ticks", "prefills", "tokens",
+              "requests_per_s", "tokens_per_sec", "mean_ttft_s", "wall_s")
+    return {"phase": phase, "gpu": gpu, "arch": cfg.name,
+            "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "rank": cfg.lora.rank, "alpha": cfg.lora.alpha,
+            "scale": cfg.lora.scale, "adapters": bank.n,
+            "engine": {"slots": max(RANK_SLOTS), "max_len": RANK_MAX_LEN,
+                       "prefill_chunk": RANK_CHUNK},
+            "served": {k: stats[k] for k in served},
+            "logits": logits,
+            "decode_tick": ticks, "decode_tick_rank16": ticks16,
+            "tick_grouped_bound_ms": {f"{n}slot": tick_grouped_bound_ms(cfg, n)
+                                      for n in RANK_SLOTS},
+            "tick_profile_8slot": profile,
+            "tick_device_ms_8slot_by_version": compare,
+            "launches": counts, "runs_on_card": runs,
+            "launches_by_version": versions, "main_path_seconds": t_main,
+            "seconds": time.time() - t_phase}
+
+
+def rank_asserts(stats, ticks, ticks16, counts, versions, version: str):
+    """The rank phase's checks of one main path: every request answered,
+    each tick's device time within its wall time, every LoRA launch
+    ``version`` and none ``simt``, no other kernel launched."""
+    from repro_torch.launch import serving_bench
+    grid = serving_bench.SMOKE_GRID
     assert stats["drained"] and stats["completed"] == grid["requests"], stats
     for key, tick in {**ticks, **{k + "_r16": v for k, v in ticks16.items()}
                       }.items():
         assert 0 < tick["device_ms"] <= tick["wall_ms"], (key, tick)
+    lora = ("lora_matmul", "lora_matmul_grouped")
     for name in lora:
         assert counts[name] > 0, (name, counts)
-        assert versions[name]["wgmma"] == counts[name], (name, versions)
+        assert versions[name][version] == counts[name], (name, versions)
         assert versions[name]["simt"] == 0, (name, versions)
     assert all(counts[k] == 0 for k in counts if k not in lora), counts
-    del eng, frozen, adapters, bank
+
+
+def phase_rank(seed: int):
+    """Adapters fine-tuned at a rank above 64, served: qwen3-0.6b at its
+    published width (28 layers), ``LoRAConfig(rank=128, alpha=256.0)``,
+    four seeded adapters with non-zero B, in bf16 and then in f32 (the
+    reference's serving dtype). bf16: (a) the LoRA kernels against their
+    plain versions at the path's shapes (``rank_kernel_checks``,
+    ``LORA_TOL``) and the served weights' logits, kernels against the plain
+    path, for one tick and one prefill chunk, bf16 and f32
+    (``family_serve_logits``' bounds); (b) the main path
+    (``rank_main_path``): a ``ServingEngine(use_lora_kernel=True)``
+    answering the serving twin's smoke requests and the warm decode tick at
+    2, 4 and 8 slots, wall and CUDA-graph device time, with every
+    ``lora_matmul`` and ``lora_matmul_grouped`` launch ``wgmma`` and none
+    ``simt``; (c) outside the counted path, the same ticks at rank 16 (the
+    config's own adapters), the 8-slot tick's device time by kernel
+    (``torch.profiler``, the grouped share beside ``tick_grouped_bound_ms``)
+    and the 8-slot tick with the LoRA calls forced onto the SIMT kernels
+    (``rank_by_version``), ``wgmma`` and SIMT in turns. f32, on the
+    ``frozen32`` of the logits check and four f32 adapters: (a) the kernel
+    checks in f32; (b) its own main path, counted alone, every LoRA launch
+    ``tf32x3`` and none ``simt``; (c) the f32
+    ticks at rank 16, the 8-slot tick by kernel beside the f32 config's
+    grouped bound, and the 8-slot tick on the SIMT kernels and on
+    ``tf32x3``, one turn each. Returns the two main paths' (counts, runs on
+    the card, versions): bf16, f32."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.launch import serving_bench
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import AdapterBank
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    grid = serving_bench.SMOKE_GRID
+    cfg16 = get_config(serving_bench.ARCH)
+    cfg = dataclasses.replace(cfg16, lora=LoRAConfig(**RANK_LORA))
+    assert cfg.dtype == "bfloat16" and cfg.lora.scale == cfg16.lora.scale, (
+        cfg.dtype, cfg.lora, cfg16.lora)
+    rank_kernel_checks(cfg, seed, gpu)
+    frozen = M.init_params(seed, cfg, device=dev)["frozen"]
+    seeds = serving_bench.ADAPTER_SEEDS[:RANK_ADAPTERS]
+    bank = AdapterBank([serving_bench.make_adapter(cfg, s, dev)
+                        for s in seeds])
+    assert bank.stacked["layers"]["attn"]["wq"]["a"].shape[-1] == cfg.lora.rank
+    # (a) the served weights' logits, kernels against the plain path: one
+    # tick of the twin's largest slot count, one prompt chunk
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    frozen32 = tree_map(lambda v: v.float(), frozen)
+    before = kernels.version_counts()
+    logits = family_serve_logits(
+        cfg, cfg32, frozen, frozen32, bank, gpu,
+        ids=[i % bank.n for i in range(max(grid["slot_counts"]))],
+        prompt_tokens=RANK_CHUNK, phase="rank_logits")
+    logit_versions = kernels.versions_since(before)
+    assert all("simt" not in v for v in logit_versions.values()), (
+        logit_versions)
+    logits = [{"ids": logits["ids"],
+               "logit_abs_max": logits["logit_abs_max"],
+               "versions": logit_versions,
+               **{w: {k: logits[w][k] for k in ("bf16_kernel_vs_plain",
+                                                  "f32_kernel_vs_plain")}
+                  for w in ("tick", "prompt")}}]
+    # (b) the main path
+    eng, stats, ticks, counts, runs, versions, t_main = rank_main_path(
+        cfg, frozen, bank, dev, seed)
+    # (c) the same ticks at rank 16, the 8-slot tick by kernel and on SIMT
+    bank16 = AdapterBank([serving_bench.make_adapter(cfg16, s, dev)
+                          for s in seeds])
+    ticks16 = rank_ticks(cfg16, frozen, bank16, dev)
+    del bank16
+    top = max(RANK_SLOTS)
+    profile = tick_profile(eng, top, top=12)
+    compare = rank_by_version(cfg, frozen, bank, dev, "wgmma",
+                              ("simt", "wgmma", "wgmma", "simt"))
+    emit(rank_report("rank", gpu, cfg, bank, stats, ticks, ticks16, profile,
+                     compare, counts, runs, versions, t_main, t_phase,
+                     logits))
+    rank_asserts(stats, ticks, ticks16, counts, versions, "wgmma")
+    del eng, frozen, bank
     torch.cuda.empty_cache()
-    return counts, runs, versions
+
+    # f32 at rank 128: the reference's serving dtype
+    t32 = time.time()
+    cfg32_16 = dataclasses.replace(cfg16, dtype="float32")
+    rank_kernel_checks(cfg32, seed, gpu)
+    bank32 = AdapterBank([serving_bench.make_adapter(cfg32, s, dev)
+                          for s in seeds])
+    assert bank32.stacked["layers"]["attn"]["wq"]["a"].dtype == torch.float32
+    eng, stats, ticks32, counts32, runs32, versions32, t_main = rank_main_path(
+        cfg32, frozen32, bank32, dev, seed)
+    bank16 = AdapterBank([serving_bench.make_adapter(cfg32_16, s, dev)
+                          for s in seeds])
+    ticks32_16 = rank_ticks(cfg32_16, frozen32, bank16, dev)
+    del bank16
+    profile = tick_profile(eng, top, top=12)
+    compare = rank_by_version(cfg32, frozen32, bank32, dev, "tf32x3",
+                              ("simt", "tf32x3"))
+    emit(rank_report("rank32", gpu, cfg32, bank32, stats, ticks32,
+                     ticks32_16, profile, compare, counts32, runs32,
+                     versions32, t_main, t32, logits))
+    rank_asserts(stats, ticks32, ticks32_16, counts32, versions32, "tf32x3")
+    del eng, frozen32, bank32
+    torch.cuda.empty_cache()
+    return (counts, runs, versions), (counts32, runs32, versions32)
 
 
 # ---------------------------------------------------------------------------
@@ -5575,8 +5705,8 @@ def main() -> int:
                          "shard phase alone; kimi: build, then the kimi "
                          "phase alone; decode: the flash_decode timing "
                          "rows alone (the first launch builds the "
-                         "kernels); lora: the bf16 LoRA timing rows alone "
-                         "(the first launch builds the kernels)")
+                         "kernels); lora: the LoRA timing rows alone, bf16 "
+                         "and f32 (the first launch builds the kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -5630,22 +5760,30 @@ def main() -> int:
     seconds = _build.build_all(force=True)
     for name in _build.SOURCES:
         _build.load(name)
-    # distinct register counts, and any line that reports a spill
-    spill = re.compile(r"\b[1-9]\d* bytes spill")
-    usage = {name: sorted({ln.split(":", 1)[-1].strip()
-                           for ln in log.splitlines()
-                           if "registers" in ln or spill.search(ln)})
-             for name, log in _build.build_logs.items()}
     sass = tensor_core_sass()
+    # every kernel's registers and spills; the f32 LoRA kernels that run at
+    # ranks above 64 must not spill (the grouped source's r <= 64 reduce,
+    # unchanged by them, spills 16 bytes, as it did before they came)
+    per_kernel = {name: ptxas_by_kernel(log)
+                  for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES),
-          "ptxas": usage, "sass_tensor_core_instructions": sass})
+          "ptxas": per_kernel, "sass_tensor_core_instructions": sass})
+    for name in ("lora_matmul_tf32", "lora_matmul_grouped_tf32"):
+        assert per_kernel[name], (name, _build.build_logs[name][:2000])
+        for kernel, use in per_kernel[name].items():
+            assert "registers" in use, (name, kernel, use)
+            if kernel != "lora_matmul_grouped_tf32_reduce_kernel":
+                assert use.get("spill_stores", 0) == 0 == use.get(
+                    "spill_loads", 0), (name, kernel, use)
+    # lora_matmul_tf32: its split kernel at ranks above 64 is a wgmma one
     for name in ("lora_matmul_tc", "lora_matmul_grouped_tc",
-                 "flash_attention_tc", "flash_attention_ws"):
+                 "flash_attention_tc", "flash_attention_ws",
+                 "lora_matmul_tf32"):
         assert sass[name]["HGMMA"] > 0, (name, sass)
     # the warp-specialised kernel's copies are TMA loads
     assert sass["flash_attention_ws"]["UTMALDG"] > 0, sass
     emit({"phase": "build_flash_attention_ws",
-          "ptxas": usage["flash_attention_ws"],
+          "ptxas": per_kernel["flash_attention_ws"],
           "sass": sass["flash_attention_ws"]})
     for name in ("ssd_scan_tc", "lora_matmul_tf32", "lora_matmul_grouped_tf32",
                  "flash_attention_tf32"):
@@ -5721,7 +5859,7 @@ def main() -> int:
                                      dryrun_records, serve_logits=False)
     by_path["bench"] = tuple(bench)
     by_path["serve32"] = phase_serve32(args.seed)
-    by_path["rank"] = phase_rank(args.seed)
+    by_path["rank"], by_path["rank32"] = phase_rank(args.seed)
     *shard, shard_rows = phase_shard(args.seed)
     by_path["shard"] = tuple(shard)
     # after the headline rows

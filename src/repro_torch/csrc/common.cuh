@@ -36,13 +36,14 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
 }
 
 // p[0] + p[stride] + ... + p[(n - 1) * stride], added in that order, the
-// loads issued eight at a time (a term past n is a predicated-off load of
+// loads issued BATCH at a time (a term past n is a predicated-off load of
 // 0), so a batch goes out before the first add waits: a loop that adds
 // each term as it comes waits a round trip a term (the split-K reductions
-// read a few to a hundred terms).
+// read a few to a hundred terms). A larger BATCH holds more registers and
+// waits fewer round trips.
+template <int BATCH = 8>
 __device__ __forceinline__ float sum_strided(const float* __restrict__ p,
                                              size_t stride, int n) {
-  constexpr int BATCH = 8;
   float s = 0.f;
   for (int i0 = 0; i0 < n; i0 += BATCH) {
     float v[BATCH];

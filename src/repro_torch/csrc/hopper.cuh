@@ -206,6 +206,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 64, f32) += A (64 x 8, tf32 in registers: per warp the 16-row
+// fragment of mma.sync m16n8k8, a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4)) * B (8 x 64, tf32, shared, K-major: tf32 operands
+// take no transpose).
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " REPRO_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : REPRO_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef REPRO_F8
 #undef REPRO_F32
 #undef REPRO_F64

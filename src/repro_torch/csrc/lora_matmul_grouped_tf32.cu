@@ -5,7 +5,7 @@
 //
 // It takes the place of the Pallas TPU kernel lora_matmul_grouped of
 // src/repro/kernels/lora_matmul.py for f32 inputs whose K, N and r are
-// multiples of 4 (whole 16-byte copies), r <= 64, and whose pointers and
+// multiples of 4 (whole 16-byte copies), r <= 256, and whose pointers and
 // bank strides are 16-byte aligned; other f32 shapes stay on the SIMT
 // kernels of lora_matmul.cu, bf16 on lora_matmul_grouped_tc.cu (the wrapper
 // chooses by dtype, shape and alignment, never by failure).
@@ -17,7 +17,10 @@
 // at 8 rows but not past ~40. The SIMT kernel it replaces left the card
 // idle: one block per 16 columns and 8 rows walked all of K (32 blocks at
 // N = 512, 128 at 2048, for 132 SMs), and every block recomputed x@A for
-// its 8 rows, ~134 MB through the L2 for 16.8 MB of W. The design:
+// its 8 rows, ~134 MB through the L2 for 16.8 MB of W. At r = 128 each row
+// also reads its own A and B: 8 rows at (K, N) = (7168, 896) read 29.4 MB of
+// A (14.7 MB of it distinct, from a bank of 4) beside W's 25.7 MB, so the
+// stream is of W and A together. The design:
 //
 //   * split-K over blocks: the grid is (N tiles + x@A blocks, row tiles, K
 //     splits), sized by the wrapper's plan (grouped_tf32_plan): at least
@@ -44,21 +47,28 @@
 //   * x@A differs per row (each row has its own adapter), so it cannot
 //     ride on the shared product: it is a matrix-vector product per row,
 //     taken on the CUDA cores in f32 (no tensor-core tile fits one row) by
-//     blocks of its own after the W tiles, each for at most 32 / r rows of
-//     a row tile (grouped_tf32_xa_rows mirrors the deal), so that no block
-//     streams more bytes than a tile of W and no W block waits on ids
-//     (x@A in the W blocks, as the bf16 kernel has it, made those blocks
-//     the slowest: measured, PERF.md). It is computed once per (row, K
-//     split), never once per N tile; A is read where it lies in the bank
-//     (through its stride, so the strided in-place bank of
-//     AdapterBank.gather needs no gathered copy);
+//     blocks of its own after the W tiles, in units of at most 64 ranks: a
+//     row's whole rank where r <= 64, else one 64-rank chunk of it (r = 256
+//     is four units of a row). Each x@A block takes at most 32 / r units
+//     of a row tile (one where r > 32), dealt round-robin
+//     (grouped_tf32_xa_units mirrors the deal), so that no block streams
+//     more bytes than a tile of W (a unit's 32 x 64 slice of A a stage is
+//     W's 32 x 64), and no W block waits on ids (x@A in the W blocks, as
+//     the bf16 kernel has it, made those blocks the slowest: measured,
+//     PERF.md). It is computed once per (row, K split), never once per N
+//     tile; A is read where it lies in the bank (through its stride, so
+//     the strided in-place bank of AdapterBank.gather needs no gathered
+//     copy);
 //   * the f32 partial sums of x@W and x@A go to a workspace and a second
 //     kernel adds the splits in a fixed order (deterministic), applies
 //     s * (x@A) @ B[ids[row]] and stores y once. It is launched as a
 //     programmatic dependent of the split kernel (griddepcontrol): it is
-//     scheduled while the split blocks run, reads ids and its rows of B,
-//     and only then waits for the split grid. (A single launch whose last
-//     block per tile reduces would need a counter zeroed before every
+//     scheduled while the split blocks run, reads ids and (a first batch
+//     of) its rows of B, and only then waits for the split grid. At r <= 64
+//     a lane holds its r / 4 rank steps of B in registers; at r > 64 that
+//     would grow with r, so a second reduce kernel reads B in rank groups,
+//     16-byte loads in batches of eight, whatever r. (A single launch whose
+//     last block per tile reduces would need a counter zeroed before every
 //     call, that is another launch or state kept between calls.)
 //
 // Rounding order: that of the plain version and of the TPU kernel
@@ -90,12 +100,13 @@ constexpr int NT = 128;
 constexpr int STAGES = 4;
 constexpr int LDW = BN + 8;             // row t, column g: bank 8t + g
 constexpr int LDX = BK + 4;             // row g, column t: bank 4g + t
-constexpr int MAX_R = 64;
+constexpr int MAX_R = 256;
+constexpr int RP = 64;                  // ranks of one x@A unit, at most
 constexpr int KB = BK / 8;              // k8 blocks a stage
 constexpr int W_OFF = 0;                // floats into a stage
 constexpr int X_OFF = BK * LDW;
-constexpr int XA_COLS = 32;             // x@A rows x r a block, r <= 32
-constexpr int XA_SLOTS = BK * MAX_R / 4 / NT;   // x@A (row, k, 4 columns)
+constexpr int XA_COLS = 32;             // x@A units x r a block, r <= 32
+constexpr int XA_SLOTS = BK * RP / 4 / NT;      // x@A (unit, k, 4 columns)
                                                 // triples a thread, a stage
 constexpr int RED_LD = BN + 4;          // the warps' sums: row 2t, column g
                                         // at bank 8t + g
@@ -119,19 +130,29 @@ __device__ __forceinline__ void split_w(const float* p, uint32_t (&hi)[4],
   split_rz(p[4 * LDW + 8], hi[3], lo[3]);
 }
 
+// x@A units of a row tile: r <= 64 gives a unit a row, r > 64 a unit a
+// 64-rank chunk of a row; unit u is row u / chunks, ranks 64 * (u % chunks)
+// on; an x@A block holds at most units_per_block(r) of them.
+__host__ __device__ __forceinline__ int rank_chunks(int r) {
+  return ceil_div(r, RP);
+}
+__host__ __device__ __forceinline__ int units_per_block(int r) {
+  return r <= XA_COLS ? XA_COLS / r : 1;
+}
+
 // One block (bx, row tile, split), of one of two kinds, both over the
 // split's K range:
 //   bx < n_tiles: the (8 NR, 64) tile of x@W at columns 64 bx. Warp w takes
 //     the k8 block w of every stage for all 64 columns (four m16 tiles,
 //     four independent chains of products), and the four warps' sums meet
 //     in shared memory at the end, in warp order;
-//   bx >= n_tiles: x@A of the tile's rows j, j + nxa, ... (j = bx - n_tiles,
-//     nxa = nx - n_tiles x@A blocks; at most XA_COLS / r rows, one at the
-//     least), so that no block streams more than about one tile of W's
-//     bytes and no W block waits on ids.
+//   bx >= n_tiles: x@A of the tile's units j, j + nxa, ... (j = bx -
+//     n_tiles, nxa = nx - n_tiles x@A blocks; at most units_per_block(r),
+//     all of one width uw: r, or a 64-rank chunk), so that no block streams
+//     more than about one tile of W's bytes and no W block waits on ids.
 // The f32 partial sums go to ws_y[split] and ws_xa[split]. A stage holds W
-// (BK x LDW; W blocks), the rows of x (8 NR x LDX) and the x@A rows' slices
-// of A (dense (row, k, r); x@A blocks).
+// (BK x LDW; W blocks), the rows of x (8 NR x LDX) and the x@A units'
+// slices of A (dense (unit, k, uw); x@A blocks).
 template <int NR>
 __global__ void __launch_bounds__(NT)
 lora_matmul_grouped_tf32_split_kernel(
@@ -144,7 +165,7 @@ lora_matmul_grouped_tf32_split_kernel(
   constexpr int A_OFF = X_OFF + RT * LDX;
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
-  __shared__ const float* a_row[MAX_R / 4];   // bank slice of each x@A row
+  __shared__ const float* a_row[RP / 4];      // bank slice of each unit
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -158,13 +179,17 @@ lora_matmul_grouped_tf32_split_kernel(
   const bool do_w = bx < n_tiles;       // uniform over the block
   const int n0 = bx * BN;
   const int xj = bx - n_tiles, nxa = nx - n_tiles;
-  const int n_xa =
-      !do_w && xj < rows_here ? ceil_div(rows_here - xj, nxa) : 0;
+  const int chunks = rank_chunks(r);
+  const int units = rows_here * chunks;
+  const int n_xa = !do_w && xj < units ? ceil_div(units - xj, nxa) : 0;
   if (!do_w && n_xa == 0) return;       // uniform over the block
-  const int rc = r / 4;                 // 16-byte chunks across a row of A
-  const int xa_pairs = n_xa * BK * rc;  // (row, k, chunk) triples a stage
+  // the units' width: r, or (one unit a block) its 64-rank chunk; a W
+  // block's is never used, but stays non-zero
+  const int uw = min(RP, r - RP * (max(xj, 0) % chunks));
+  const int rc = uw / 4;                // 16-byte chunks across a unit's row
+  const int xa_pairs = n_xa * BK * rc;  // (unit, k, chunk) triples a stage
 
-  const float* a_src[XA_SLOTS];         // A[ids[row]] at (kk, 4 c)
+  const float* a_src[XA_SLOTS];         // A[ids[row]] at (kk, first + 4 c)
   int a_kk[XA_SLOTS];
   int x_at[XA_SLOTS];                   // x[row][kk] in a stage's x tile
 
@@ -193,7 +218,7 @@ lora_matmul_grouped_tf32_split_kernel(
       }
     }
   };
-  // A[ids[row]][k0 : k0 + 32, :], dense (k, r) per x@A row
+  // A[ids[row]][k0 : k0 + 32, first : first + uw], dense (k, uw) a unit
   auto load_a = [&](int stage, int it) {
     float* sb = ring + stage * stage_floats;
     const int k0 = (it0 + it) * BK;
@@ -232,12 +257,13 @@ lora_matmul_grouped_tf32_split_kernel(
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if (!do_w) {                          // uniform over the block
     if (tid < n_xa) {
-      const int row = m0 + xj + tid * nxa;
-      a_row[tid] = Abank + (size_t)ids[row / rows_per_group] * a_stride;
+      const int u = xj + tid * nxa;
+      a_row[tid] = Abank + (size_t)ids[(m0 + u / chunks) / rows_per_group] *
+                               a_stride + RP * (u % chunks);
     }
     __syncthreads();                    // a_row visible to every thread
   }
-  // this thread's (row, k, chunk) triples of x@A: the same in every stage
+  // this thread's (unit, k, chunk) triples of x@A: the same in every stage
 #pragma unroll
   for (int s = 0; s < XA_SLOTS; ++s) {
     const int idx = tid + s * NT;
@@ -246,7 +272,7 @@ lora_matmul_grouped_tf32_split_kernel(
     const bool mine = idx < xa_pairs;
     a_src[s] = mine ? a_row[q] + (size_t)kk * r + 4 * c : Abank;
     a_kk[s] = kk;
-    x_at[s] = X_OFF + (xj + q * nxa) * LDX + kk;
+    x_at[s] = X_OFF + ((xj + q * nxa) / chunks) * LDX + kk;
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -329,7 +355,7 @@ lora_matmul_grouped_tf32_split_kernel(
   }
 
   // x@A: each thread's partials over its k's go to shared memory, laid out
-  // (row, k, column); each (row, column) output is summed by `lanes`
+  // (unit, k, column); each (unit, column) output is summed by `lanes`
   // neighbouring lanes, BK / lanes k's each, then by a shuffle tree (a
   // fixed order), and the split's partial written
 #pragma unroll
@@ -338,28 +364,31 @@ lora_matmul_grouped_tf32_split_kernel(
     if (idx < xa_pairs) reinterpret_cast<float4*>(ring)[idx] = xa[s];
   }
   __syncthreads();
-  const int outs = n_xa * r;            // <= 64
+  const int outs = n_xa * uw;           // <= 64
   int lanes = 32;                       // a power of two, lanes * outs <= NT
   while (lanes * outs > NT) lanes >>= 1;
   const int o = tid / lanes, part = tid % lanes;
   float sum = 0.f;
   if (o < outs) {
-    const int q = o / r, j = o % r;
-    const float* p = ring + (size_t)q * BK * r + j;
+    const int q = o / uw, j = o % uw;
+    const float* p = ring + (size_t)q * BK * uw + j;
     for (int kk = part * (BK / lanes); kk < (part + 1) * (BK / lanes); ++kk)
-      sum += p[kk * r];
+      sum += p[kk * uw];
   }
   for (int off = lanes / 2; off > 0; off >>= 1)   // uniform over the warp
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (o < outs && part == 0) {
-    const int q = o / r, j = o % r;
-    ws_xa[((size_t)split * rows + m0 + xj + q * nxa) * r + j] = sum;
+    const int q = o / uw, j = o % uw;
+    const int u = xj + q * nxa;
+    ws_xa[((size_t)split * rows + m0 + u / chunks) * r + RP * (u % chunks) +
+          j] = sum;
   }
 }
 
-// The reduction over the splits and the epilogue: one row and 128 columns
-// a block, four neighbouring columns (16-byte loads and stores) for four
-// neighbouring lanes, lane `part` of them summing the splits part, part + 4,
+// The reduction over the splits and the epilogue at r <= 64: one row and
+// 128 columns a block, four neighbouring columns (16-byte loads and
+// stores) for four neighbouring lanes, lane `part` of them summing the
+// splits part, part + 4,
 // ... of x@W and the rank steps part, part + 4, ... of the correction, so
 // that no thread waits on more than a few rounds of loads; a shuffle tree
 // joins the four (fixed order, so the result does not depend on the
@@ -367,7 +396,7 @@ lora_matmul_grouped_tf32_split_kernel(
 // `xl` lanes a rank column, into shared memory.
 constexpr int R_PARTS = 4;
 constexpr int R_COLS = 4 * NT / R_PARTS;    // 128
-constexpr int B_AHEAD = MAX_R / R_PARTS;    // rank steps of B a lane holds
+constexpr int B_AHEAD = RP / R_PARTS;       // rank steps of B a lane holds
 
 __global__ void __launch_bounds__(NT)
 lora_matmul_grouped_tf32_reduce_kernel(
@@ -375,7 +404,7 @@ lora_matmul_grouped_tf32_reduce_kernel(
     const float* __restrict__ Bbank, const int* __restrict__ ids,
     float* __restrict__ Y, int rows, int rows_per_group, int N, int r,
     long long b_stride, int splits, float scale) {
-  __shared__ float xas[MAX_R];
+  __shared__ float xas[RP];
   const int tid = threadIdx.x;
   const int row = blockIdx.x;
   const int part = tid % R_PARTS;
@@ -447,6 +476,91 @@ lora_matmul_grouped_tf32_reduce_kernel(
                     sy.z + scale * ad.z, sy.w + scale * ad.w);
 }
 
+// The reduction over the splits and the epilogue at r > 64: one row and 64
+// columns a block. The correction reads the row's B[ids[row]] (r * 256
+// bytes a block, 64 KB at r = 256) with no reuse across rows, so its loads
+// are spread for many in flight and no thread's registers grow with r:
+// eight rank groups (j = g, g + 8, ...) of sixteen threads, each thread a
+// 16-byte load of 4 columns a rank, in batches of eight loads, the first
+// batch read before the wait for the split grid; the groups' sums meet in
+// shared memory, added in a fixed order. The r sums of x@A and the 64 of
+// x@W over the splits are dealt over all the threads, one sum after
+// another, each by common.cuh::sum_strided in split order: past 8 splits
+// (28 at (K, N) = (7168, 896), the deepest K split being 8 steps) with its
+// loads 32 at a time, since 8 at a time waited 4 round trips a sum; up to
+// 8 splits 8 at a time (both measured faster where they are used, PERF.md).
+constexpr int G_CG = 16;                // 4-column groups of a block
+constexpr int G_RG = NT / G_CG;         // rank groups: 8
+constexpr int G_COLS = 4 * G_CG;        // 64
+constexpr int BATCH = 8;                // loads of B in flight a thread
+constexpr int SUM_BATCH = 32;           // loads of a deep split sum in flight
+
+__global__ void __launch_bounds__(NT)
+lora_matmul_grouped_tf32_reduce_wide_kernel(
+    const float* __restrict__ ws_y, const float* __restrict__ ws_xa,
+    const float* __restrict__ Bbank, const int* __restrict__ ids,
+    float* __restrict__ Y, int rows, int rows_per_group, int N, int r,
+    long long b_stride, int splits, float scale) {
+  __shared__ float xas[MAX_R];
+  __shared__ float sys[G_COLS];
+  __shared__ __align__(16) float part[G_RG][G_COLS];
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x;
+  const int c0 = blockIdx.y * G_COLS;
+  const int cg = tid % G_CG, rg = tid / G_CG;
+  const int c4 = c0 + 4 * cg;
+  const bool live4 = c4 < N;            // N % 4 == 0: all 4 columns or none
+  const float* Bp = Bbank + (size_t)ids[row / rows_per_group] * b_stride +
+                    (live4 ? c4 : 0);
+  // this thread's ranks j0, j0 + 8, ... of B: one batch of loads
+  float4 bv[BATCH];
+  auto load_b = [&](int j0) {
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = j0 + u * G_RG;
+      bv[u] = live4 && j < r
+          ? *reinterpret_cast<const float4*>(Bp + (size_t)j * N)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  load_b(rg);           // the first batch, before the wait and over the sums
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  auto sum = [&](const float* p, size_t stride) {
+    return splits > 8 ? repro::sum_strided<SUM_BATCH>(p, stride, splits)
+                      : repro::sum_strided(p, stride, splits);
+  };
+  // sum j < r: x@A's rank j; else x@W's column c0 + j - r (zero past N)
+  for (int j = tid; j < r + G_COLS; j += NT) {
+    if (j < r)
+      xas[j] = sum(ws_xa + (size_t)row * r + j, (size_t)rows * r);
+    else
+      sys[j - r] = c0 + j - r < N
+          ? sum(ws_y + (size_t)row * N + c0 + j - r, (size_t)rows * N)
+          : 0.f;
+  }
+  __syncthreads();
+  float4 ad = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j0 = rg; j0 < r; j0 += BATCH * G_RG) {
+    if (j0 != rg) load_b(j0);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = j0 + u * G_RG;
+      const float xv = j < r ? xas[j] : 0.f;
+      ad.x = fmaf(xv, bv[u].x, ad.x); ad.y = fmaf(xv, bv[u].y, ad.y);
+      ad.z = fmaf(xv, bv[u].z, ad.z); ad.w = fmaf(xv, bv[u].w, ad.w);
+    }
+  }
+  *reinterpret_cast<float4*>(&part[rg][4 * cg]) = ad;
+  __syncthreads();
+  const int col = c0 + tid;             // threads < G_COLS: a column each
+  if (tid >= G_COLS || col >= N) return;
+  float corr = 0.f;
+#pragma unroll
+  for (int g = 0; g < G_RG; ++g) corr += part[g][tid];
+  Y[(size_t)row * N + col] = sys[tid] + scale * corr;
+}
+
 template <int NR>
 cudaError_t launch(const float* x, const float* w, const float* a,
                    const float* b, const int* ids, float* y, float* ws_y,
@@ -456,9 +570,10 @@ cudaError_t launch(const float* x, const float* w, const float* a,
                    cudaStream_t stream) {
   constexpr int RT = 8 * NR;
   auto kernel = lora_matmul_grouped_tf32_split_kernel<NR>;
-  // the stage of A holds the most x@A rows a block gets (first row tile)
-  const int a_cols =
-      ceil_div(rows < RT ? rows : RT, nx - ceil_div(N, BN)) * r;   // <= 64
+  // the stage of A holds the most x@A units a block gets (first row tile)
+  const int a_cols = ceil_div((rows < RT ? rows : RT) * rank_chunks(r),
+                              nx - ceil_div(N, BN)) *
+                     (r < RP ? r : RP);                              // <= 64
   const int stage_floats = X_OFF + RT * LDX + BK * a_cols;
   const int bytes = (int)sizeof(float) * STAGES * stage_floats;
   cudaError_t err = cudaFuncSetAttribute(
@@ -475,7 +590,7 @@ cudaError_t launch(const float* x, const float* w, const float* a,
   // split block has started, reads what does not depend on them, and
   // waits (griddepcontrol.wait) for the split grid's completion
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(rows, ceil_div(N, R_COLS));
+  cfg.gridDim = dim3(rows, ceil_div(N, r <= RP ? R_COLS : G_COLS));
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -484,8 +599,9 @@ cudaError_t launch(const float* x, const float* w, const float* a,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lora_matmul_grouped_tf32_reduce_kernel,
-                           static_cast<const float*>(ws_y),
+  auto reduce = r <= RP ? lora_matmul_grouped_tf32_reduce_kernel
+                        : lora_matmul_grouped_tf32_reduce_wide_kernel;
+  err = cudaLaunchKernelEx(&cfg, reduce, static_cast<const float*>(ws_y),
                            static_cast<const float*>(ws_xa), b, ids, y, rows,
                            rows_per_group, N, r, b_stride, splits, scale);
   if (err != cudaSuccess) return err;
@@ -501,12 +617,12 @@ cudaError_t launch(const float* x, const float* w, const float* a,
 // banks a (E, K, r) and b (E, r, N) with each adapter's matrix contiguous
 // and adapters a_stride / b_stride elements apart, y (rows, N); all f32,
 // 16-byte aligned (the workspaces too), K, N, r and both strides multiples
-// of 4, r <= 64; ids int32, one per group of rows_per_group rows. ws_y
+// of 4, r <= 256; ids int32, one per group of rows_per_group rows. ws_y
 // holds splits * rows * N floats, ws_xa splits * rows * r. The plan (rt:
 // rows of a row tile, 8, 16 or 32; splits, iters_per_split: 32-deep K
 // steps a split, none empty; nx: blocks along N, the N tiles of 64 and
-// after them enough x@A blocks that none holds more than 32 / r rows of
-// x@A, one where r > 32) comes from the wrapper's grouped_tf32_plan.
+// after them enough x@A blocks that none holds more than units_per_block(r)
+// x@A units) comes from the wrapper's grouped_tf32_plan.
 extern "C" int lora_matmul_grouped_tf32_launch(
     const void* x, const void* w, const void* a_bank, const void* b_bank,
     const void* ids, void* y, void* ws_y, void* ws_xa, int rows,
@@ -521,7 +637,8 @@ extern "C" int lora_matmul_grouped_tf32_launch(
       iters_per_split < 1 || splits > 65535 || ceil_div(rows, rt) > 65535 ||
       (splits - 1) * iters_per_split >= n_iters ||
       splits * iters_per_split < n_iters || nx <= ceil_div(N, BN) ||
-      (r <= XA_COLS ? XA_COLS / r : 1) * (nx - ceil_div(N, BN)) < rows_tile ||
+      units_per_block(r) * (nx - ceil_div(N, BN)) <
+          rows_tile * rank_chunks(r) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(a_bank) |
        reinterpret_cast<uintptr_t>(b_bank) | reinterpret_cast<uintptr_t>(y) |

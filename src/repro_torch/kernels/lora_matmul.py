@@ -13,34 +13,39 @@ cores, f32 as three tf32 products) and ``csrc/lora_matmul.cu`` (the SIMT
 kernels of both, for the shapes the tensor-core kernels do not take).
 
 Bound on this card: at the serving shapes (64 rows of a prefill chunk, one
-row per request in a decode tick) both are bound by bytes, those of ``W``.
-The kernels read ``W`` once per tile of rows, keep ``X @ A`` out of the
-output's path until its one rounding and add the rank-r correction before
-the output is rounded; the grouped kernels read each request's adapter
-through ``ids`` from the bank where it lies, so no gathered copy is made for
-it. ``lora_matmul_version`` / ``lora_matmul_grouped_version`` name the
-version a call takes, by dtype, shape and alignment alone (never by
-failure): ``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 256; 16-byte
-aligned pointers and bank strides) splits K over blocks by ``tc_plan`` /
+row per request in a decode tick) both are bound by bytes, those of ``W``
+(and, at ranks above 64 in a tick, of each row's ``A``). The kernels read
+``W`` once per tile of rows, keep ``X @ A`` out of the output's path until
+its one rounding and add the rank-r correction before the output is
+rounded; the grouped kernels read each request's adapter through ``ids``
+from the bank where it lies, so no gathered copy is made for it.
+``lora_matmul_version`` / ``lora_matmul_grouped_version`` name the version
+a call takes, by dtype, shape and alignment alone (never by failure):
+``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 256; 16-byte aligned
+pointers and bank strides) splits K over blocks by ``tc_plan`` /
 ``grouped_plan`` so that every SM streams W, and takes x@A in 64-rank
 panels (``RANK_PANEL``: blocks of their own for ``lora_matmul``, units
 dealt over the blocks by ``grouped_xa_units`` for the grouped kernel);
-``"tf32x3"`` (``lora_matmul`` in f32; K, N, r multiples of 4, r <= 64,
-16-byte aligned pointers; the calibrate path's probes, bound by
-operations) splits K by ``tf32_plan`` so that the calibrate bench starts at
-least one block per SM, and ``lora_matmul_grouped`` in f32 under the same
-rule (the decode ticks of an f32 config, bound by the bytes of W) by
-``grouped_tf32_plan``; otherwise ``"simt"``. The SIMT grouped kernel itself
-has two variants (2-byte and 16-byte loads), which its launcher picks by
-alignment.
+``"tf32x3"`` (f32; K, N, r multiples of 4, r <= 256, 16-byte aligned
+pointers and bank strides; every product as three tf32 products) splits K
+by ``tf32_plan`` for ``lora_matmul`` (the calibrate path's probes, bound by
+operations, start at least one block per SM; above r = 64 the split kernel
+is a ``wgmma`` one, the product transposed so that both tf32 operands are
+K-major, X@A runs in 64-rank panel blocks of their own, ``tf32_panels``,
+and the correction on the tensor cores) and by ``grouped_tf32_plan`` for
+``lora_matmul_grouped`` (the decode ticks of an f32 config, bound by the
+bytes of W and A; x@A in (row, 64-rank chunk) units dealt over blocks of
+their own, ``grouped_tf32_xa_units``); otherwise ``"simt"``. The SIMT
+grouped kernel itself has two variants (2-byte and 16-byte loads), which
+its launcher picks by alignment.
 
 Ranks: the plain versions take any rank, as the reference does; on the card
 every kernel takes r <= 256: bf16 ``"wgmma"`` up to ``WGMMA_MAX_RANK``
-(256), f32 ``"tf32x3"`` up to ``TF32_MAX_RANK`` (64), and the SIMT kernels
+(256), f32 ``"tf32x3"`` up to ``TF32_MAX_RANK`` (256), and the SIMT kernels
 up to ``SIMT_MAX_RANK`` (256: ``lora_matmul`` holds x@A in registers up to
 that rank and meets B in chunks of 64 of it, the grouped kernel reduces
-x@A over 256 / r thread groups), so f32 above 64 and r not a multiple of 8
-take ``"simt"``; a larger rank raises on the card.
+x@A over 256 / r thread groups), so ranks off a multiple of 8 (bf16) or 4
+(f32) take ``"simt"``; a larger rank raises on the card.
 
 Rounding order (kernel and plain version alike; it follows the reference's
 ``kernels/ref.py``): ``W``, ``A``, ``B`` are cast to the activation dtype
@@ -64,14 +69,14 @@ from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 WGMMA_MAX_RANK = 256        # the bf16 tensor-core versions' largest rank
-TF32_MAX_RANK = 64          # the f32 tensor-core versions' largest rank
+TF32_MAX_RANK = 256         # the f32 tensor-core versions' largest rank
 SIMT_MAX_RANK = 256         # the SIMT kernels' largest rank
-RANK_PANEL = 64             # ranks of one x@A panel of the bf16 versions
+RANK_PANEL = 64             # ranks of one x@A panel (unit) above r = 64
 TC_BK = 64                  # K depth of one step of the tensor-core kernel
 TF32_BK = 32                # K depth of one step of the f32 tensor-core kernel
 TF32_TILE = 64              # its output tiles: 64 x 64
 TF32_GROUPED_BN = 64        # columns of W a block of the f32 grouped kernel
-TF32_XA_COLS = 32           # its x@A blocks: rows x r of x@A, r <= 32
+TF32_XA_COLS = 32           # its x@A blocks: units x r of x@A, r <= 32
 TF32_GROUPED_STEPS = 8      # its most K steps a split (256 of K)
 
 
@@ -129,7 +134,7 @@ def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
     is 16-byte aligned: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``) for bf16
     with K, N and r multiples of 8 and r <= ``WGMMA_MAX_RANK`` (256),
     ``"tf32x3"`` (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r
-    multiples of 4 and r <= ``TF32_MAX_RANK`` (64) (whole 16-byte copies
+    multiples of 4 and r <= ``TF32_MAX_RANK`` (256) (whole 16-byte copies
     either way); otherwise ``"simt"`` (``csrc/lora_matmul.cu``, r up to
     ``SIMT_MAX_RANK``)."""
     if aligned:
@@ -167,17 +172,32 @@ def tc_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
     return plan
 
 
+def tf32_panels(r: int) -> List[Tuple[int, int]]:
+    """The X@A panels of the f32 tensor-core kernel, ``(first rank,
+    ranks)``, each a block per (M tile, split) after the N tiles: none at
+    r <= ``RANK_PANEL`` (X@A rides in the first N tile's blocks), else
+    ``ceil(r / 64)`` panels of 64 ranks, the last one ragged."""
+    if r <= RANK_PANEL:
+        return []
+    return [(p, min(RANK_PANEL, r - p)) for p in range(0, r, RANK_PANEL)]
+
+
 @functools.lru_cache(maxsize=256)
-def tf32_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int]:
+def tf32_plan(m: int, k: int, n: int, sms: int,
+              r: int = 16) -> Tuple[int, int]:
     """Grid of the f32 tensor-core kernel: ``(splits, iters_per_split)``.
 
-    Output tiles are 64 x 64; K is cut into ``ceil(k / 32)`` steps, dealt
-    to ``splits`` blocks per tile, ``iters_per_split`` consecutive steps
-    each, the last split taking the rest (none is empty). The splits are as
-    few as give at least ``sms`` blocks, where K is deep enough."""
+    Output tiles are 64 x 64, and at r > 64 the ``tf32_panels(r)`` blocks
+    of X@A join each M tile's row of them; K is cut into ``ceil(k / 32)``
+    steps, dealt to ``splits`` blocks per tile, ``iters_per_split``
+    consecutive steps each, the last split taking the rest (none is
+    empty). The splits are as few as give at least ``sms`` blocks (at
+    r > 64, whose wgmma kernel fits four blocks an SM, ``2 * sms``: measured
+    faster on the H100, PERF.md), where K is deep enough."""
     n_iters = -(-k // TF32_BK)
-    tiles = -(-m // TF32_TILE) * -(-n // TF32_TILE)
-    want = -(-sms // tiles)
+    panels = len(tf32_panels(r))
+    tiles = -(-m // TF32_TILE) * (-(-n // TF32_TILE) + panels)
+    want = -(-(2 * sms if panels else sms) // tiles)
     ips = max(1, n_iters // want)
     return -(-n_iters // ips), ips
 
@@ -191,10 +211,11 @@ def launch_tf32x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, ips = tf32_plan(m, k, n, sms)
-    # f32 split-K partials: X@W (splits, m, n), then X@A (splits, m, r)
-    ws = torch.empty(splits * m * (n + r), dtype=torch.float32,
-                     device=x.device)
+    splits, ips = tf32_plan(m, k, n, sms, r)
+    # f32 split-K partials: X@W (splits, m, n), then X@A (splits, m, r),
+    # then at r > 64 X@A summed over the splits (m, r)
+    ws = torch.empty(splits * m * (n + r) + (m * r if tf32_panels(r) else 0),
+                     dtype=torch.float32, device=x.device)
     return _build.load("lora_matmul_tf32").lora_matmul_tf32_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
         ws.data_ptr(), ws.data_ptr() + 4 * splits * m * n, m, k, n, r,
@@ -261,8 +282,9 @@ def grouped_tf32_plan(rows: int, k: int, n: int, sms: int,
     Row tiles are ``rt`` rows (8, 16 or 32: the fewest that hold ``rows``,
     up to 32). Along N run ``nx`` blocks: the ``ceil(n / 64)`` tiles of W,
     then the blocks that compute x@A only, each for at most
-    ``TF32_XA_COLS // r`` rows of a row tile (one where r is larger), dealt
-    by ``grouped_tf32_xa_rows``. K is cut into ``ceil(k / 32)`` steps,
+    ``grouped_tf32_units_per_block(r)`` of a row tile's x@A units (a row,
+    or above r = 64 a 64-rank chunk of one), dealt by
+    ``grouped_tf32_xa_units``. K is cut into ``ceil(k / 32)`` steps,
     dealt to ``splits`` blocks per (N block, row tile), ``iters_per_split``
     consecutive steps each, the last split taking the rest (none is empty).
     The splits are the fewest that give at least ``sms`` blocks, where K is
@@ -272,8 +294,9 @@ def grouped_tf32_plan(rows: int, k: int, n: int, sms: int,
     count allows."""
     rt = 8 if rows <= 8 else 16 if rows <= 16 else 32
     n_iters = -(-k // TF32_BK)
+    units = min(rows, rt) * -(-r // RANK_PANEL)
     nx = (-(-n // TF32_GROUPED_BN)
-          + -(-min(rows, rt) // max(1, TF32_XA_COLS // r)))
+          + -(-units // grouped_tf32_units_per_block(r)))
     want = -(-sms // (nx * -(-rows // rt)))
     # the deepest split, up to the cap, that still gives ``want`` splits
     ips = next((i for i in range(min(n_iters, TF32_GROUPED_STEPS), 0, -1)
@@ -282,16 +305,29 @@ def grouped_tf32_plan(rows: int, k: int, n: int, sms: int,
     return rt, splits, -(-n_iters // splits), nx
 
 
-def grouped_tf32_xa_rows(bx: int, rows_in_tile: int, n: int,
-                         nx: int) -> range:
-    """The rows of a row tile whose x@A block ``bx`` of each K split of the
-    f32 grouped kernel computes: none for the first ``ceil(n / 64)`` blocks
-    (the tiles of W), and row ``i`` to x@A block ``i % nxa`` of the ``nxa``
-    blocks after them."""
+def grouped_tf32_units_per_block(r: int) -> int:
+    """x@A units an x@A block of the f32 grouped kernel holds: ``32 // r``
+    rows where r <= 32 (``TF32_XA_COLS``: they share the block's room of
+    A), else one unit (a row's whole rank up to 64, one 64-rank chunk of a
+    row above it)."""
+    return TF32_XA_COLS // r if r <= TF32_XA_COLS else 1
+
+
+def grouped_tf32_xa_units(bx: int, rows_in_tile: int, n: int, nx: int,
+                          r: int) -> List[Tuple[int, int, int]]:
+    """The x@A units, ``(row, first rank, ranks)``, of a row tile that
+    block ``bx`` of each K split of the f32 grouped kernel computes, as the
+    kernel deals them: none for the first ``ceil(n / 64)`` blocks (the
+    tiles of W); unit ``u`` (row ``u // chunks``, ranks from ``RANK_PANEL
+    * (u % chunks)``, ``chunks = ceil(r / RANK_PANEL)``) to x@A block
+    ``u % nxa`` of the ``nxa`` blocks after them."""
     n_tiles = -(-n // TF32_GROUPED_BN)
     if bx < n_tiles:
-        return range(0)
-    return range(bx - n_tiles, rows_in_tile, nx - n_tiles)
+        return []
+    chunks = -(-r // RANK_PANEL)
+    return [(u // chunks, RANK_PANEL * (u % chunks),
+             min(RANK_PANEL, r - RANK_PANEL * (u % chunks)))
+            for u in range(bx - n_tiles, rows_in_tile * chunks, nx - n_tiles)]
 
 
 def launch_grouped_tf32x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -21,6 +21,7 @@ from _torch_parity import j2n, t2n
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import lora_matmul as t_lm
+from test_torch_grouped_plan import KIMI_KN, QWEN3_KN
 from test_torch_ssd_plan import _product, _tf32
 
 torch.set_num_threads(1)
@@ -143,6 +144,40 @@ def test_tf32_plan_starts_a_block_per_sm_at_the_bench_and_large_probes(mkn):
     assert -(-m // 64) * -(-n // 64) * splits >= 132
 
 
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n", QWEN3_KN + KIMI_KN)
+@pytest.mark.parametrize("r", [68, 100, 128, 200, 256])
+def test_tf32_plan_panels_at_ranks_above_64(m, k, n, r):
+    """f32 ``lora_matmul`` at ranks 68 to 256 over a prefill chunk (4 rows,
+    the rank phase's; 64, a chunk of the engine's default) at qwen3-0.6b's
+    and kimi-k2-1t-a32b's projections: ``tf32x3``; the X@A panel blocks
+    cover the ranks once, 64 a panel and a ragged last one; every 32-deep K
+    step in one split, none empty; at least two blocks per SM (the
+    H100's 132), which the r > 64 kernel's plan asks for."""
+    assert t_lm.lora_matmul_version(F32, k, n, r, True) == "tf32x3"
+    panels = t_lm.tf32_panels(r)
+    assert [j for p, w in panels for j in range(p, p + w)] == list(range(r))
+    assert all(0 < w <= 64 for _, w in panels) and len(panels) == -(-r // 64)
+    splits, ips = t_lm.tf32_plan(m, k, n, 132, r)
+    n_iters = -(-k // t_lm.TF32_BK)
+    ranges = [range(s * ips, min((s + 1) * ips, n_iters))
+              for s in range(splits)]
+    assert all(ranges), "no split may be empty"
+    assert [i for rg in ranges for i in rg] == list(range(n_iters))
+    blocks = -(-m // 64) * (-(-n // 64) + len(panels)) * splits
+    assert blocks >= 2 * 132
+
+
+def test_tf32_plan_is_unchanged_up_to_rank_64():
+    """Up to r = 64 X@A rides in the first N tile's blocks: no panel, and
+    the plan of r = 16 (the calibrate bench's) at every rank."""
+    for r in (4, 16, 32, 64):
+        assert t_lm.tf32_panels(r) == []
+        for m, k, n, _ in LORA_PROBES:
+            assert t_lm.tf32_plan(m, k, n, 132, r) == t_lm.tf32_plan(m, k, n,
+                                                                     132)
+
+
 @pytest.mark.parametrize("b,hq,sq", [(1, 8, 512), (1, 4, 512), (2, 4, 70),
                                      (1, 25, 96), (3, 2, 16), (1, 1, 1)])
 def test_flash_tf32_blocks_cover_every_query_once(b, hq, sq):
@@ -204,12 +239,15 @@ def _prod3(a, b, split):
 
 
 def _emulate_lora(x, w, a, b, scale, split="rz", sms=132):
-    """``lora_matmul_tf32_split_kernel`` and its reduce: K in 32-deep steps
-    dealt to the splits of ``tf32_plan``, X@W and X@A summed step by step
-    in each split; the reduce adds the splits in order, then s * (X@A) @ B."""
+    """``lora_matmul_tf32_split_kernel`` and its epilogue: K in 32-deep
+    steps dealt to the splits of ``tf32_plan``, X@W and X@A (in the first N
+    tile's blocks, or the panel blocks above r = 64: the same sums) summed
+    step by step in each split; the splits added in order, then
+    s * (X@A) @ B: in f32 on the CUDA cores up to r = 64, above it as three
+    truncated tf32 products (the correction kernel)."""
     m, k = x.shape
-    n = w.shape[1]
-    splits, ips = t_lm.tf32_plan(m, k, n, sms)
+    n, r = w.shape[1], a.shape[1]
+    splits, ips = t_lm.tf32_plan(m, k, n, sms, r)
     n_iters = -(-k // t_lm.TF32_BK)
     y = torch.zeros(m, n)
     xa = torch.zeros(m, a.shape[1])
@@ -220,6 +258,8 @@ def _emulate_lora(x, w, a, b, scale, split="rz", sms=132):
             py += _prod3(x[:, ks], w[ks], split)
             pa += _prod3(x[:, ks], a[ks], split)
         y, xa = y + py, xa + pa
+    if t_lm.tf32_panels(r):
+        return y + scale * _product_rz(xa, b)
     return y + scale * (xa @ b)
 
 
@@ -312,11 +352,13 @@ def _normal(seed, *shapes):
 
 
 @pytest.mark.parametrize("shape", [*LORA_PROBES, (70, 260, 196, 12),
-                                   (200, 520, 264, 64)])
+                                   (200, 520, 264, 64), (70, 264, 136, 100),
+                                   (37, 520, 264, 200), (16, 7168, 256, 256)])
 @pytest.mark.parametrize("split", ["rz", "rna"])
 def test_lora_emulation_meets_the_f32_tolerance(shape, split):
     """Truncation (the kernel's split) and rounding (``ssd_scan_tc``'s) both
-    meet 2e-4 max|want| at every probe shape and two ragged ones."""
+    meet 2e-4 max|want| at every probe shape, two ragged ones, and ranks
+    above 64 (ragged panels; r = 256 over K = 7168)."""
     m, k, n, r = shape
     x, w, a, b = _normal(0, (m, k), (k, n), (k, r), (r, n))
     want = t_lm.lora_matmul_ref(x, w, a, b, 2.0)
@@ -328,11 +370,14 @@ def test_lora_emulation_meets_the_f32_tolerance(shape, split):
 @pytest.mark.parametrize("shape", [
     (8, 1, 2048, 2048, 16, 8), (8, 1, 2048, 512, 16, 4),
     (8, 1, 1024, 3072, 16, 8), (8, 1, 3072, 1024, 16, 8),
-    (7, 10, 520, 264, 24, 5), (9, 2, 1100, 92, 12, 4), (3, 1, 64, 48, 4, 2)])
+    (7, 10, 520, 264, 24, 5), (9, 2, 1100, 92, 12, 4), (3, 1, 64, 48, 4, 2),
+    (8, 1, 1024, 3072, 128, 8), (15, 1, 264, 136, 100, 4),
+    (8, 1, 7168, 896, 256, 4)])
 def test_grouped_emulation_meets_the_f32_tolerance(shape):
     """The f32 grouped kernel's arithmetic at decode ticks of llama32-1b's
-    and qwen3-0.6b's projections, M > 1 and ragged K and N: within 2e-4
-    max|want| of the plain version."""
+    and qwen3-0.6b's projections, M > 1, ragged K and N, and ranks above
+    64 (r = 256 over K = 7168): within 2e-4 max|want| of the plain
+    version."""
     g, m, k, n, r, e = shape
     x, w, a, b = _normal(6, (g, m, k), (k, n), (e, k, r), (e, r, n))
     ids = torch.from_numpy(np.random.default_rng(6).integers(0, e, g))

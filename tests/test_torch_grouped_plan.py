@@ -175,21 +175,56 @@ def test_grouped_tf32_plan_fills_the_card_at_the_decode_shapes(k, n):
     (32, 64, 64), (70, 264, 32), (200, 96, 24), (130, 4104, 8), (1, 8, 4),
     (8, 128, 4), (70, 264, 12)])
 def test_grouped_tf32_xa_rows_cover_each_row_and_split_once(rows, n, r):
-    """In every K split, every row's x@A is computed by exactly one x@A
-    block of its row tile, none by a block of W, and no x@A block holds
-    more than ``TF32_XA_COLS // r`` rows (one where r is larger): what fits
-    its stage of A and its registers."""
+    """In every K split, every row's x@A (one unit a row up to r = 64) is
+    computed by exactly one x@A block of its row tile, none by a block of
+    W, and no x@A block holds more than ``TF32_XA_COLS // r`` rows (one
+    where r is larger): what fits its stage of A and its registers."""
     rt, splits, _, nx = t_lm.grouped_tf32_plan(rows, 4096, n, 132, r)
+    assert t_lm.grouped_tf32_units_per_block(r) == max(
+        1, t_lm.TF32_XA_COLS // r)
+    for owned, want in _dealt_tf32_units(rows, rt, n, nx, r):
+        assert sorted(u for o in owned for u in o) == want
+        assert max(len(o) for o in owned) <= max(1, t_lm.TF32_XA_COLS // r)
+
+
+def _dealt_tf32_units(rows, rt, n, nx, r):
+    """Per block of each row tile of the f32 grouped kernel, the x@A units
+    ``grouped_tf32_xa_units`` deals it (the same in every K split), none to
+    a tile of W; and the (row, first rank, ranks) units the tile has."""
     n_tiles = -(-n // t_lm.TF32_GROUPED_BN)
-    for split in range(splits):
-        for m0 in range(0, rows, rt):
-            here = min(rt, rows - m0)
-            owned = [list(t_lm.grouped_tf32_xa_rows(bx, here, n, nx))
-                     for bx in range(nx)]
-            assert not any(owned[:n_tiles])
-            assert sorted(i for o in owned for i in o) == list(range(here))
-            assert max(len(o) for o in owned) <= max(
-                1, t_lm.TF32_XA_COLS // r)
+    for m0 in range(0, rows, rt):
+        here = min(rt, rows - m0)
+        owned = [t_lm.grouped_tf32_xa_units(bx, here, n, nx, r)
+                 for bx in range(nx)]
+        assert not any(owned[:n_tiles])
+        want = [(i, c, min(64, r - c)) for i in range(here)
+                for c in range(0, r, 64)]
+        yield owned, want
+
+
+@pytest.mark.parametrize("k,n", QWEN3_KN + KIMI_KN)
+@pytest.mark.parametrize("r", [68, 100, 128, 200, 256])
+def test_grouped_tf32_plan_deals_ranks_above_64_at_the_model_shapes(k, n, r):
+    """f32 ``lora_matmul_grouped`` at ranks 68 to 256 over a tick of 8 rows
+    at qwen3-0.6b's and kimi-k2-1t-a32b's projections: ``tf32x3``, every
+    32-deep K step in one split, none empty, none deeper than
+    ``TF32_GROUPED_STEPS``, at least one block per SM, and every (row,
+    64-rank chunk) unit of each split in exactly one x@A block, one unit a
+    block, a ragged last chunk where 64 does not divide r."""
+    assert t_lm.lora_matmul_grouped_version(F32, k, n, r, True) == "tf32x3"
+    rt, splits, ips, nx = t_lm.grouped_tf32_plan(8, k, n, 132, r)
+    n_iters = -(-k // t_lm.TF32_BK)
+    ranges = [list(range(s * ips, min((s + 1) * ips, n_iters)))
+              for s in range(splits)]
+    assert all(ranges), "no split may be empty"
+    assert [i for rg in ranges for i in rg] == list(range(n_iters))
+    assert ips <= t_lm.TF32_GROUPED_STEPS
+    assert nx == -(-n // t_lm.TF32_GROUPED_BN) + 8 * -(-r // 64)
+    assert nx * splits >= 132
+    for owned, want in _dealt_tf32_units(8, rt, n, nx, r):
+        assert sorted(u for o in owned for u in o) == want
+        assert max(len(o) for o in owned) == 1
+        assert sum(w for _, _, w in want) == 8 * r
 
 
 @pytest.mark.parametrize("t,slots,window,run", [

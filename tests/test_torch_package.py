@@ -225,6 +225,30 @@ def test_csrc_holds_the_three_kernels():
             assert banned not in src.lower(), (name, banned)
 
 
+def test_csrc_f32_lora_takes_ranks_to_256_on_the_tensor_cores():
+    """f32 ``lora_matmul`` and ``lora_matmul_grouped`` take ranks up to 256
+    on the tensor cores: above 64 the first's split kernel is a wgmma one
+    (tf32 operands, the product transposed so both are K-major), its X@A
+    summed once and the correction a kernel of its own; the grouped one's
+    x@A in 64-rank units and a reduce kernel whose registers do not grow
+    with r."""
+    csrc = os.path.join(PKG_DIR, "csrc")
+    text = {n: open(os.path.join(csrc, n)).read()
+            for n in ("lora_matmul_tf32.cu", "lora_matmul_grouped_tf32.cu",
+                      "hopper.cuh")}
+    for name in ("lora_matmul_tf32.cu", "lora_matmul_grouped_tf32.cu"):
+        assert "constexpr int MAX_R = 256;" in text[name], name
+    assert ("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32"
+            in text["hopper.cuh"])
+    for kernel in ("lora_matmul_tf32_wg_kernel", "lora_matmul_tf32_xa_kernel",
+                   "lora_matmul_tf32_correct_kernel", "wgmma_rs_tf32"):
+        assert kernel in text["lora_matmul_tf32.cu"], kernel
+    assert ("lora_matmul_grouped_tf32_reduce_wide_kernel"
+            in text["lora_matmul_grouped_tf32.cu"])
+    from repro_torch.kernels import lora_matmul as lm
+    assert lm.TF32_MAX_RANK == lm.WGMMA_MAX_RANK == lm.SIMT_MAX_RANK == 256
+
+
 @pytest.fixture
 def no_gpu():
     if torch.cuda.is_available():
@@ -625,9 +649,13 @@ def test_gpu_flash_attention_ws_permuted_view_and_graph(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n,r", [(128, 128, 128, 8), (512, 512, 512, 16),
                                      (256, 1024, 512, 16), (70, 260, 196, 12),
-                                     (37, 136, 72, 8), (200, 520, 264, 64)])
+                                     (37, 136, 72, 8), (200, 520, 264, 64),
+                                     # ranks past 64: X@A in 64-rank panels,
+                                     # ragged ones (100, 200), K = 7168
+                                     (70, 264, 136, 100), (37, 520, 264, 200),
+                                     (64, 7168, 896, 256)])
 def test_gpu_lora_matmul_tf32x3_kernel(cuda, m, k, n, r):
-    """f32 at calibrate probe shapes, ragged M and K, r up to 64: the
+    """f32 at calibrate probe shapes, ragged M and K, r up to 256: the
     tf32x3 version, at the f32 tolerance."""
     from repro_torch.kernels import lora_matmul as lm
     rng = np.random.default_rng(9)
@@ -655,12 +683,17 @@ def test_gpu_lora_matmul_tf32x3_kernel(cuda, m, k, n, r):
     (4, 2, 136, 64, 64, 3, False, None),            # r = 64
     (32, 1, 256, 64, 64, 4, False, None),           # blocks of x@A only
     (9, 2, 1100, 92, 12, 4, False, None),           # K, N ragged by 4
-    (8, 1, 1024, 3072, 16, 8, True, None)])         # qwen3-0.6b's up proj.
+    (8, 1, 1024, 3072, 16, 8, True, None),          # qwen3-0.6b's up proj.
+    # ranks past 64: (row, 64-rank chunk) units, ragged chunks
+    (8, 1, 1024, 3072, 128, 8, True, None),
+    (15, 1, 264, 136, 100, 4, False, None),
+    (37, 1, 264, 72, 200, 4, True, None),
+    (8, 1, 7168, 896, 256, 4, True, None)])         # K = 7168, r = 256
 def test_gpu_lora_matmul_grouped_tf32x3_kernel(cuda, g, m, k, n, r, e,
                                                strided, ids):
     """f32 at decode shapes (one with the strided in-place bank of
     ``AdapterBank.gather`` and repeated ids), one to 70 rows, M > 1, ranks
-    4 to 64, ragged K and N: the tf32x3 version, at the f32 tolerance."""
+    4 to 256, ragged K and N: the tf32x3 version, at the f32 tolerance."""
     from repro_torch.kernels import lora_matmul as lm
     rng = np.random.default_rng(11)
     f32 = torch.float32
@@ -804,19 +837,23 @@ def test_gpu_flash_decode_large_group_device_t(cuda, dtype, atol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,c,r,route", [
-    (torch.float32, 2e-4, 128, "simt"), (torch.float32, 2e-4, 200, "simt"),
+    (torch.float32, 2e-4, 128, "tf32x3"), (torch.float32, 2e-4, 200, "tf32x3"),
+    (torch.float32, 2e-4, 128, "simt"),       # w one element off 16 bytes
     (torch.bfloat16, 1e-2, 128, "wgmma"), (torch.bfloat16, 1e-2, 200, "wgmma"),
     (torch.bfloat16, 1e-2, 256, "wgmma"), (torch.bfloat16, 1e-2, 100, "simt"),
 ])
 def test_gpu_lora_rank_above_64(cuda, dtype, c, r, route):
-    """Ranks above 64 on both products: bf16 with r a multiple of 8 on the
-    tensor-core kernels (x@A in 64-rank panels; 200 = 3 x 64 + 8 leaves a
-    ragged last panel), f32 and bf16 r = 100 on the SIMT kernels (the
-    grouped one's first variant)."""
+    """Ranks above 64 on both products: bf16 with r a multiple of 8 and
+    f32 with r a multiple of 4 on the tensor-core kernels (x@A in 64-rank
+    panels; 200 = 3 x 64 + 8 leaves a ragged last panel), bf16 r = 100 and
+    an f32 W off 16-byte alignment on the SIMT kernels (the grouped one's
+    first variant)."""
     from repro_torch.kernels import lora_matmul as lm
     rng = np.random.default_rng(34)
     x, w = _rand(rng, (70, 96), dtype, cuda), _rand(rng, (96, 136), dtype, cuda)
     a, b = _rand(rng, (96, r), dtype, cuda), _rand(rng, (r, 136), dtype, cuda)
+    if dtype == torch.float32 and route == "simt":
+        w = _misaligned(w)
     before = lm.lora_matmul.by_version[route]
     got = lm.lora_matmul(x, w, a, b, 0.25).float()
     torch.cuda.synchronize()

@@ -30,14 +30,21 @@ SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
     (BF16, 64, 41, 16, True, "simt"),        # N ragged
     (BF16, 64, 64, 4, True, "simt"),         # r not a multiple of 8
     (BF16, 64, 64, 20, True, "simt"),
-    # ranks 65..256: bf16 on the tensor cores (64-rank panels), f32 and
-    # ranks off a multiple of 8 on the SIMT kernel
+    # ranks 65..256: bf16 (r a multiple of 8) and f32 (r a multiple of 4)
+    # on the tensor cores (64-rank panels), other ranks and unaligned
+    # pointers on the SIMT kernel
     (BF16, 1024, 2048, 72, True, "wgmma"),
     (BF16, 7168, 7168, 128, True, "wgmma"),
     (BF16, 7168, 896, 256, True, "wgmma"),
-    (F32, 1024, 2048, 128, True, "simt"),
+    (F32, 1024, 2048, 128, True, "tf32x3"),
     (BF16, 1024, 2048, 100, True, "simt"),
     (BF16, 1024, 2048, 128, False, "simt"),   # a pointer off 16 bytes
+    (F32, 1024, 2048, 68, True, "tf32x3"),    # a ragged panel of 4
+    (F32, 7168, 896, 100, True, "tf32x3"),
+    (F32, 1024, 3072, 200, True, "tf32x3"),
+    (F32, 7168, 7168, 256, True, "tf32x3"),
+    (F32, 1024, 2048, 130, True, "simt"),     # r not a multiple of 4
+    (F32, 1024, 2048, 128, False, "simt"),    # a pointer off 16 bytes
 ])
 def test_lora_matmul_version(dtype, k, n, r, aligned, want):
     assert t_lm.lora_matmul_version(dtype, k, n, r, aligned) == want

@@ -140,10 +140,12 @@ def test_lora_matmul_rank_above_64(m, k, n, r, dtype):
     _close(got, j2n(jref.lora_matmul_ref(xj, wj, aj, bj, 0.25)), LORA_C[dtype])
     _close(got, j2n(jops.lora_matmul(xj, wj, aj, bj, 0.25,
                                      bm=32, bn=64, bk=32)), LORA_C[dtype])
-    # on the card: bf16 with K, N, r multiples of 8 on the tensor cores
-    # (x@A in 64-rank panels), the rest on the SIMT kernel
+    # on the card: bf16 with K, N, r multiples of 8 and f32 with K, N, r
+    # multiples of 4 on the tensor cores (x@A in 64-rank panels), the rest
+    # on the SIMT kernel
     want = ("wgmma" if dtype == "bfloat16" and k % 8 == n % 8 == r % 8 == 0
-            else "simt")
+            else "tf32x3" if dtype == "float32"
+            and k % 4 == n % 4 == r % 4 == 0 else "simt")
     assert t_lm.lora_matmul_version(TDT[dtype], k, n, r, True) == want
 
 
@@ -166,7 +168,7 @@ def test_lora_matmul_grouped_rank_128(dtype):
                                                  jnp.asarray(ids), 0.25)),
            LORA_C[dtype])
     assert t_lm.lora_matmul_grouped_version(TDT[dtype], k, n, r, True) == (
-        "wgmma" if dtype == "bfloat16" else "simt")
+        "wgmma" if dtype == "bfloat16" else "tf32x3")
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +198,11 @@ def _requests(cls, cfg, n, seed=3, max_new=4):
 
 def test_engine_rank_128_token_identical_to_jax_engine():
     jcfg, tcfg, jp, tp = _rank_pair("qwen3-0.6b", 128)
-    assert tcfg.lora.rank == 128 > t_lm.TF32_MAX_RANK
+    assert tcfg.lora.rank == 128 <= t_lm.WGMMA_MAX_RANK == t_lm.TF32_MAX_RANK
+    for dtype, version in ((torch.bfloat16, "wgmma"),
+                           (torch.float32, "tf32x3")):
+        assert t_lm.lora_matmul_version(dtype, 1024, 2048, 128,
+                                        True) == version
     jads, tads = make_adapters(jcfg, (0, 7, 13))
     assert tads[0]["layers"]["attn"]["wq"]["a"].shape[-1] == 128
     jeng = JEngine(jcfg, jp["frozen"], JBank(jads), slots=3, max_len=32,
