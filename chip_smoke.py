@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only decode    # flash_decode timing rows
     python3 chip_smoke.py --only rank      # build + the rank phase
     python3 chip_smoke.py --only lora      # LoRA timing rows, bf16 and f32
+    python3 chip_smoke.py --only headdim   # build + the head-dim-256 phase
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -26,13 +27,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            (UTMALDG) in each library's SASS (``cuobjdump -sass``); the
            warp-specialised ``flash_attention_ws`` must show both HGMMA and
            UTMALDG; every kernel's ``ptxas`` registers and spills, none
-           spilling in the f32 LoRA sources
+           spilling in the f32 LoRA sources nor in the four instantiations
+           of ``flash_attention_ws`` (D = 64, 128, 192, 256)
   kernels  every hand-written kernel against its plain PyTorch version on
            the card (main-path shapes and ragged ones, bf16 and f32; every
            version of ``lora_matmul``, ``lora_matmul_grouped``,
            ``flash_attention`` and ``ssd_intra_chunk``: the tensor-core ones
-           (bf16 ``wgmma``; bf16 ``flash_attention`` at head dims 64 and 128
-           ``wgmma_ws``, also at GQA groups 1-8, one query, windows past S
+           (bf16 ``wgmma``; bf16 ``flash_attention`` at every head dim that
+           is a multiple of 8 from 8 to 256 but 16 and 32 ``wgmma_ws``, at
+           8, 24, 40, 48, 56, 64, 112, 128, 136, 192, 200 and 256, also at
+           GQA groups 1-8, one query, windows past S, non-causal Sq != Skv
            and ~8x more work items than SMs; f32 ``tf32x3``, also
            ``lora_matmul_grouped``'s) and the SIMT one, the f32
            tensor-core ones at every probe shape of the calibrate path;
@@ -41,14 +45,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            ``flash_decode`` at runs of one piece and of the most pieces,
            linear and ring; the shapes the kernels were widened to: head
            dims 72..128 on the tensor cores (kimi-k2-1t-a32b's 112), the
-           SIMT kernel at 40, 100 and 256, ``flash_decode`` at groups 9 to
+           SIMT kernel at 8 to 256, ``flash_decode`` at groups 9 to
            40 and head dims 36 to 256 with ``t`` on the card, LoRA ranks
            65 to 256 on the tensor-core kernels (r a multiple of 8 in bf16,
            of 4 in f32; ragged panels and rows) and on the SIMT kernels;
            every call of the calibrate
            path's probe ladder and kernel benches on its own inputs), then
            timed with CUDA events beside the plain version, one PyTorch
-           library call for the same function, and the card's bound (f32
+           library call for the same function, and the card's bound (bf16
+           ``flash_attention`` at head dims 40, 136, 192 and 256 beside the
+           SIMT kernel, f32 at 40 and 256 on SIMT beside SDPA; f32
            ``lora_matmul_grouped`` at G = 8 from a strided bank of 8 at
            llama32-1b's and qwen3-0.6b's decode shapes, beside the SIMT
            kernel it replaced; both LoRA kernels at r = 128 and 256 and
@@ -127,6 +133,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
            attention launch ``wgmma_ws``, its logits against
            ``impl="chunked"`` on the same routing (replayed); the peak of
            ``max_memory_allocated`` under 92 % of the card
+  headdim  qwen3-4b at its published width and depth (36 layers, d_model
+           2560, bf16, random weights from a seed, four non-zero adapters)
+           with its attention regrouped to head dim 256 (16 query heads
+           over 4 KV heads, as Gemma-2 and Gemma-3 group theirs; every
+           projection keeps its shape): ``make_prefill_step(impl="flash")``
+           on (4, 1024), every attention launch ``wgmma_ws`` (36), none
+           ``simt``; its logits against the f32 step by the registry
+           phase's rule; the step's CUDA-event ms beside
+           ``impl="chunked"``'s, the attention kernels' share of its device
+           time; the peak of ``max_memory_allocated`` under 92 % of the card
   dryrun   ``launch/dryrun``: every (arch x input shape) combo of the
            reference's dry run traced on ``meta`` at full published width
            (40, kimi-k2-1t-a32b included; FLOPs, HBM bytes, peak bytes,
@@ -660,13 +676,15 @@ def time_flash(rng, b, s, hq, hkv, d, dtype):
         # gives at this shape: counts of the plan, not of the kernel's run,
         # so a line of their own beside the measured row
         n_items = b * hq * -(-s // fa.WS_QUERIES)
+        keys = fa.ws_keys(d)
         emit({"phase": "flash_schedule_mirror", "shape": out["shape"],
+              "instance": fa.ws_instance(d), "keys": keys,
               "work_items": n_items,
               "blocks": fa.ws_blocks(n_items, fa.sm_count(q.device.index)),
-              # (128-query tile, 128-key tile) pairs the schedule visits
+              # (128-query tile, key tile) pairs the schedule visits
               "visited_tile_pairs": b * hq * sum(
-                  len(fa.ws_tiles(t, s, s, True, 0))
-                  for t in fa.ws_qtile_order(s, s, True, 0))})
+                  len(fa.ws_tiles(t, s, s, True, 0, keys))
+                  for t in fa.ws_qtile_order(s, s, True, 0, keys))})
     if timed == "tf32x3":
         out.update(bound_3xtf32(bytes_moved, flops))
     return out
@@ -1153,7 +1171,7 @@ WIDE_RANK_GROUPED = ((5, 1, 512, 256, 128, 3), (4, 2, 300, 96, 256, 2),
                      (8, 1, 264, 72, 100, 4), (3, 5, 264, 136, 72, 3),
                      (8, 1, 1096, 200, 128, 4), (7, 10, 520, 264, 256, 5),
                      (2, 1, 256, 72, 256, 2), (15, 1, 264, 136, 200, 4))
-# flash_attention ((B, Sq, Skv, Hq, Hkv, D), kwargs)
+# flash_attention ((B, Sq, Skv, Hq, Hkv, D), kwargs), bf16 and f32
 WIDE_HEAD_FLASH = (((1, 300, 300, 16, 2, 112), {}),
                    ((2, 130, 130, 16, 2, 112), {"window": 64}),
                    ((1, 200, 200, 8, 1, 72), {}),
@@ -1161,16 +1179,42 @@ WIDE_HEAD_FLASH = (((1, 300, 300, 16, 2, 112), {}),
                    ((2, 130, 130, 4, 2, 40), {"window": 64}),
                    ((1, 150, 150, 4, 1, 100), {}),
                    ((1, 200, 200, 4, 2, 256), {}))
+# bf16 flash_attention at the head dims the warp-specialised kernel was
+# widened to (8..56 on its D = 64 instantiation, 136..256 on D = 192 and
+# 256, key tiles of 64): GQA groups 1-8, one query, ragged S, windows (one
+# past S), non-causal Sq != Skv, ~8x more work items than SMs
+WIDE_HEAD_WS = (((1, 300, 300, 8, 1, 8), {}),
+                ((2, 150, 150, 4, 4, 24), {}),
+                ((4, 1024, 1024, 32, 8, 24), {}),
+                ((1, 200, 200, 6, 2, 48), {"window": 100}),
+                ((2, 200, 200, 8, 1, 48), {}),
+                ((2, 300, 70, 4, 2, 56), {"causal": False}),
+                ((1, 300, 300, 8, 2, 136), {}),
+                ((2, 130, 130, 4, 4, 136), {"window": 64}),
+                ((1, 1, 1, 8, 2, 192), {}),
+                ((1, 1000, 1000, 12, 2, 192), {"window": 64}),
+                ((8, 1024, 1024, 16, 8, 192), {}),
+                ((2, 70, 300, 4, 2, 200), {"causal": False}),
+                ((1, 150, 300, 4, 1, 200), {"causal": False, "window": 64}),
+                ((1, 1, 1, 8, 2, 256), {}),
+                ((1, 300, 300, 7, 1, 256), {"window": 1024}),
+                ((2, 130, 130, 16, 2, 256), {"window": 64}),
+                ((2, 300, 70, 4, 2, 256), {"causal": False}),
+                ((8, 1024, 1024, 16, 8, 256), {}))
 # flash_decode (B, S, Hq, Hkv, D, t[, window])
 WIDE_DECODE = ((4, 1024, 128, 8, 112, 1000), (4, 512, 128, 8, 112, 1500, 512),
                (1, 300, 80, 2, 112, 200, 100), (2, 90, 9, 1, 40, 80),
                (1, 90, 4, 1, 36, 80), (1, 600, 12, 1, 256, 500))
 # timing rows: flash_decode (bf16, t on the card), tf32x3 at head dim 112,
-# SIMT flash_attention (B, S, Hq, Hkv, D), LoRA at r = 128
+# flash_attention (B, S, Hq, Hkv, D) at head dims off 64 and 72..128 (bf16
+# wgmma_ws beside SIMT; f32 at 40 and 256: SIMT beside SDPA), LoRA at
+# r = 128
 WIDE_DECODE_TIMES = ((4, 1024, 128, 8, 112, 1000),
                      (4, 512, 128, 8, 112, 1500, 512))
 WIDE_TF32_FLASH_TIME = (1, 1024, 64, 8, 112)
-WIDE_SIMT_FLASH_TIMES = ((4, 1024, 32, 8, 40), (4, 1024, 16, 4, 256))
+WIDE_HEAD_FLASH_TIMES = ((4, 1024, 32, 8, 40), (4, 1024, 16, 4, 136),
+                         (4, 1024, 16, 4, 192), (4, 1024, 16, 4, 256))
+WIDE_F32_FLASH_TIMES = ((4, 1024, 32, 8, 40), (4, 1024, 16, 4, 256))
 # LoRA at ranks 128 and 256: kimi-k2-1t-a32b's q projection over a prefill
 # chunk (M, K, N, r) and its kv projection over a tick of 8 rows from a
 # strided bank of 4 (G, K, N, r, E)
@@ -1282,7 +1326,8 @@ def phase_kernels(seed: int):
                          ((2, 300, 70, 4, 2, 128), {"causal": False}),
                          ((8, 1024, 1024, 16, 8, 128), {}),
                          # head dims 72..120 on the D = 128 instantiations
-                         # (kimi-k2-1t-a32b's 112, group 8), and the SIMT
+                         # (kimi-k2-1t-a32b's 112, group 8), bf16 40 and
+                         # 256 on the D = 64 and 256 ones, and the SIMT
                          # kernel's padded widths (40, 100, 256)
                          *WIDE_HEAD_FLASH,
                          *(((b, s, s, hq, hkv, d), {})
@@ -1290,6 +1335,12 @@ def phase_kernels(seed: int):
             for simt in simts:
                 note("flash_attention", dtype,
                      check_flash(rng, *args, dtype, simt=simt, **kw))
+        if dtype == bf16:
+            # the widened head dims: wgmma_ws, and the SIMT kernel beside it
+            for args, kw in WIDE_HEAD_WS:
+                for simt in simts:
+                    note("flash_attention", dtype,
+                         check_flash(rng, *args, dtype, simt=simt, **kw))
         # the llama32-1b serving cache, the reference bench's shape, a
         # ragged cache, a window over a linear cache and ring buffers; runs
         # of one piece (one launch) and of the most pieces, linear and ring
@@ -1381,11 +1432,15 @@ def phase_kernels(seed: int):
         rows["flash_decode"].append(
             time_decode(rng, *args[:6], bf16, *args[6:], t_device=True))
     # f32 tf32x3 at head dim 112 (kimi-k2-1t-a32b's heads, one row); bf16
-    # SIMT at head dims outside the tensor-core set
+    # wgmma_ws at head dims 40, 136, 192 and 256 (beside SIMT), and f32 at
+    # 40 and 256 (SIMT: the f32 tensor-core set stops at 128)
     rows["flash_attention_tf32x3"].append(
         time_flash(rng, *WIDE_TF32_FLASH_TIME, f32))
-    for shape in WIDE_SIMT_FLASH_TIMES:
+    for shape in WIDE_HEAD_FLASH_TIMES:
         rows["flash_attention"].append(time_flash(rng, *shape, bf16))
+    # (the f32 entry's rows; their "version" says simt)
+    rows["flash_attention_tf32x3"] += [time_flash(rng, *shape, f32)
+                                       for shape in WIDE_F32_FLASH_TIMES]
     # ranks 128 and 256 (bf16 and f32 on the tensor cores, each beside the
     # SIMT kernel) at kimi-k2-1t-a32b's q projection over a prefill chunk
     # and its kv projection over a tick of 8 rows; the grouped kernel at
@@ -2462,10 +2517,9 @@ def family_kernel_checks(seed: int, gpu: str):
             name, arch, shape, version)
 
 
-def prefill_ssd_share(fn):
-    """One call of ``fn`` under ``torch.profiler``: the device µs of the
-    ``ssd_intra_chunk`` kernels (scores and heads) beside all the device
-    µs of the call."""
+def device_share(fn, picked):
+    """One call of ``fn`` under ``torch.profiler``: all the device µs of
+    the call, and those of the kernels whose name ``picked`` accepts."""
     from torch.profiler import ProfilerActivity, profile as prof
     with prof(activities=[ProfilerActivity.CUDA]) as p:
         fn()
@@ -2473,8 +2527,15 @@ def prefill_ssd_share(fn):
     kernels_ = [e for e in p.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.time_range.elapsed_us() for e in kernels_)
-    ssd = sum(e.time_range.elapsed_us() for e in kernels_
-              if "ssd_" in e.name and "_tc_kernel" in e.name)
+    part = sum(e.time_range.elapsed_us() for e in kernels_ if picked(e.name))
+    return total, part
+
+
+def prefill_ssd_share(fn):
+    """The device µs of the ``ssd_intra_chunk`` kernels (scores and heads)
+    in one call of ``fn`` beside all the device µs of the call."""
+    total, ssd = device_share(
+        fn, lambda name: "ssd_" in name and "_tc_kernel" in name)
     return {"device_us": total, "ssd_intra_chunk_device_us": ssd,
             "ssd_intra_chunk_share": ssd / total if total else 0.0}
 
@@ -2925,10 +2986,12 @@ FIT_SHARE = 0.92           # of the card's memory a full-depth step may plan
 # down projection over a (4, 1024) batch
 REGISTRY_FLASH_TIMES = ((4, 1024, 28, 4, 128), (4, 1024, 48, 8, 128))
 REGISTRY_LORA_TIMES = ((4096, 18944, 3584, 16),)
-# every bf16 flash_attention timing row: the registry's, llama32-1b's and
-# kimi-k2-1t-a32b's (head dim 112)
-FLASH_TIMES = REGISTRY_FLASH_TIMES + ((4, 1024, 32, 8, 64),
-                                      (4, 1024, 64, 8, 112))
+# every bf16 flash_attention timing row: the registry's, llama32-1b's,
+# kimi-k2-1t-a32b's (head dim 112) and the widened head dims' (40, 136, 192,
+# 256)
+FLASH_TIMES = (REGISTRY_FLASH_TIMES
+               + ((4, 1024, 32, 8, 64), (4, 1024, 64, 8, 112))
+               + WIDE_HEAD_FLASH_TIMES)
 
 
 def first_layers(cfg, frozen, lora, n: int):
@@ -3037,7 +3100,7 @@ def registry_generate(cfg, frozen, lora, seed, gpu):
     return counts, {}
 
 
-def registry_prefill(cfg, frozen, lora, seed, gpu):
+def registry_prefill(cfg, frozen, lora, seed, gpu, phase="registry_prefill"):
     """(b) ``make_prefill_step(impl="flash")`` on (4, 1024) tokens or
     embeddings, its launches read around one call; then bf16 against f32
     logits at ``REGISTRY_F32_DEPTH``: flash and chunked in both dtypes.
@@ -3088,7 +3151,7 @@ def registry_prefill(cfg, frozen, lora, seed, gpu):
         pre["bf16_flash_vs_chunked_capped_layers"] = err(
             make_prefill_step(c, impl="flash")(fz, lo, inputs),
             make_prefill_step(c, impl="chunked")(fz, lo, inputs))
-    emit({"phase": "registry_prefill", "gpu": gpu, "arch": cfg.name,
+    emit({"phase": phase, "gpu": gpu, "arch": cfg.name,
           "input": cfg.input_mode, "batch": 4, "seq": 1024, "impl": "flash",
           "step_s": step_s, "logits_check_layers": depth,
           "bf16_cap_layers": cap_depth,
@@ -3430,6 +3493,90 @@ def phase_kimi(seed: int):
     total = {name: counts[name] + pc[name] for name in counts}
     versions = dict(by, **pby)
     return total, dict(total), versions, rows
+
+
+# ---------------------------------------------------------------------------
+# head dim 256: qwen3-4b's attention regrouped, at full width on one card
+# ---------------------------------------------------------------------------
+
+HEADDIM_ARCH = "qwen3-4b"
+# its 32 query heads over 8 KV heads of 128 regrouped as 16 over 4 of 256,
+# as Gemma-2 and Gemma-3 group theirs (Gemma-2-9B: 16 over 8 of 256): q_dim
+# 4096 and kv_dim 1024 stay, so every projection, LoRA shape and attention
+# FLOP count is qwen3-4b's and only the head dim changes
+HEADDIM = dict(n_heads=16, n_kv_heads=4, head_dim=256)
+HEADDIM_ADAPTERS = 4       # seeded non-zero adapters, one a timed step
+
+
+def cuda_ms(fn) -> float:
+    """CUDA-event milliseconds of one call of ``fn`` on the current
+    stream."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_headdim(seed: int):
+    """qwen3-4b at its published width and depth (36 layers, d_model 2560,
+    bf16, random weights from ``seed``, ``HEADDIM_ADAPTERS`` adapters with
+    non-zero B) with its attention at head dim 256 (``HEADDIM``):
+    ``make_prefill_step(impl="flash")`` on (4, 1024), every attention launch
+    ``"wgmma_ws"`` (the D = 256 instantiation) and none ``"simt"``, its
+    logits held against the f32 step by the registry phase's rule
+    (``registry_prefill``); the step's CUDA-event time beside
+    ``impl="chunked"``'s, once per adapter, the attention kernels' share of
+    the flash step's device time (``torch.profiler``), and the peak of
+    ``max_memory_allocated`` under ``FIT_SHARE`` of the card. Returns
+    (counts, runs, versions)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_config(HEADDIM_ARCH), **HEADDIM)
+    assert (cfg.q_dim, cfg.kv_dim, cfg.n_layers, cfg.d_model, cfg.dtype) == (
+        4096, 1024, 36, 2560, "bfloat16"), cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    frozen = M.init_params(seed, cfg)["frozen"]      # device=None: the card
+    adapters = [make_adapter(cfg, seed + 1 + j, dev)
+                for j in range(HEADDIM_ADAPTERS)]
+    # the main path (counts set to 0 just before it and read just after)
+    # and the bf16-vs-f32 logits, as the registry phase runs them
+    counts, versions = registry_prefill(cfg, frozen, adapters[0], seed, gpu,
+                                        phase="headdim_prefill")
+    toks = model_inputs(cfg, (4, 1024), seed + 100)
+    step = {impl: make_prefill_step(cfg, impl=impl)
+            for impl in ("flash", "chunked")}
+    ms = {impl: [cuda_ms(lambda: fn(frozen, lora, toks)) for lora in adapters]
+          for impl, fn in step.items()}
+    total_us, attn_us = device_share(
+        lambda: step["flash"](frozen, adapters[0], toks),
+        lambda name: "flash_attention_ws_kernel" in name)
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "headdim", "gpu": gpu, "arch": cfg.name,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model, "batch": 4,
+          "seq": 1024, "flash_step_ms": ms["flash"],
+          "chunked_step_ms": ms["chunked"],
+          "flash_device_us": total_us, "attention_device_us": attn_us,
+          "attention_share": attn_us / total_us if total_us else 0.0,
+          "launches": counts, "launches_by_version": versions,
+          "peak_bytes": peak, "card_bytes": card, "fit_share": FIT_SHARE,
+          "peak_share": peak / card, "seconds": time.time() - t_phase})
+    assert versions["flash_attention"] == {
+        "wgmma_ws": cfg.n_layers, "wgmma": 0, "tf32x3": 0, "simt": 0}, versions
+    assert attn_us > 0, (total_us, attn_us)
+    assert peak <= FIT_SHARE * card, (peak, card)
+    del frozen, adapters
+    torch.cuda.empty_cache()
+    return counts, dict(counts), versions
 
 
 # ---------------------------------------------------------------------------
@@ -5629,8 +5776,9 @@ SOURCES = {
                     "src/repro/kernels/lora_matmul.py:73"),
     "lora_matmul_grouped": ("src/repro_torch/csrc/lora_matmul_grouped_tc.cu",
                             "src/repro/kernels/lora_matmul.py:170"),
-    # bf16 at head dims 64 and 128, every model path's (the earlier kernel,
-    # csrc/flash_attention_tc.cu, keeps head dims 16 and 32, on no path)
+    # bf16 at every multiple of 8 from 8 to 256 but 16 and 32, every model
+    # path's head dim (the earlier kernel, csrc/flash_attention_tc.cu, keeps
+    # head dims 16 and 32, on no path)
     "flash_attention": ("src/repro_torch/csrc/flash_attention_ws.cu",
                         "src/repro/kernels/flash_attention.py:107"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -5684,7 +5832,8 @@ def main() -> int:
                                        "fleet", "calibrate", "registry",
                                        "dryrun", "bench", "flash",
                                        "serve32", "shard", "kimi",
-                                       "decode", "rank", "lora"),
+                                       "decode", "rank", "lora",
+                                       "headdim"),
                     default=None,
                     help="kernels: stop after the build and kernels phases; "
                          "train: run the train phase alone (it builds and "
@@ -5706,7 +5855,9 @@ def main() -> int:
                          "phase alone; decode: the flash_decode timing "
                          "rows alone (the first launch builds the "
                          "kernels); lora: the LoRA timing rows alone, bf16 "
-                         "and f32 (the first launch builds the kernels)")
+                         "and f32 (the first launch builds the kernels); "
+                         "headdim: build, then the head-dim-256 phase "
+                         "alone")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode tick and one local epoch "
                          "of split training with torch.profiler")
@@ -5780,8 +5931,15 @@ def main() -> int:
                  "flash_attention_tc", "flash_attention_ws",
                  "lora_matmul_tf32"):
         assert sass[name]["HGMMA"] > 0, (name, sass)
-    # the warp-specialised kernel's copies are TMA loads
+    # the warp-specialised kernel's copies are TMA loads; none of its four
+    # instantiations (D = 64, 128, 192, 256) spills
     assert sass["flash_attention_ws"]["UTMALDG"] > 0, sass
+    ws = per_kernel["flash_attention_ws"]
+    assert {f"flash_attention_ws_kernel<{d}>" for d in (64, 128, 192, 256)
+            } == set(ws), ws
+    for kernel, use in ws.items():
+        assert use.get("spill_stores", 0) == 0 == use.get("spill_loads", 0), (
+            kernel, use)
     emit({"phase": "build_flash_attention_ws",
           "ptxas": per_kernel["flash_attention_ws"],
           "sass": sass["flash_attention_ws"]})
@@ -5819,6 +5977,11 @@ def main() -> int:
         emit({"phase": "done", "only": "kimi",
               "seconds": time.time() - t_start})
         return 0
+    if args.only == "headdim":
+        phase_headdim(args.seed)
+        emit({"phase": "done", "only": "headdim",
+              "seconds": time.time() - t_start})
+        return 0
     if args.only == "shard":
         phase_shard(args.seed)
         emit({"phase": "done", "only": "shard",
@@ -5853,6 +6016,7 @@ def main() -> int:
     by_path["registry"] = tuple(registry)
     *kimi, kimi_rows = phase_kimi(args.seed)
     by_path["kimi"] = tuple(kimi)
+    by_path["headdim"] = phase_headdim(args.seed)
     _, dryrun_records = phase_dryrun(args.seed)
     # the served weights' logits check runs once, in serve32
     *bench, bench_rows = phase_bench(args.seed, False, calibration,

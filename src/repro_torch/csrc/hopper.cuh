@@ -119,6 +119,10 @@ __device__ __forceinline__ int acc_col(int tid, int i) {
 #define REPRO_F32 REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24)
 #define REPRO_F64 \
   REPRO_F32, REPRO_F8(32), REPRO_F8(40), REPRO_F8(48), REPRO_F8(56)
+#define REPRO_F96 \
+  REPRO_F64, REPRO_F8(64), REPRO_F8(72), REPRO_F8(80), REPRO_F8(88)
+#define REPRO_F128 \
+  REPRO_F96, REPRO_F8(96), REPRO_F8(104), REPRO_F8(112), REPRO_F8(120)
 
 #define REPRO_R32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
@@ -130,6 +134,27 @@ __device__ __forceinline__ int acc_col(int tid, int i) {
   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
   "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define REPRO_R96                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "    \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "    \
+  "%93, %94, %95}"
+#define REPRO_R128                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "    \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "    \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "    \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "   \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "   \
+  "%127}"
 
 // D (64 x N, f32) += A (64 x 16, shared, K-major) * B (16 x N, shared);
 // TB = 0: B is K-major, TB = 1: B is MN-major. N = 64 or 128.
@@ -185,7 +210,7 @@ __device__ __forceinline__ void wgmma_ss_set(float (&d)[64], uint64_t da,
 #undef REPRO_W8
 
 // D (64 x N, f32) += A (64 x 16, bf16 in registers, the mma fragment
-// layout) * B (16 x N, shared, MN-major). N = 64 or 128.
+// layout) * B (16 x N, shared, MN-major). N = 64, 128, 192 or 256.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db) {
   asm volatile(
@@ -203,6 +228,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_R64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : REPRO_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " REPRO_R96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : REPRO_F96
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REPRO_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : REPRO_F128
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -224,8 +269,12 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
 #undef REPRO_F8
 #undef REPRO_F32
 #undef REPRO_F64
+#undef REPRO_F96
+#undef REPRO_F128
 #undef REPRO_R32
 #undef REPRO_R64
+#undef REPRO_R96
+#undef REPRO_R128
 
 // Dynamic shared memory rounded up to the next 1024-byte boundary (the
 // launch asks for 1 KB more than the tiles need).

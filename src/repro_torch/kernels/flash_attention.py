@@ -13,19 +13,21 @@ calls whose pointers or strides do not allow 16-byte copies).
 ``flash_attention_version`` names the one a call takes, by dtype, head dim
 and alignment alone (never by failure).
 
-Head dims, one rule: the tensor-core versions take ``TC_HEAD_DIMS`` (16,
-32, 64 and every multiple of 8 from 72 to 128); the head dims 72 to 120
-(kimi-k2-1t-a32b's 112 among them) run those kernels' D = 128
-instantiation with the true head dim at run time (columns past it are
-zeros on the way in and are not stored), which costs no more for the
-seven dims than for 112 alone, and does 128/D of the products the head
-dim needs. The SIMT kernel takes every head dim up to ``MAX_HEAD_DIM``
-(256), compiled for padded widths 16, 32, 64, 128 and 256 with the tail
-columns masked. A larger head dim raises. The scale is always 1/sqrt of
-the true head dim.
+Head dims, one rule, each dtype's set in one constant: bf16 takes the
+tensor cores at ``BF16_HEAD_DIMS`` (every multiple of 8 from 8 to 256:
+``"wgmma_ws"``, but ``"wgmma"`` at 16 and 32), f32 at ``F32_HEAD_DIMS``
+(16, 32, 64 and every multiple of 8 from 72 to 128: ``"tf32x3"``). A head
+dim off an instantiation runs the narrowest one that holds it with the
+true head dim at run time (columns past it are zeros on the way in and are
+not stored), and does D/d of the products the head dim needs: the
+``"wgmma_ws"`` kernel is built for D = 64, 128, 192 and 256
+(``ws_instance``), the ``"tf32x3"`` kernel's D = 128 takes 72 to 120. The
+SIMT kernel takes every head dim up to ``MAX_HEAD_DIM`` (256), compiled
+for padded widths 16, 32, 64, 128 and 256 with the tail columns masked. A
+larger head dim raises. The scale is always 1/sqrt of the true head dim.
 
 Bound on this card: a causal prefill on (4, 1024) tokens does ~1000 (head
-dim 64) to ~2000 (head dim 128) FLOP per byte it must move, so it is bound
+dim 64) to ~4000 (head dim 256) FLOP per byte it must move, so it is bound
 by operations; the (Sq, Skv) score matrix never reaches device memory, K
 and V are read through ``kv_head = q_head // group`` instead of a copy
 broadcast over the group, and the tensors are addressed through their
@@ -34,7 +36,8 @@ The ``"wgmma_ws"`` kernel keeps the tensor cores busy during the softmax:
 one warpgroup only copies (TMA, a ring of K/V stages under mbarriers), two
 consumer warpgroups take turns at the tensor cores (one's softmax runs
 while the other's products do), and one block per SM walks the work items
-heaviest first (``ws_qtile_order``, ``ws_items``, ``ws_block_items``).
+heaviest first (``ws_qtile_order``, ``ws_items``, ``ws_block_items``;
+K/V tiles of ``ws_keys(d)`` keys).
 
 Positions are ``0..S-1`` on both sides, masked scores are ``-1e30``, and the
 softmax denominator is clamped at ``1e-20``, as in the TPU kernel.
@@ -55,9 +58,12 @@ from repro_torch.kernels import _build, refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256          # the SIMT kernel's widest head dim
-# head dims of the tensor-core versions; those of "wgmma_ws" (bf16)
-TC_HEAD_DIMS = (16, 32, 64) + tuple(range(72, 129, 8))
-WS_HEAD_DIMS = (64,) + tuple(range(72, 129, 8))
+# head dims of the tensor-core versions (TMA- or 16-byte-aligned calls):
+# bf16 "wgmma_ws" and, at WGMMA_HEAD_DIMS, "wgmma"; f32 "tf32x3"
+BF16_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
+F32_HEAD_DIMS = (16, 32, 64) + tuple(range(72, 129, 8))
+WGMMA_HEAD_DIMS = (16, 32)
+WS_HEAD_DIMS = tuple(d for d in BF16_HEAD_DIMS if d not in WGMMA_HEAD_DIMS)
 NEG_INF = -1e30
 
 
@@ -86,17 +92,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_version(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The kernel a CUDA call takes when the head dim is in
-    ``TC_HEAD_DIMS``, every pointer is 16-byte aligned and every stride a
-    whole number of 16-byte steps (``aligned``): for bf16 ``"wgmma_ws"``
-    (``csrc/flash_attention_ws.cu``) at the head dims of ``WS_HEAD_DIMS``,
-    else ``"wgmma"`` (``csrc/flash_attention_tc.cu``); ``"tf32x3"``
-    (``csrc/flash_attention_tf32.cu``) for f32; otherwise ``"simt"``
+    """The kernel a CUDA call takes. With every pointer 16-byte aligned and
+    every stride a whole number of 16-byte steps (``aligned``): bf16 at
+    ``BF16_HEAD_DIMS`` ``"wgmma_ws"`` (``csrc/flash_attention_ws.cu``),
+    but ``"wgmma"`` (``csrc/flash_attention_tc.cu``) at
+    ``WGMMA_HEAD_DIMS``; f32 at ``F32_HEAD_DIMS`` ``"tf32x3"``
+    (``csrc/flash_attention_tf32.cu``). Otherwise ``"simt"``
     (``csrc/flash_attention.cu``, head dims up to ``MAX_HEAD_DIM``)."""
-    if d in TC_HEAD_DIMS and aligned:
-        if dtype == torch.bfloat16:
-            return "wgmma_ws" if d in WS_HEAD_DIMS else "wgmma"
-        if dtype == torch.float32:
+    if aligned:
+        if dtype == torch.bfloat16 and d in BF16_HEAD_DIMS:
+            return "wgmma" if d in WGMMA_HEAD_DIMS else "wgmma_ws"
+        if dtype == torch.float32 and d in F32_HEAD_DIMS:
             return "tf32x3"
     return "simt"
 
@@ -132,7 +138,20 @@ def tf32_block(bx: int, by: int, hq: int, sq: int) -> Tuple[int, int, range]:
 
 
 WS_QUERIES = 128            # queries of a work item of the "wgmma_ws" kernel
-WS_KEYS = 128               # keys of its K / V tiles
+WS_INSTANCES = (64, 128, 192, 256)   # the head dims it is built for
+
+
+def ws_instance(d: int) -> int:
+    """The instantiation of the ``"wgmma_ws"`` kernel that head dim ``d``
+    runs: the narrowest of ``WS_INSTANCES`` that holds it."""
+    return next(w for w in WS_INSTANCES if d <= w)
+
+
+def ws_keys(d: int) -> int:
+    """Keys of the ``"wgmma_ws"`` kernel's K / V tiles at head dim ``d``:
+    128 on the D = 64 and 128 instantiations, 64 on D = 192 and 256 (whose
+    tiles of 128 keys would not fit a block's shared memory beside Q)."""
+    return 128 if ws_instance(d) <= 128 else 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,28 +160,30 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def ws_tiles(qt: int, sq: int, skv: int, causal: bool, window: int) -> range:
-    """The KV tiles (of ``WS_KEYS`` keys) that query tile ``qt`` (of
-    ``WS_QUERIES`` queries) of the ``"wgmma_ws"`` kernel visits: those with
-    at least one key that a query of the tile may see."""
-    nkb = -(-skv // WS_KEYS)
+def ws_tiles(qt: int, sq: int, skv: int, causal: bool, window: int,
+             keys: int) -> range:
+    """The KV tiles (of ``keys`` keys: ``ws_keys``) that query tile ``qt``
+    (of ``WS_QUERIES`` queries) of the ``"wgmma_ws"`` kernel visits: those
+    with at least one key that a query of the tile may see."""
+    nkb = -(-skv // keys)
     begin = 0
     if window:
         first = qt * WS_QUERIES - window + 1     # the first query's first key
-        begin = nkb if first >= skv else max(0, first) // WS_KEYS
-    end = min(nkb, qt + 1) if causal else nkb
+        begin = nkb if first >= skv else max(0, first) // keys
+    last = min((qt + 1) * WS_QUERIES, sq) - 1    # the tile's last query
+    end = min(nkb, last // keys + 1) if causal else nkb
     return range(begin, max(begin, end))
 
 
-def ws_qtile_order(sq: int, skv: int, causal: bool,
-                   window: int) -> List[int]:
+def ws_qtile_order(sq: int, skv: int, causal: bool, window: int,
+                   keys: int) -> List[int]:
     """The query tiles in the order the ``"wgmma_ws"`` kernel takes them,
-    heaviest (most KV tiles) first, as the kernel computes it: the weight
-    rises strictly up to a peak tile and never rises after it, and the
-    order merges tiles peak, peak-1, ..., 0 with tiles peak+1, ..., the
-    first list winning ties."""
+    heaviest (most KV tiles of ``keys`` keys) first, as the kernel computes
+    it: the weight rises strictly up to a peak tile and never rises after
+    it, and the order merges tiles peak, peak-1, ..., 0 with tiles peak+1,
+    ..., the first list winning ties."""
     nqt = -(-sq // WS_QUERIES)
-    w = [len(ws_tiles(t, sq, skv, causal, window)) for t in range(nqt)]
+    w = [len(ws_tiles(t, sq, skv, causal, window, keys)) for t in range(nqt)]
     peak = 0
     while peak + 1 < nqt and w[peak + 1] > w[peak]:
         peak += 1
@@ -179,14 +200,15 @@ def ws_qtile_order(sq: int, skv: int, causal: bool,
     return order
 
 
-def ws_items(b: int, hq: int, sq: int, skv: int, causal: bool,
-             window: int) -> List[Tuple[int, int, int]]:
+def ws_items(b: int, hq: int, sq: int, skv: int, causal: bool, window: int,
+             keys: int) -> List[Tuple[int, int, int]]:
     """The work items ``(batch, head, query tile)`` of the ``"wgmma_ws"``
     kernel in the order it takes them: query tiles by ``ws_qtile_order``,
     then batch, then head (fastest, so the heads of a GQA group, which
     share their K and V tiles, run side by side). ``ws_block_items`` says
     which of them each block of the persistent grid takes."""
-    return [(bi, h, qt) for qt in ws_qtile_order(sq, skv, causal, window)
+    return [(bi, h, qt)
+            for qt in ws_qtile_order(sq, skv, causal, window, keys)
             for bi in range(b) for h in range(hq)]
 
 

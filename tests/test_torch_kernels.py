@@ -209,6 +209,10 @@ def _check_attention(q, k, v, window, atol):
     (200, 7, 1, 128),
     (128, 12, 2, 128),   # head dim 128, GQA group 6 (internvl2-26b's)
     (200, 12, 2, 128),
+    (128, 8, 2, 40),     # head dims off 64 and 72..128: 40 (the D = 64
+    (200, 4, 1, 40),     # instantiation) and 256 (qwen3-4b regrouped to
+    (128, 4, 1, 256),    # 16 x 256 over 4 KV heads: group 4)
+    (200, 8, 2, 256),
 ])
 @pytest.mark.parametrize("window", [0, 64])
 def test_flash_attention_plain_vs_pallas_sweep(s, hq, hkv, d, window):

@@ -168,7 +168,7 @@ def test_csrc_holds_the_three_kernels():
     f32 ``lora_matmul``, ``lora_matmul_grouped`` and ``flash_attention`` on
     ``mma.sync`` with tf32, the shared three-product helpers in
     ``tf32x3.cuh``; bf16
-    ``flash_attention`` at head dims 64 and 128 also warp-specialised (TMA,
+    ``flash_attention`` at head dims 8 to 256 also warp-specialised (TMA,
     mbarriers, named barriers, ``setmaxnreg``)."""
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
@@ -194,6 +194,9 @@ def test_csrc_holds_the_three_kernels():
         assert helper in ws, helper
     assert "cp.async.bulk.tensor.4d" in text["hopper.cuh"]
     assert "wgmma.mma_async" in text["hopper.cuh"]
+    # P V at head dims 192 and 256: one wgmma of N = 192 / 256
+    for n in (192, 256):
+        assert f"m64n{n}k16.f32.bf16.bf16" in text["hopper.cuh"], n
     assert "lora_matmul_grouped_kernel" in text["lora_matmul.cu"]
     assert "flash_attention_kernel" in text["flash_attention.cu"]
     assert "flash_decode_split_kernel" in text["flash_decode.cu"]
@@ -551,8 +554,8 @@ def test_gpu_flash_attention_tensor_core_kernel(cuda, b, sq, skv, hq, hkv, d,
                                                 causal, window):
     """bf16 head dims 16/32/64/128, windows, GQA groups 1-5 and non-causal
     Sq != Skv: the tensor-core version the wrapper picks for the head dim
-    (``wgmma`` at 16 and 32, ``wgmma_ws`` at ``WS_HEAD_DIMS``), at the bf16
-    tolerance."""
+    (``wgmma`` at 16 and 32, ``WGMMA_HEAD_DIMS``; ``wgmma_ws`` at the rest
+    of ``BF16_HEAD_DIMS``, ``WS_HEAD_DIMS``), at the bf16 tolerance."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(6)
     q = _rand(rng, (b, hq, sq, d), torch.bfloat16, cuda)
@@ -786,20 +789,55 @@ def test_gpu_flash_attention_head_dim_112(cuda, dtype, version, atol, d):
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [40, 100, 256])
 def test_gpu_flash_attention_simt_head_dims(cuda, dtype, atol, d):
-    """Head dims outside the tensor-core set: the SIMT kernel's padded
-    widths with the tail masked."""
+    """The SIMT kernel's padded widths with the tail masked, at head dims
+    40, 100 and 256: q, k, v one element off 16-byte alignment, so that
+    every dtype takes it (aligned bf16 at 40 and 256 takes ``wgmma_ws``,
+    tested below)."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(32)
-    q = _rand(rng, (2, 4, 70, d), dtype, cuda)
-    k = _rand(rng, (2, 2, 70, d), dtype, cuda)
-    v = _rand(rng, (2, 2, 70, d), dtype, cuda)
-    assert fa.flash_attention_version(dtype, d, True) == "simt"
+    q = _misaligned(_rand(rng, (2, 4, 70, d), dtype, cuda))
+    k = _misaligned(_rand(rng, (2, 2, 70, d), dtype, cuda))
+    v = _misaligned(_rand(rng, (2, 2, 70, d), dtype, cuda))
+    assert not fa.sixteen_byte_steps(q, k, v)
+    assert fa.flash_attention_version(dtype, d, False) == "simt"
     before = fa.flash_attention.by_version["simt"]
     got = fa.flash_attention(q, k, v, causal=True, window=32).float()
     torch.cuda.synchronize()
     assert fa.flash_attention.by_version["simt"] == before + 1
     want = fa.flash_attention_ref(q, k, v, causal=True, window=32)
     assert (got - want.float()).abs().max() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
+    (1, 200, 200, 8, 1, 8, True, 0),         # group 8, D = 64's
+    (2, 130, 130, 4, 4, 24, True, 64),       # group 1, window
+    (2, 70, 150, 4, 2, 40, False, 0),        # non-causal, Sq < Skv
+    (1, 1, 1, 6, 2, 48, True, 0),            # one query
+    (2, 150, 70, 4, 2, 56, False, 0),        # non-causal, Sq > Skv
+    (1, 300, 300, 8, 2, 136, True, 0),       # D = 192's, key tiles of 64
+    (2, 130, 130, 6, 2, 192, True, 1024),    # window past S
+    (1, 150, 300, 4, 1, 200, False, 64),     # D = 256's, non-causal window
+    (1, 300, 300, 7, 1, 256, True, 64),      # group 7, window 64
+    (4, 512, 512, 16, 4, 256, True, 0)])     # 256 items: ~2 a block
+def test_gpu_flash_attention_ws_widened_head_dims(cuda, b, sq, skv, hq, hkv,
+                                                  d, causal, window):
+    """bf16 through ``wgmma_ws`` at head dims 8-56 (the D = 64
+    instantiation) and 136-256 (D = 192 and 256: key tiles of 64, one Q
+    buffer at D = 256): groups 1-8, one query, ragged S, windows, non-causal
+    Sq != Skv, at the bf16 tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(34)
+    q = _rand(rng, (b, hq, sq, d), torch.bfloat16, cuda)
+    k = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
+    v = _rand(rng, (b, hkv, skv, d), torch.bfloat16, cuda)
+    assert fa.flash_attention_version(torch.bfloat16, d, True) == "wgmma_ws"
+    before = fa.flash_attention.by_version["wgmma_ws"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.by_version["wgmma_ws"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert (got - want.float()).abs().max() <= 2e-2
 
 
 @pytest.mark.gpu

@@ -181,6 +181,52 @@ def test_prefill_flash_vs_reference_pallas(pair):
     np.testing.assert_allclose(t2n(tl), j2n(jl), atol=ATOL, rtol=0)
 
 
+# qwen3-4b's attention regrouped to head dim 256 (its 32 x 128 query and
+# 8 x 128 KV widths as 16 x 256 and 4 x 256, as Gemma-2 and Gemma-3 group
+# theirs): the narrow variant keeps the head dim and the group of 4 over 1
+# KV head, the width and depth cut as ``narrow`` cuts them
+HEADDIM_256 = dict(narrow("qwen3-4b"), n_heads=4, n_kv_heads=1, head_dim=256)
+
+
+def test_head_dim_256_variant_of_qwen3_4b():
+    """The head-dim-256 variant the card runs at full width keeps every
+    projection of qwen3-4b (q_dim 4096, kv_dim 1024) and only regroups the
+    heads; its narrow variant keeps the head dim and the group."""
+    full = get_config("qwen3-4b")
+    wide = dataclasses.replace(full, n_heads=16, n_kv_heads=4, head_dim=256)
+    assert (wide.q_dim, wide.kv_dim) == (full.q_dim, full.kv_dim) == (4096,
+                                                                      1024)
+    assert wide.n_heads // wide.n_kv_heads == GROUP["qwen3-4b"]
+    cfg = dataclasses.replace(full, **HEADDIM_256)
+    assert cfg.resolved_head_dim == 256
+    assert cfg.n_heads // cfg.n_kv_heads == GROUP["qwen3-4b"]
+    assert t_fa.flash_attention_version(torch.bfloat16, 256,
+                                        True) == "wgmma_ws"
+    assert t_fa.ws_instance(256) == 256 and t_fa.ws_keys(256) == 64
+
+
+def test_head_dim_256_prefill_flash_vs_reference_pallas():
+    """``make_prefill_step(impl="flash")`` of qwen3-4b at head dim 256
+    (narrow: 2 layers, d_model 256, f32, same weights on both sides; on the
+    CPU the kernel's plain version) against the reference's
+    ``impl="pallas"`` in interpret mode and its ``impl="naive"``, at
+    ``ATOL``; prompts of 20 (one ragged block) and 70 tokens (two blocks
+    of the reference's kernel)."""
+    jcfg, tcfg, jp, tp = make_pair("qwen3-4b", seed=3, reduced=False,
+                                   **HEADDIM_256)
+    assert tcfg.resolved_head_dim == jcfg.resolved_head_dim == 256
+    step = make_prefill_step(tcfg, impl="flash", device="cpu")
+    for shape, seed in (((2, 20), 6), ((1, 70), 7)):
+        x = _inputs(jcfg, shape, seed)
+        tl = step(tp["frozen"], tp["lora"], x)
+        assert tuple(tl.shape) == (shape[0], tcfg.padded_vocab)
+        for impl in ("pallas", "naive"):
+            jl, _ = JM.prefill(jp["frozen"], jp["lora"], jnp.asarray(x), jcfg,
+                               impl=impl)
+            np.testing.assert_allclose(t2n(tl), j2n(jl), atol=ATOL, rtol=0,
+                                       err_msg=impl)
+
+
 @pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-26b"])
 def test_generate_from_an_embeds_prompt(arch):
     """The port's ``generate`` reads the tokens an embeds-mode decoder
@@ -295,7 +341,8 @@ def test_grouped_plan_deals_every_k_step_once_at_full_width(arch):
 @pytest.mark.parametrize("arch", REGISTRY)
 def test_flash_attention_version_at_the_model_head_dim(arch):
     cfg = get_config(arch)
-    assert cfg.resolved_head_dim in t_fa.TC_HEAD_DIMS
+    assert cfg.resolved_head_dim in t_fa.BF16_HEAD_DIMS
+    assert cfg.resolved_head_dim in t_fa.F32_HEAD_DIMS
     # head dims 128, 112 and 64: the warp-specialised kernel
     assert t_fa.flash_attention_version(torch.bfloat16, cfg.resolved_head_dim,
                                         True) == "wgmma_ws"

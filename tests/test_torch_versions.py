@@ -61,9 +61,20 @@ def test_lora_matmul_version(dtype, k, n, r, aligned, want):
     (BF16, 96, True, "wgmma_ws"), (BF16, 112, True, "wgmma_ws"),
     (F32, 112, True, "tf32x3"), (BF16, 72, True, "wgmma_ws"),
     (BF16, 112, False, "simt"),
-    # the SIMT kernel's head dims: the others up to 256
-    (BF16, 256, True, "simt"), (F32, 256, True, "simt"),
-    (BF16, 40, True, "simt"), (F32, 100, True, "simt"),
+    # bf16 head dims 8..56 and 136..256 (multiples of 8) on the D = 64,
+    # 192 and 256 instantiations of the warp-specialised kernel; f32 keeps
+    # the SIMT kernel there
+    (BF16, 256, True, "wgmma_ws"), (F32, 256, True, "simt"),
+    (BF16, 40, True, "wgmma_ws"), (F32, 100, True, "simt"),
+    (BF16, 8, True, "wgmma_ws"), (BF16, 24, True, "wgmma_ws"),
+    (BF16, 48, True, "wgmma_ws"), (BF16, 56, True, "wgmma_ws"),
+    (BF16, 136, True, "wgmma_ws"), (BF16, 192, True, "wgmma_ws"),
+    (BF16, 200, True, "wgmma_ws"), (F32, 40, True, "simt"),
+    (F32, 192, True, "simt"), (F32, 8, True, "simt"),
+    # unaligned calls and head dims off the multiples of 8: SIMT
+    (BF16, 40, False, "simt"), (BF16, 256, False, "simt"),
+    (BF16, 192, False, "simt"), (BF16, 100, True, "simt"),
+    (BF16, 36, True, "simt"), (BF16, 252, True, "simt"),
 ])
 def test_flash_attention_version(dtype, d, aligned, want):
     assert t_fa.flash_attention_version(dtype, d, aligned) == want
@@ -72,14 +83,32 @@ def test_flash_attention_version(dtype, d, aligned, want):
 def test_ws_head_dims_are_the_model_paths():
     """The head dims every model path hands bf16 ``flash_attention`` at
     full width (128: the qwen, phi3 and internvl configs; 112:
-    kimi-k2-1t-a32b; 64: llama32-1b, musicgen-large, hymba, granite) take
-    the warp-specialised kernel: 64 and every multiple of 8 from 72 to 128,
-    one rule; the tensor-core versions add 16 and 32, and the SIMT kernel
-    takes every head dim up to 256."""
-    assert t_fa.WS_HEAD_DIMS == (64, 72, 80, 88, 96, 104, 112, 120, 128)
-    assert t_fa.TC_HEAD_DIMS == (16, 32) + t_fa.WS_HEAD_DIMS
+    kimi-k2-1t-a32b; 64: llama32-1b, musicgen-large, hymba, granite; 256:
+    qwen3-4b regrouped as Gemma-2 and Gemma-3 group their heads) take the
+    warp-specialised kernel: every multiple of 8 from 8 to 256 but 16 and
+    32, which keep the ``wgmma`` kernel; f32 takes the tensor cores at 16,
+    32, 64 and the multiples of 8 from 72 to 128; the SIMT kernel takes
+    every head dim up to 256."""
+    assert t_fa.BF16_HEAD_DIMS == tuple(range(8, 257, 8))
+    assert t_fa.WGMMA_HEAD_DIMS == (16, 32)
+    assert t_fa.WS_HEAD_DIMS == tuple(d for d in range(8, 257, 8)
+                                      if d not in (16, 32))
+    assert t_fa.F32_HEAD_DIMS == (16, 32, 64, 72, 80, 88, 96, 104, 112,
+                                  120, 128)
     assert t_fa.MAX_HEAD_DIM == 256
-    assert {64, 112, 128} <= set(t_fa.WS_HEAD_DIMS)
+    assert {64, 112, 128, 256} <= set(t_fa.WS_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_ws_instance_is_the_narrowest_that_holds_the_head_dim(d):
+    """Each head dim runs the narrowest of the kernel's instantiations (64,
+    128, 192, 256) that holds it; their K / V tiles are 128 keys up to
+    D = 128 and 64 keys above (a block's shared memory), as
+    ``csrc/flash_attention_ws.cu``'s ``Cfg`` says."""
+    inst = t_fa.ws_instance(d)
+    assert inst in t_fa.WS_INSTANCES == (64, 128, 192, 256)
+    assert d <= inst and all(w < d for w in t_fa.WS_INSTANCES if w < inst)
+    assert t_fa.ws_keys(d) == (128 if inst <= 128 else 64)
 
 
 def _covered(k, splits, ips):
