@@ -124,6 +124,10 @@ __device__ __forceinline__ int acc_col(int tid, int i) {
 #define REPRO_F128 \
   REPRO_F96, REPRO_F8(96), REPRO_F8(104), REPRO_F8(112), REPRO_F8(120)
 
+#define REPRO_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define REPRO_R16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15}"
 #define REPRO_R32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
@@ -166,6 +170,43 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
       ", %32, %33, p, 1, 1, 0, %35;\n}\n"
       : REPRO_F32
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D (64 x 16 / 64 x 32, f32) += A (64 x 16, shared, K-major) * B (16 x N,
+// shared): the narrow products of X @ A beside X @ W (N = 16 reads the first
+// 16 columns, N = 32 the first 32, of a 64-wide MN-major panel).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " REPRO_R8
+      ", %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : REPRO_F8(0)
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REPRO_R16
+      ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : REPRO_F8(0), REPRO_F8(8)
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D (64 x 256, f32) += A (64 x 16, shared, K-major) * B (16 x 256, shared).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REPRO_R128
+      ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : REPRO_F128
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
@@ -271,6 +312,8 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
 #undef REPRO_F64
 #undef REPRO_F96
 #undef REPRO_F128
+#undef REPRO_R8
+#undef REPRO_R16
 #undef REPRO_R32
 #undef REPRO_R64
 #undef REPRO_R96
@@ -309,6 +352,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                :: "r"(bar), "r"(bytes) : "memory");
 }
 
+// One arrival on the barrier at offset `bar` of CTA `cta` of the cluster
+// (this CTA's own, or a peer's).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(bar), "r"(cta) : "memory");
+}
+
 // Spins until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -345,6 +399,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same for a 2-D map (c0 innermost).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// The same box written into the shared memory of every CTA of the cluster
+// named in `mask` (bit i: CTA rank i), at the same offset `dst`, each
+// CTA's bytes counted down on its own barrier at offset `bar`.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const void* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask),
+         "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -394,6 +474,20 @@ __device__ __forceinline__ void bar_sync(uint32_t id, uint32_t threads) {
 
 __device__ __forceinline__ void bar_arrive(uint32_t id, uint32_t threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread block clusters: this CTA's rank in its cluster, and a barrier
+// of every thread of every CTA of the cluster (all must reach it).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---- register budgets of a warp-specialised block: a warpgroup gives up

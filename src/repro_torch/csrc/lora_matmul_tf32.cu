@@ -58,7 +58,11 @@
 //     operands land, and stores Y once.
 //
 // Rounding order: that of the plain version and of the TPU kernel
-// (kernels/ref.py): f32 sums; X@A is rounded to the activation dtype before
+// (kernels/ref.py): f32 sums; the tensor cores' own f32 sums truncate at
+// each k8 step, so each stage's 32 of K is summed on them from zero and
+// added to the running sum by an ordinary f32 add (carried over all of
+// K, the truncation drifted by about (K / 8) 2^-24 of the sum: 1.3e-4 of
+// max |want| at K = 18944); X@A is rounded to the activation dtype before
 // it meets B, which in f32 is no rounding at all; s * correction is added
 // before the single store. Nothing carries over between calls and nothing
 // synchronises with the host (the kernels of a call follow one another in
@@ -217,6 +221,21 @@ lora_matmul_tf32_split_kernel(const float* __restrict__ X,
       load((it + STAGES - 1) % STAGES, it + STAGES - 1);
     cp_async_commit();
     const float* sb = ring + (it % STAGES) * T::STAGE;
+    // the stage's products go to sums of their own, added to acc / xa
+    // once a stage: the tensor cores' f32 accumulation truncates, so sums
+    // carried over all of K drift by about (K / 8) 2^-24 of their size
+    float sa[2][4][4], sx[2][XT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[i][n][e] = 0.f;
+#pragma unroll
+      for (int n = 0; n < XT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sx[i][n][e] = 0.f;
+    }
 #pragma unroll
     for (int kb = 0; kb < KB; ++kb) {
       uint32_t ahi[2][4], alo[2][4];
@@ -231,7 +250,7 @@ lora_matmul_tf32_split_kernel(const float* __restrict__ X,
                             g,
                         LDW);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) mma3<4>(acc[i], ahi[i], alo[i], bq);
+      for (int i = 0; i < 2; ++i) mma3<4>(sa[i], ahi[i], alo[i], bq);
       if (do_xa) {
         float4 bx[XT];
 #pragma unroll
@@ -240,7 +259,20 @@ lora_matmul_tf32_split_kernel(const float* __restrict__ X,
                               8 * (XT * wn + n) + g,
                           T::LDA);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma3<XT>(xa[i], ahi[i], alo[i], bx);
+        for (int i = 0; i < 2; ++i) mma3<XT>(sx[i], ahi[i], alo[i], bx);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] += sa[i][n][e];
+      if (do_xa) {
+#pragma unroll
+        for (int n = 0; n < XT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xa[i][n][e] += sx[i][n][e];
       }
     }
   }
@@ -383,18 +415,25 @@ lora_matmul_tf32_wg_kernel(const float* __restrict__ X,
       split_rz(p[4 * LDW], ahi[kb][2], alo[kb][2]);
       split_rz(p[4 * LDW + 8], ahi[kb][3], alo[kb][3]);
     }
+    // the stage's products to a sum of its own, added to acc once a stage
+    // (the tensor cores' f32 accumulation truncates: see the split kernel)
+    float part[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[i] = 0.f;
     wgmma_fence();
 #pragma unroll
     for (int kb = 0; kb < KB; ++kb) {
       const uint64_t dhi = desc128(sb + 32 * kb, 16, 1024);
       const uint64_t dlo = desc128(sb + WG_XP + 32 * kb, 16, 1024);
-      wgmma_rs_tf32(acc, alo[kb], dhi);
-      wgmma_rs_tf32(acc, ahi[kb], dlo);
-      wgmma_rs_tf32(acc, ahi[kb], dhi);
+      wgmma_rs_tf32(part, alo[kb], dhi);
+      wgmma_rs_tf32(part, ahi[kb], dlo);
+      wgmma_rs_tf32(part, ahi[kb], dhi);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc);
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
   }
   // f32 partials, transposed back: acc element i is column (or rank)
   // n0 + acc_row, row m0 + acc_col

@@ -23,8 +23,9 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_tf32",
-           "lora_matmul_grouped_tc", "lora_matmul_grouped_tf32",
+SOURCES = ("lora_matmul", "lora_matmul_tc", "lora_matmul_ws",
+           "lora_matmul_tf32", "lora_matmul_grouped_tc",
+           "lora_matmul_grouped_tf32",
            "flash_attention", "flash_attention_tc",
            "flash_attention_ws", "flash_attention_tf32", "flash_decode",
            "ssd_scan", "ssd_scan_tc")
@@ -50,6 +51,12 @@ _SIGNATURES = {
         # x, w, a, b, y, ws_y, ws_xa, M, K, N, r, scale, bn, splits,
         # iters_per_split, stream
         "lora_matmul_tc_launch": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    },
+    "lora_matmul_ws": {
+        # x, w, a, b, y, ws_y, ws_xa, M, K, N, r, scale, cl, dp, tail,
+        # splits, iters_per_split, blocks (the persistent grid), stream
+        "lora_matmul_ws_launch": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
+        "lora_matmul_ws_max_pairs": [],
     },
     "lora_matmul_tf32": {
         # x, w, a, b, y, ws_y, ws_xa, M, K, N, r, scale, splits,

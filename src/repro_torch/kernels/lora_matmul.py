@@ -5,8 +5,11 @@
 Replaces: the Pallas TPU kernels ``lora_matmul`` and ``lora_matmul_grouped``
 of ``src/repro/kernels/lora_matmul.py``. CUDA sources (built and bound by
 ``_build``): ``csrc/lora_matmul_tc.cu`` (``lora_matmul`` on the tensor
-cores, bf16), ``csrc/lora_matmul_tf32.cu`` (``lora_matmul`` on the tensor
-cores, f32 as three tf32 products), ``csrc/lora_matmul_grouped_tc.cu``
+cores, bf16), ``csrc/lora_matmul_ws.cu`` (``lora_matmul`` on the tensor
+cores, bf16, from ``WS_MIN_ROWS`` rows: warp-specialised, persistent,
+clusters of two sharing W), ``csrc/lora_matmul_tf32.cu`` (``lora_matmul``
+on the tensor cores, f32 as three tf32 products),
+``csrc/lora_matmul_grouped_tc.cu``
 (``lora_matmul_grouped`` on the tensor cores, bf16),
 ``csrc/lora_matmul_grouped_tf32.cu`` (``lora_matmul_grouped`` on the tensor
 cores, f32 as three tf32 products) and ``csrc/lora_matmul.cu`` (the SIMT
@@ -14,15 +17,22 @@ kernels of both, for the shapes the tensor-core kernels do not take).
 
 Bound on this card: at the serving shapes (64 rows of a prefill chunk, one
 row per request in a decode tick) both are bound by bytes, those of ``W``
-(and, at ranks above 64 in a tick, of each row's ``A``). The kernels read
-``W`` once per tile of rows, keep ``X @ A`` out of the output's path until
-its one rounding and add the rank-r correction before the output is
-rounded; the grouped kernels read each request's adapter through ``ids``
-from the bank where it lies, so no gathered copy is made for it.
+(and, at ranks above 64 in a tick, of each row's ``A``); over a long
+prompt's chunk (hundreds to thousands of rows) ``lora_matmul`` is bound by
+operations. The kernels read ``W`` once per tile of rows, keep ``X @ A``
+out of the output's path until its one rounding and add the rank-r
+correction before the output is rounded; the grouped kernels read each
+request's adapter through ``ids`` from the bank where it lies, so no
+gathered copy is made for it.
 ``lora_matmul_version`` / ``lora_matmul_grouped_version`` name the version
 a call takes, by dtype, shape and alignment alone (never by failure):
-``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 256; 16-byte aligned
-pointers and bank strides) splits K over blocks by ``tc_plan`` /
+``"wgmma_ws"`` (``lora_matmul``, bf16, M >= ``WS_MIN_ROWS``, at least
+``WS_MIN_STEPS`` tile steps, r <= 64; the schedule by ``ws_plan``, dealt
+by ``ws_units``: 128 x 256 tiles, whole waves, then the last wave split
+along K); ``"wgmma"`` (bf16; K, N, r
+multiples of 8, r <= 256; 16-byte aligned pointers and bank strides; fewer
+rows or work, and ranks past 64 at any M) splits K over blocks by
+``tc_plan`` /
 ``grouped_plan`` so that every SM streams W, and takes x@A in 64-rank
 panels (``RANK_PANEL``: blocks of their own for ``lora_matmul``, units
 dealt over the blocks by ``grouped_xa_units`` for the grouped kernel);
@@ -61,7 +71,7 @@ plain version only for a CPU tensor. ``<wrapper>.launches`` counts launches
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,6 +88,12 @@ TF32_TILE = 64              # its output tiles: 64 x 64
 TF32_GROUPED_BN = 64        # columns of W a block of the f32 grouped kernel
 TF32_XA_COLS = 32           # its x@A blocks: units x r of x@A, r <= 32
 TF32_GROUPED_STEPS = 8      # its most K steps a split (256 of K)
+WS_MIN_ROWS = 128           # M from which bf16 takes "wgmma_ws" (PERF.md)
+WS_MIN_STEPS = 1536         # and its tiles x K steps from (PERF.md)
+WS_MAX_RANK = 64            # its largest rank (X@A held in registers)
+WS_BM = 128                 # its tiles' rows: two consumers of 64
+WS_BN = 256                 # its tiles' columns
+WS_GM = 8                   # M tiles of one of its dealing groups
 
 
 # ---------------------------------------------------------------------------
@@ -128,15 +144,11 @@ def _check_rank(r: int) -> None:
         raise ValueError(f"rank {r}: the kernels take 1..{SIMT_MAX_RANK}")
 
 
-def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
-                        aligned: bool) -> str:
-    """The kernel a CUDA call of ``lora_matmul`` takes, when every pointer
-    is 16-byte aligned: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``) for bf16
-    with K, N and r multiples of 8 and r <= ``WGMMA_MAX_RANK`` (256),
-    ``"tf32x3"`` (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r
-    multiples of 4 and r <= ``TF32_MAX_RANK`` (256) (whole 16-byte copies
-    either way); otherwise ``"simt"`` (``csrc/lora_matmul.cu``, r up to
-    ``SIMT_MAX_RANK``)."""
+def _tc_version(dtype: torch.dtype, k: int, n: int, r: int,
+                aligned: bool) -> str:
+    """The tensor-core version a dtype, K, N, r and alignment allow (any
+    M): ``"wgmma"`` (bf16; K, N, r multiples of 8, r <= 256), ``"tf32x3"``
+    (f32; multiples of 4, r <= 256), else ``"simt"``."""
     if aligned:
         if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
                 and r % 8 == 0 and r <= WGMMA_MAX_RANK):
@@ -145,6 +157,32 @@ def lora_matmul_version(dtype: torch.dtype, k: int, n: int, r: int,
                 and r % 4 == 0 and r <= TF32_MAX_RANK):
             return "tf32x3"
     return "simt"
+
+
+def lora_matmul_version(dtype: torch.dtype, m: int, k: int, n: int, r: int,
+                        aligned: bool) -> str:
+    """The kernel a CUDA call of ``lora_matmul`` on ``m`` rows takes, when
+    every pointer is 16-byte aligned: for bf16 with K, N and r multiples of
+    8, ``"wgmma_ws"`` (``csrc/lora_matmul_ws.cu``, the warp-specialised
+    persistent kernel) where ``m >= WS_MIN_ROWS``, the call holds at
+    least ``WS_MIN_STEPS`` steps of work (output tiles of 128 x 256 times
+    K steps of 64: less, as qwen2-7b's k / v projections over 1024 rows,
+    16 tiles x 56 steps, is split along K so finely that the f32 partials
+    and the kernel's fixed costs lose to ``"wgmma"``) and r <=
+    ``WS_MAX_RANK`` (64: X@A rides beside X@W in the consumers'
+    registers), else ``"wgmma"`` (``csrc/lora_matmul_tc.cu``: fewer rows or
+    less work, and ranks 72 to ``WGMMA_MAX_RANK`` (256) at any M);
+    ``"tf32x3"``
+    (``csrc/lora_matmul_tf32.cu``) for f32 with K, N and r multiples of 4
+    and r <= ``TF32_MAX_RANK`` (256) (whole 16-byte copies either way);
+    otherwise ``"simt"`` (``csrc/lora_matmul.cu``, r up to
+    ``SIMT_MAX_RANK``)."""
+    version = _tc_version(dtype, k, n, r, aligned)
+    steps = -(-m // WS_BM) * -(-n // WS_BN) * -(-k // TC_BK)
+    if (version == "wgmma" and m >= WS_MIN_ROWS and steps >= WS_MIN_STEPS
+            and r <= WS_MAX_RANK):
+        return "wgmma_ws"
+    return version
 
 
 @functools.lru_cache(maxsize=256)
@@ -170,6 +208,116 @@ def tc_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
         if tiles * splits >= sms:
             break
     return plan
+
+
+class WsPlan(NamedTuple):
+    """The warp-specialised kernel's schedule (``ws_plan``)."""
+    cl: int         # CTAs of a cluster: 2 along M, 1 for a single M tile
+    dp: int         # group tiles run whole, in waves of ``slots``
+    tail: int       # group tiles after them, each split along K
+    splits: int     # K ranges of a tail tile (1: no tail)
+    ips: int        # K steps of a range (the last takes the rest)
+    blocks: int     # the persistent grid: cl x clusters
+
+
+@functools.lru_cache(maxsize=256)
+def ws_plan(m: int, k: int, n: int, sms: int,
+            pairs: Optional[int] = None) -> WsPlan:
+    """Grid of the warp-specialised kernel for ``sms`` SMs, of which
+    ``pairs`` clusters of two CTAs fit at once (``sms // 2`` unless the
+    card says less).
+
+    A group tile is ``cl`` M tiles of 128 rows side by side (a cluster:
+    ``cl`` = 2 where M has two tiles or more, each CTA loading half of W's
+    slab into both) and one N tile of ``WS_BN`` columns; K is cut into
+    ``ceil(k / 64)`` steps. ``slots`` clusters run at once (``pairs``, or
+    ``sms`` at ``cl`` = 1). The group tiles of whole waves (``dp``) each run
+    all of K; the last, partial wave's ``tail`` tiles (all of them, where
+    there are fewer than ``slots``) are each split into ``splits`` K ranges
+    of ``ips`` steps, as many as keep the tail's units within one wave
+    (``slots // tail``), and a reduce kernel sums their f32 partials; where
+    that is one range, the tail runs whole too."""
+    pairs = sms // 2 if pairs is None else pairs
+    kst = -(-k // TC_BK)
+    mt = -(-m // WS_BM)
+    cl = 2 if mt >= 2 else 1
+    slots = pairs if cl == 2 else sms
+    tiles = -(-mt // cl) * -(-n // WS_BN)
+    dp = tiles // slots * slots
+    tail = tiles - dp
+    splits, ips = 1, kst
+    if tail:
+        ips = -(-kst // max(1, slots // tail))
+        splits = -(-kst // ips)
+    if splits == 1:
+        dp, tail, ips = tiles, 0, kst
+    return WsPlan(cl, dp, tail, splits, ips,
+                  cl * min(dp + tail * splits, slots))
+
+
+def ws_tile(m: int, n: int, cl: int, t: int) -> Tuple[int, int]:
+    """Group tile ``t``: ``(M group, N tile)``. The tiles go in runs of
+    ``WS_GM // cl`` M groups (fewer in the last run), M fastest, so that the
+    clusters in flight share W's and X's slabs in L2."""
+    run = WS_GM // cl
+    groups = -(-(-(-m // WS_BM)) // cl)
+    g, within = divmod(t, run * -(-n // WS_BN))
+    size = min(groups - g * run, run)
+    return g * run + within % size, within // size
+
+
+def ws_units(m: int, k: int, n: int, sms: int, pairs: Optional[int] = None
+             ) -> List[List[Tuple[int, int, int, int, int]]]:
+    """Each cluster's work units in the order it runs them, as the kernel
+    deals them (cluster ``c`` takes units ``c, c + clusters, ...``): ``(M
+    group, N tile, first K step, K steps, split)``, split -1 for a unit of
+    all of K. CTA ``i`` of a cluster computes M tile ``cl * group + i``."""
+    plan = ws_plan(m, k, n, sms, pairs)
+    kst = -(-k // TC_BK)
+    clusters = plan.blocks // plan.cl
+    units = []
+    for u in range(plan.dp + plan.tail * plan.splits):
+        if u < plan.dp:
+            units.append((*ws_tile(m, n, plan.cl, u), 0, kst, -1))
+        else:
+            split, tt = divmod(u - plan.dp, plan.tail)
+            k0 = split * plan.ips
+            units.append((*ws_tile(m, n, plan.cl, plan.dp + tt), k0,
+                          min(plan.ips, kst - k0), split))
+    return [units[c::clusters] for c in range(clusters)]
+
+
+_ws_pairs = {}      # device index -> clusters of two the kernel fits at once
+
+
+def launch_ws(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, y: torch.Tensor, scale: float,
+              stream: int) -> int:
+    """Enqueue ``csrc/lora_matmul_ws.cu`` on ``stream`` for contiguous,
+    aligned bf16 CUDA tensors that ``lora_matmul`` has checked; returns the
+    launch's error code."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    lib = _build.load("lora_matmul_ws")
+    dev = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    if dev not in _ws_pairs:
+        _ws_pairs[dev] = lib.lora_matmul_ws_max_pairs()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = ws_plan(m, k, n, sms, _ws_pairs[dev] or None)
+    ws_y = ws_xa = 0
+    if plan.tail:
+        # f32 partials of the tail's tiles: X@W (splits * tail * cl tiles of
+        # 128 x 256), then X@A (as many of 128 x r)
+        tiles = plan.splits * plan.tail * plan.cl * WS_BM
+        ws = torch.empty(tiles * (WS_BN + r), dtype=torch.float32,
+                         device=x.device)
+        ws_y = ws.data_ptr()
+        ws_xa = ws_y + 4 * tiles * WS_BN
+    return lib.lora_matmul_ws_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+        ws_y, ws_xa, m, k, n, r, float(scale), plan.cl, plan.dp, plan.tail,
+        plan.splits, plan.ips, plan.blocks, stream)
 
 
 def tf32_panels(r: int) -> List[Tuple[int, int]]:
@@ -230,7 +378,7 @@ def lora_matmul_grouped_version(dtype: torch.dtype, k: int, n: int, r: int,
     (``csrc/lora_matmul_grouped_tc.cu``) for bf16, ``"tf32x3"``
     (``csrc/lora_matmul_grouped_tf32.cu``) for f32, otherwise ``"simt"``
     (``csrc/lora_matmul.cu``)."""
-    return lora_matmul_version(dtype, k, n, r, aligned)
+    return _tc_version(dtype, k, n, r, aligned)
 
 
 @functools.lru_cache(maxsize=256)
@@ -386,7 +534,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     x, w, a, b = (t.contiguous() for t in (x, w, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     version = lora_matmul_version(
-        x.dtype, k, n, r, all(t.data_ptr() % 16 == 0 for t in (x, w, a, b)))
+        x.dtype, m, k, n, r,
+        all(t.data_ptr() % 16 == 0 for t in (x, w, a, b)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if version == "wgmma":
@@ -401,6 +550,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                 y.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * splits * m * n,
                 m, k, n, r, float(scale), bn, splits, ips, stream)
+        elif version == "wgmma_ws":
+            code = launch_ws(x, w, a, b, y, scale, stream)
         elif version == "tf32x3":
             code = launch_tf32x3(x, w, a, b, y, scale, stream)
         else:
@@ -415,7 +566,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 lora_matmul.launches = 0
-lora_matmul.by_version = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+lora_matmul.by_version = {"wgmma_ws": 0, "wgmma": 0, "tf32x3": 0,
+                          "simt": 0}
 
 
 def lora_matmul_grouped(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -55,7 +55,7 @@ LORA_BENCH, FLASH_BENCH = (512, 512, 512, 16), (1, 512, 8, 4, 64)
     (53, 41, 3, True, "simt"),
 ])
 def test_lora_matmul_f32_version(k, n, r, aligned, want):
-    assert t_lm.lora_matmul_version(F32, k, n, r, aligned) == want
+    assert t_lm.lora_matmul_version(F32, 64, k, n, r, aligned) == want
 
 
 @pytest.mark.parametrize("k,n,r,aligned,want", [
@@ -154,7 +154,7 @@ def test_tf32_plan_panels_at_ranks_above_64(m, k, n, r):
     cover the ranks once, 64 a panel and a ragged last one; every 32-deep K
     step in one split, none empty; at least two blocks per SM (the
     H100's 132), which the r > 64 kernel's plan asks for."""
-    assert t_lm.lora_matmul_version(F32, k, n, r, True) == "tf32x3"
+    assert t_lm.lora_matmul_version(F32, m, k, n, r, True) == "tf32x3"
     panels = t_lm.tf32_panels(r)
     assert [j for p, w in panels for j in range(p, p + w)] == list(range(r))
     assert all(0 < w <= 64 for _, w in panels) and len(panels) == -(-r // 64)

@@ -173,6 +173,7 @@ def test_csrc_holds_the_three_kernels():
     csrc = os.path.join(PKG_DIR, "csrc")
     text = {n: open(os.path.join(csrc, n)).read()
             for n in ("lora_matmul.cu", "lora_matmul_tc.cu",
+                      "lora_matmul_ws.cu",
                       "lora_matmul_tf32.cu", "lora_matmul_grouped_tc.cu",
                       "lora_matmul_grouped_tf32.cu",
                       "flash_attention.cu", "flash_attention_tc.cu",
@@ -192,6 +193,13 @@ def test_csrc_holds_the_three_kernels():
     for helper in ("tma_load_4d", "mbar_wait", "bar_sync", "setmaxnreg_dec",
                    "setmaxnreg_inc"):
         assert helper in ws, helper
+    # bf16 lora_matmul at prefill-sized M: TMA producer, two consumers,
+    # clusters of two sharing W's slab by multicast
+    lws = text["lora_matmul_ws.cu"]
+    assert "lora_matmul_ws_kernel" in lws
+    for helper in ("tma_load_2d_multicast", "mbar_arrive_cluster",
+                   "cluster_sync", "setmaxnreg_dec", "wgmma_wait<1>"):
+        assert helper in lws, helper
     assert "cp.async.bulk.tensor.4d" in text["hopper.cuh"]
     assert "wgmma.mma_async" in text["hopper.cuh"]
     # P V at head dims 192 and 256: one wgmma of N = 192 / 256
@@ -213,7 +221,7 @@ def test_csrc_holds_the_three_kernels():
     assert "flash_attention_tf32_kernel" in text["flash_attention_tf32.cu"]
     from repro_torch.kernels import _build, launch_counts
     assert set(_build.SOURCES) == {"lora_matmul", "lora_matmul_tc",
-                                   "lora_matmul_tf32",
+                                   "lora_matmul_ws", "lora_matmul_tf32",
                                    "lora_matmul_grouped_tc",
                                    "lora_matmul_grouped_tf32",
                                    "flash_attention", "flash_attention_tc",
@@ -406,7 +414,7 @@ def test_gpu_lora_matmul_kernel(cuda, dtype, c):
     for m, k, n, r in ((37, 53, 41, 3), (64, 256, 192, 16), (70, 130, 90, 40)):
         x, w = _rand(rng, (m, k), dtype, cuda), _rand(rng, (k, n), dtype, cuda)
         a, b = _rand(rng, (k, r), dtype, cuda), _rand(rng, (r, n), dtype, cuda)
-        version = lm.lora_matmul_version(dtype, k, n, r, True)
+        version = lm.lora_matmul_version(dtype, m, k, n, r, True)
         before = lm.lora_matmul.launches
         before_version = lm.lora_matmul.by_version[version]
         got = lm.lora_matmul(x, w, a, b, 0.5).float()
@@ -415,6 +423,34 @@ def test_gpu_lora_matmul_kernel(cuda, dtype, c):
         assert lm.lora_matmul.by_version[version] == before_version + 1
         want = lm.lora_matmul_ref(x, w, a, b, 0.5).float()
         assert (got - want).abs().max() <= c * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,r", [(128, 64, 8, 8), (129, 200, 136, 16),
+                                     (300, 600, 264, 24), (256, 1096, 520, 64),
+                                     (700, 3592, 512, 32),
+                                     (1000, 1096, 3080, 16)])
+def test_gpu_lora_matmul_ws_kernel(cuda, monkeypatch, m, k, n, r):
+    """bf16 ``lora_matmul`` on the warp-specialised kernel: one M tile
+    (unclustered), clusters of two M tiles, ragged M, N and K, split
+    tails, ranks 8 to 64. The rule takes it from ``WS_MIN_ROWS`` rows and
+    ``WS_MIN_STEPS`` tile steps (the last shape, 104 tiles x 18 K steps);
+    the smaller shapes are forced onto it."""
+    from repro_torch.kernels import lora_matmul as lm
+    rng = np.random.default_rng(m + r)
+    dtype = torch.bfloat16
+    x, w = _rand(rng, (m, k), dtype, cuda), _rand(rng, (k, n), dtype, cuda)
+    a, b = _rand(rng, (k, r), dtype, cuda), _rand(rng, (r, n), dtype, cuda)
+    steps = -(-m // lm.WS_BM) * -(-n // lm.WS_BN) * -(-k // lm.TC_BK)
+    assert (lm.lora_matmul_version(dtype, m, k, n, r, True) == "wgmma_ws") \
+        == (steps >= lm.WS_MIN_STEPS)
+    monkeypatch.setattr(lm, "lora_matmul_version", lambda *a: "wgmma_ws")
+    before = lm.lora_matmul.by_version["wgmma_ws"]
+    got = lm.lora_matmul(x, w, a, b, 2.0).float()
+    torch.cuda.synchronize()
+    assert lm.lora_matmul.by_version["wgmma_ws"] == before + 1
+    want = lm.lora_matmul_ref(x, w, a, b, 2.0).float()
+    assert (got - want).abs().max() <= 1e-2 * want.abs().max()
 
 
 @pytest.mark.gpu
@@ -672,6 +708,34 @@ def test_gpu_lora_matmul_tf32x3_kernel(cuda, m, k, n, r):
     torch.cuda.synchronize()
     want = lm.lora_matmul_ref(x, w, a, b, 2.0)
     assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,r", [(64, 18944, 512, 16),
+                                     (1024, 18944, 256, 16),
+                                     (64, 18944, 256, 128)])
+def test_gpu_lora_matmul_tf32x3_keeps_f32_accuracy_over_a_long_k(cuda, m, k,
+                                                                 n, r):
+    """f32 over K = 18944 (qwen2-7b's down projection), both split kernels
+    (r <= 64 on mma.sync, r > 64 on wgmma): the tf32x3 version's error from
+    an f64 reference within 8x the plain f32 version's (three tf32 products
+    against f32's rounding); its sums over all of K on the tensor cores,
+    which truncate, were 100x and more."""
+    from repro_torch.kernels import lora_matmul as lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(10)
+    x, w = _rand(rng, (m, k), torch.float32, cuda), \
+        _rand(rng, (k, n), torch.float32, cuda)
+    a, b = _rand(rng, (k, r), torch.float32, cuda), \
+        _rand(rng, (r, n), torch.float32, cuda)
+    before = lm.lora_matmul.by_version["tf32x3"]
+    got = lm.lora_matmul(x, w, a, b, 2.0)
+    assert lm.lora_matmul.by_version["tf32x3"] == before + 1
+    xd, wd, ad, bd = (t.double() for t in (x, w, a, b))
+    want = xd @ wd + 2.0 * ((xd @ ad) @ bd)
+    plain = lm.lora_matmul_ref(x, w, a, b, 2.0)
+    err = (got.double() - want).abs().max()
+    assert err <= 8 * (plain.double() - want).abs().max()
 
 
 @pytest.mark.gpu
@@ -1085,10 +1149,13 @@ def test_gpu_serving_twin_launches_both_lora_kernels(cuda):
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = ((d, q), (d, kv), (q, d), (d, ff), (ff, d))
     # the reduced width is f32: tf32x3 prefill chunks and ticks
-    want = {name: {fn(dtype, k, n, r, True) for k, n in shapes}
-            for name, fn in (("lora_matmul", lm.lora_matmul_version),
-                             ("lora_matmul_grouped",
-                              lm.lora_matmul_grouped_version))}
+    # lora_matmul over the twin's 4-row prefill chunks
+    rules = (("lora_matmul",
+              lambda *a: lm.lora_matmul_version(dtype, 4, *a)),
+             ("lora_matmul_grouped",
+              lambda *a: lm.lora_matmul_grouped_version(dtype, *a)))
+    want = {name: {fn(k, n, r, True) for k, n in shapes}
+            for name, fn in rules}
     res = serving_bench.run(**t_run.SERVING_SMOKE, reduced=True)
     assert all(row["drained"] for row in res["sweep"])
     for name, versions in want.items():

@@ -306,8 +306,8 @@ def test_tc_plan_deals_every_k_step_once_at_full_width(arch):
     projection: K = 18944, 296 steps), bf16 ``wgmma``."""
     cfg = get_config(arch)
     for k, n in _projections(cfg):
-        assert t_lm.lora_matmul_version(torch.bfloat16, k, n, cfg.lora.rank,
-                                        True) == "wgmma", (k, n)
+        assert t_lm.lora_matmul_version(torch.bfloat16, 64, k, n,
+                                        cfg.lora.rank, True) == "wgmma", (k, n)
         for m in (8, 64, 4096):
             bn, splits, ips = t_lm.tc_plan(m, k, n, SMS)
             ranges = _k_steps(k, splits, ips)

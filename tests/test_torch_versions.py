@@ -47,7 +47,8 @@ SERVING_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
     (F32, 1024, 2048, 128, False, "simt"),    # a pointer off 16 bytes
 ])
 def test_lora_matmul_version(dtype, k, n, r, aligned, want):
-    assert t_lm.lora_matmul_version(dtype, k, n, r, aligned) == want
+    # a prefill chunk of the engine (64 rows): below WS_MIN_ROWS
+    assert t_lm.lora_matmul_version(dtype, 64, k, n, r, aligned) == want
 
 
 @pytest.mark.parametrize("dtype,d,aligned,want", [
@@ -158,7 +159,7 @@ def test_tc_plan_at_ranks_above_64(k, n, r):
     covers every step once, none empty; with the x@A panels
     (``ceil(r / 64)`` blocks a row tile and split, after the tiles of W)
     the grid starts at least one block per SM."""
-    assert t_lm.lora_matmul_version(BF16, k, n, r, True) == "wgmma"
+    assert t_lm.lora_matmul_version(BF16, 64, k, n, r, True) == "wgmma"
     panels = -(-r // t_lm.RANK_PANEL)
     for m in (4, 64):
         bn, splits, ips = t_lm.tc_plan(m, k, n, 132)
@@ -175,7 +176,8 @@ def test_by_version_counts_reset_with_the_launch_counts():
     t_fa.flash_attention.by_version["simt"] = 2
     t_fa.flash_attention.by_version["wgmma_ws"] = 4
     reset_launch_counts()
-    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert t_lm.lora_matmul.by_version == {"wgmma_ws": 0, "wgmma": 0,
+                                           "tf32x3": 0, "simt": 0}
     assert t_fa.flash_attention.by_version == {"wgmma_ws": 0, "wgmma": 0,
                                                "tf32x3": 0, "simt": 0}
 
@@ -191,7 +193,8 @@ def test_cpu_calls_take_the_plain_version_and_count_no_version():
     t_fa.flash_attention(torch.randn(1, 4, 70, 128, dtype=BF16),
                          torch.randn(1, 2, 70, 128, dtype=BF16),
                          torch.randn(1, 2, 70, 128, dtype=BF16))
-    assert t_lm.lora_matmul.by_version == {"wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert t_lm.lora_matmul.by_version == {"wgmma_ws": 0, "wgmma": 0,
+                                           "tf32x3": 0, "simt": 0}
     assert t_fa.flash_attention.by_version == {"wgmma_ws": 0, "wgmma": 0,
                                                "tf32x3": 0, "simt": 0}
 

@@ -146,7 +146,7 @@ def test_lora_matmul_rank_above_64(m, k, n, r, dtype):
     want = ("wgmma" if dtype == "bfloat16" and k % 8 == n % 8 == r % 8 == 0
             else "tf32x3" if dtype == "float32"
             and k % 4 == n % 4 == r % 4 == 0 else "simt")
-    assert t_lm.lora_matmul_version(TDT[dtype], k, n, r, True) == want
+    assert t_lm.lora_matmul_version(TDT[dtype], m, k, n, r, True) == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -201,7 +201,7 @@ def test_engine_rank_128_token_identical_to_jax_engine():
     assert tcfg.lora.rank == 128 <= t_lm.WGMMA_MAX_RANK == t_lm.TF32_MAX_RANK
     for dtype, version in ((torch.bfloat16, "wgmma"),
                            (torch.float32, "tf32x3")):
-        assert t_lm.lora_matmul_version(dtype, 1024, 2048, 128,
+        assert t_lm.lora_matmul_version(dtype, 4, 1024, 2048, 128,
                                         True) == version
     jads, tads = make_adapters(jcfg, (0, 7, 13))
     assert tads[0]["layers"]["attn"]["wq"]["a"].shape[-1] == 128
